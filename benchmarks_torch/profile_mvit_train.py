@@ -1,0 +1,125 @@
+"""Step time and device-time breakdown of the port's MViT-B 16x4 training on one CUDA card.
+
+    python3 benchmarks_torch/profile_mvit_train.py [--out build/profile_mvit_train.json]
+
+Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
+It trains ``hub.mvit_base_16x4()`` at full width and depth, 16x224x224, with
+the seeded random weights of ``chip_smoke.py``, through
+``VideoClassificationTrainApp`` on the ``classification_mvit_16x4`` recipe
+(AdamW, clip 1.0, MixUp/CutMix) with ``compute_dtype="bfloat16"``, on
+``chip_smoke.SyntheticClips`` (seeded clips made on the card):
+
+1. ms per step and clips/s at B8 and at the preset's B2, with the kernels
+   and with every kernel swapped for its plain version
+   (``chip_smoke.plain_kernels``), run in the order plain, kernels,
+   kernels, plain; each run is ``WARMUP`` steps, then ``STEPS`` steps timed
+   by the host's clock with the card synchronised at both ends. ``STEPS`` is
+   the preset's log interval, so a timed run reads the loss back to the host
+   once, as a user's run does. Both runs
+   are printed; the summary keeps the faster. The peak device memory of
+   each form's timed steps.
+2. ``torch.profiler`` over ``PROFILED_STEPS`` steps with the kernels at each
+   batch: device time per step by kernel group and the top kernels. The
+   card's busy share is that device time over the timed step of 1.
+
+Prints one line per measurement, and writes them all, with the full kernel
+tables, as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+
+from profile_x3d import group_table, kernel_table
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BATCHES = (8, 2)
+WARMUP = 2
+STEPS = 10
+PROFILED_STEPS = 3
+# Kernel groups by name, first match wins.
+KERNEL_GROUPS = [
+    ("attention forward kernel", r"pooled_attention_kernel"),
+    ("attention backward kernels", r"attention_bwd_"),
+    ("token-pool forward kernel", r"token_pool_kernel"),
+    ("token-pool backward kernels (dx, dw)", r"token_pool_d[xw]_"),
+    ("max-pool backward (PyTorch)", r"max_pool|MaxPool"),
+    ("patch-embed conv (cuDNN)", r"fprop|dgrad|wgrad|nhwcAddPadding|convolve|cudnn"),
+    ("GEMM (q/k/v, proj, MLP, head; cuBLAS)", r"nvjet|gemm|xmma|cutlass"),
+    ("layer norm", r"layer_norm|LayerNorm"),
+    ("optimizer and clip (foreach)", r"multi_tensor|foreach|Adam"),
+    ("reductions and softmax", r"reduce_kernel|softmax|Softmax"),
+    ("copy / cast / cat / layout", r"copy|Cat|cat_|transpose|permute"),
+    ("elementwise (GELU, adds, MixUp)", r"elementwise|vectorized|gelu|Gelu"),
+]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=os.path.join(REPO, "build", "profile_mvit_train.json"))
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_mvit_train: torch.cuda.is_available() is false; this run needs a CUDA "
+                 "card")
+    sys.path.insert(0, REPO)
+    from chip_smoke import SyntheticClips, nvidia_smi_line, plain_kernels, run_steps, train_app
+    from pytorchvideo_tpu_torch import train
+
+    card = nvidia_smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
+          f"CUDA {torch.version.cuda}; {card}")
+    app = train_app(train, BATCHES[0], seed=0)
+    report = {"card": card, "torch": torch.__version__, "steps": STEPS, "batches": {}}
+    for B in BATCHES:
+        app.datamodule = SyntheticClips(B, seed=B)
+        runs, peaks = {"plain": [], "kernels": []}, {}
+        for form in ("plain", "kernels", "kernels", "plain"):
+            with plain_kernels() if form == "plain" else contextlib.nullcontext():
+                run_steps(app, WARMUP)
+                torch.cuda.reset_peak_memory_stats()
+                _, ms = run_steps(app, STEPS)
+            runs[form].append(ms)
+            peaks[form] = max(peaks.get(form, 0), torch.cuda.max_memory_allocated())
+        entry = report["batches"][B] = {}
+        for form, times in runs.items():
+            entry[form] = {"ms_runs": times, "clips_per_s": B * 1000.0 / min(times),
+                           "peak_bytes": peaks[form]}
+            print(f"mvit_base_16x4 train ({form}) bf16 16x224x224 B{B}: "
+                  f"{' / '.join(repr(t) for t in times)} ms/step, "
+                  f"{entry[form]['clips_per_s']!r} clips/s (faster run); peak device memory "
+                  f"{peaks[form]!r} bytes; on {card}")
+
+        run_steps(app, 1)
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            run_steps(app, PROFILED_STEPS)
+        rows = kernel_table(prof, PROFILED_STEPS)
+        groups = group_table(rows, KERNEL_GROUPS)
+        device_ms = sum(r["ms"] for r in rows)
+        step_ms = min(runs["kernels"])
+        entry["profile"] = {"device_ms": device_ms, "step_ms": step_ms, "groups": groups,
+                            "kernels": rows}
+        print(f"profile train B{B} ({PROFILED_STEPS} steps): device {device_ms!r} ms/step of "
+              f"{step_ms!r} ms timed (busy share {device_ms / step_ms!r})")
+        for name, g in groups.items():
+            print(f"  group {name}: {g['ms']!r} ms/step, {g['launches']!r} launches/step, "
+                  f"{g['ms'] / device_ms!r} of device time")
+        for r in rows[:20]:
+            print(f"  kernel {r['ms']!r} ms x{r['launches']!r}: {r['name'][:120]}")
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

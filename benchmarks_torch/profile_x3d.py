@@ -49,8 +49,10 @@ KERNEL_GROUPS = [
     ("layout conversion", r"nchwToNhwc|nhwcToNchw"),
     ("elementwise / reduction", r"elementwise|vectorized|reduce|Reduce"),
 ]
-# CUPTI bookkeeping rows that are not device work.
-NOT_DEVICE_WORK = re.compile(r"Command Buffer Full")
+# Rows on the device timeline that are not device work: CUPTI bookkeeping,
+# and the span of the optimizer's ``record_function`` (its kernels have rows
+# of their own).
+NOT_DEVICE_WORK = re.compile(r"Command Buffer Full|^Optimizer\.")
 
 
 def _self_device_us(evt) -> float:

@@ -42,11 +42,37 @@ exits nonzero, printing no result, when a check fails or no card is present.
    plain f32 model (every kernel swapped for its plain version, TF32 off).
 7. ``pool_first``: ``hub.mvit_base_16x4(pool_first=True)`` the same way at
    B4; the per-head attention count rises by 16 per forward.
+8. Backward kernels: the attention backward in both layouts (#5 head-packed,
+   #3 per-head), residual on and off, at the shapes of phase 5, and the conv
+   pool's input and weight gradients (dx, dw) at every conv-pool geometry of
+   MViT-B 16x4 (head-packed: the 96-row weight shared by C / 96 heads); each
+   at B2 in f32 and bf16 against its plain version in f32 (TF32 off) on the
+   same inputs and the same output gradient, and the plain backward against
+   ``torch.autograd.grad`` through the plain forward in f32. Then at the
+   training batch (B8, bf16) the kernel, its plain version and one library
+   call (``F.scaled_dot_product_attention`` forward and backward through
+   ``torch.autograd.grad``; ``aten.convolution_backward`` of the
+   channels-last ``F.conv3d(groups=C)``) are timed per shape.
+9. Training: ``VideoClassificationTrainApp`` on the
+   ``classification_mvit_16x4`` recipe (AdamW, cosine after warmup, clip
+   1.0, MixUp/CutMix with label smoothing 0.1, soft-target cross-entropy)
+   with ``compute_dtype="bfloat16"`` trains ``hub.mvit_base_16x4()`` at full
+   width and depth, 16x224x224, seeded random weights, on seeded synthetic
+   clips made on the card. Every parameter must receive a finite gradient
+   through autograd in the first step. Timed steps at B8 and at the preset's
+   B2 (clips/s, ms per step, peak memory); per step the counts rise by 32
+   attention forwards and 32 backwards, 35 conv pools with 35 dx and 35 dw,
+   and 3 max pools. One step's gradients at B2 are held against the same
+   step with every kernel swapped for its plain version (in f32 and in bf16
+   compute), and the loss must fall over 10 steps on one fixed batch.
+10. ``pool_first`` training: one step at B2 of
+    ``hub.mvit_base_16x4(pool_first=True)``; the per-head attention backward
+    (#3) rises by 16.
 
 The line before the last is a JSON object with one entry per kernel, each
-with its launches on its path, its errors, its per-forward time beside its
-plain version's, the library call's and its bound; the last line is
-``{"ok": true, "device": {...}}``.
+with its launches on its path, its errors, its time per forward or per step
+beside its plain version's, the library call's and its bound; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,6 +151,38 @@ POOL_FIRST_PER_FORWARD = {
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"],
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
 }
+# Training: the step's batch (timings of phase 8 too) and the preset's own.
+TRAIN_BATCH = 8
+PRESET_BATCH = 2
+TRAIN_WARMUP_STEPS = 2
+# The timed window is the preset's log interval (trainer.log_every_n_steps),
+# so it reads the loss back to the host as often as a user's run does: once.
+TRAIN_TIMED_STEPS = 10
+LOSS_STEPS = 10
+# Launches per training step (one forward and one backward): each attention
+# and each conv pool runs its backward kernels once; the max pools' backward
+# is PyTorch's own.
+CONV_POOLS = MVIT_PER_FORWARD["token_pool_conv"]
+MVIT_PER_STEP = {**MVIT_PER_FORWARD, "token_pool_dx": CONV_POOLS, "token_pool_dw": CONV_POOLS,
+                 "pooled_attention_packed_bwd": MVIT_PER_FORWARD["pooled_attention_packed"]}
+POOL_FIRST_PER_STEP = {**POOL_FIRST_PER_FORWARD, "token_pool_dx": CONV_POOLS,
+                       "token_pool_dw": CONV_POOLS,
+                       "pooled_attention_bwd": POOL_FIRST_PER_FORWARD["pooled_attention"]}
+# Backward kernel vs its plain version in f32, elementwise |err| <= atol_rel
+# x max |ref| + rtol x |ref|. f32: sums of up to 25088 products in another
+# order (f32 eps 6e-8 x sqrt(25088) ~ 1e-5 of the largest term; 10x margin).
+# bf16: each gradient is also rounded once to bf16 (2^-8 relative).
+GRAD_TOL = {"float32": dict(rtol=1e-4, atol_rel=1e-4),
+            "bfloat16": dict(rtol=2**-7, atol_rel=2e-3)}
+# One step's gradients, kernels vs plain versions, per tensor: max |err| <=
+# rel x max |its plain gradient| + floor x max |plain gradient of its
+# module| (its block, or the embedding, norm or head it belongs to). f32:
+# 16 blocks of f32 arithmetic in another order. bf16: both round every
+# activation to bf16, at points where their f32 sums differ by an ulp, and
+# 16 blocks carry the flips on. The floor covers tensors whose exact
+# gradient is zero (norm_k's shift: one shift of every key leaves each
+# softmax as it was), where both sides hold only rounding noise.
+STEP_GRAD_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (0.1, 0.01)}
 # Published peaks of one H100 SXM at its 700 W limit (dense bf16 tensor
 # cores; HBM3): the bound of a call is the larger of its operations over the
 # first and its bytes over the second.
@@ -202,6 +260,10 @@ def kernel_wrappers() -> dict:
         "token_pool_conv": tp.depthwise_token_pool_cuda,
         "token_pool_max": tp.max_token_pool_cuda,
         "token_pool_avg": tp.avg_token_pool_cuda,
+        "pooled_attention_packed_bwd": pa.pooled_attention_packed_bwd_cuda,
+        "pooled_attention_bwd": pa.pooled_attention_bwd_cuda,
+        "token_pool_dx": tp.depthwise_token_pool_dx_cuda,
+        "token_pool_dw": tp.depthwise_token_pool_dw_cuda,
     }
 
 
@@ -214,10 +276,12 @@ def read_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
 
 
-def check_path_counts(label: str, counts: dict, per_forward_counts: dict, forwards: int) -> None:
-    """Each kernel of the path launched its count per forward; no other ran."""
-    expected = {name: per_forward_counts.get(name, 0) * forwards for name in counts}
-    print(f"{label}: {forwards} forwards, kernel launches {counts}")
+def check_path_counts(label: str, counts: dict, per_run_counts: dict, runs: int,
+                      unit: str = "forwards") -> None:
+    """Each kernel of the path launched its count per run (a forward or a
+    training step); no other ran."""
+    expected = {name: per_run_counts.get(name, 0) * runs for name in counts}
+    print(f"{label}: {runs} {unit}, kernel launches {counts}")
     assert counts == expected, f"{label}: launches {counts}, expected {expected}"
 
 
@@ -284,8 +348,9 @@ def randomize_mvit_(model, generator) -> None:
 @contextlib.contextmanager
 def plain_kernels():
     """Swaps the MViT layers' kernel dispatchers for the plain versions, so
-    that a model on the card runs no kernel: the reference of the logit
-    checks."""
+    that a model on the card runs no kernel, forward or backward (autograd
+    differentiates the plain versions): the reference of the logit and
+    gradient checks."""
     from pytorchvideo_tpu_torch.layers import attention
     from pytorchvideo_tpu_torch.ops import pooled_attention as pa
     from pytorchvideo_tpu_torch.ops import token_pool as tp
@@ -413,6 +478,30 @@ def serve(model, batches, generator, clip, classes: int) -> dict:
     return rates
 
 
+def attention_rows():
+    """(H*c, heads, Lq, Lk, launches per forward) of every attention shape
+    checked: MViT-B 16x4's grid queries, their cls queries (Lq 1) and MViT-B
+    32x3's block 14 (on no path here)."""
+    return [*MVIT_ATTENTION, *((hc, h, 1, lk, n) for hc, h, _, lk, n in MVIT_ATTENTION),
+            (*MVIT_32X3_BLOCK14, 0)]
+
+
+def close_rel(out, ref, rtol: float, atol_rel: float):
+    """Asserts |out - ref| <= atol_rel x max |ref| + rtol x |ref| elementwise
+    (ref in f32); returns (max |out - ref|, that over max |ref|)."""
+    import torch
+
+    out, scale = out.float(), ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol_rel * scale)
+    err = (out - ref).abs().max().item()
+    return err, err / scale
+
+
+def worse(*pairs):
+    """The elementwise max of (abs, rel) error pairs."""
+    return tuple(max(p[i] for p in pairs) for i in range(2))
+
+
 def check_attention(pa) -> dict:
     """Phase 5, attention: the kernel in both layouts against the plain
     version at B2, then timed at B32 bf16."""
@@ -420,9 +509,7 @@ def check_attention(pa) -> dict:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(hc, h, lq, lk) for hc, h, lq, lk, _ in MVIT_ATTENTION]
-    shapes += [(hc, h, 1, lk) for hc, h, _, lk, _ in MVIT_ATTENTION]
-    shapes.append(MVIT_32X3_BLOCK14)
+    shapes = [row[:4] for row in attention_rows()]
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for HC, H, Lq, Lk in shapes:
         c = HC // H
@@ -448,10 +535,7 @@ def check_attention(pa) -> dict:
 
     B = MVIT_TIMING_BATCH
     packed, per_head, timed_err = [], [], 0.0
-    rows = list(MVIT_ATTENTION)
-    rows += [(hc, h, 1, lk, n) for hc, h, _, lk, n in MVIT_ATTENTION]
-    rows.append((*MVIT_32X3_BLOCK14, 0))
-    for HC, H, Lq, Lk, calls in rows:
+    for HC, H, Lq, Lk, calls in attention_rows():
         c = HC // H
         scale = c**-0.5
         q, k, v = (torch.randn(B, L, HC, device="cuda", generator=gen).bfloat16()
@@ -619,6 +703,421 @@ def mvit_slice(hub, convert_to_deployable_form, label: str, batches, per_forward
     return {"rates": rates, "counts": counts, "forwards": forwards}
 
 
+def check_attention_backward(pa) -> dict:
+    """Phase 8, attention: the backward kernels in both layouts against the
+    plain backward at B2, then timed at the training batch in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # (max |err|, max |err| over max |ref|) per dtype.
+    errs = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    autograd_err, lse_err = (0.0, 0.0), 0.0
+    shapes = [row[:4] for row in attention_rows()]
+    for HC, H, Lq, Lk in shapes:
+        c = HC // H
+        scale = c**-0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v, g = (torch.randn(2, L, HC, device="cuda", generator=gen).to(dtype)
+                          for L in (Lq, Lk, Lk, Lq))
+            heads = [pa._heads(t, H).contiguous() for t in (q, k, v, g)]
+            ref_lse = pa.attention_lse_torch(heads[0].float(), heads[1].float(), scale)
+            for residual in (False, True):
+                o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, residual,
+                                                         return_lse=True)
+                o_h, lse_h = pa.pooled_attention_cuda(*heads[:3], scale, residual, return_lse=True)
+                for got_lse in (lse, lse_h):
+                    torch.testing.assert_close(got_lse, ref_lse, atol=1e-4, rtol=1e-5)
+                    lse_err = max(lse_err, (got_lse - ref_lse).abs().max().item())
+                got = pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, H, scale, residual)
+                ref = pa.pooled_attention_packed_bwd_torch(
+                    *(t.float() for t in (q, k, v, o)), lse, g.float(), H, scale, residual)
+                got_h = pa.pooled_attention_bwd_cuda(*heads[:3], o_h, lse_h, heads[3], scale,
+                                                     residual)
+                ref_h = pa.pooled_attention_bwd_torch(
+                    *(t.float() for t in (*heads[:3], o_h)), lse_h, heads[3].float(), scale,
+                    residual)
+                for a, b, t in zip((*got, *got_h), (*ref, *ref_h), (q, k, v, *heads[:3])):
+                    assert a.shape == t.shape and a.dtype == dtype
+                    errs[name] = worse(errs[name], close_rel(a, b, **GRAD_TOL[name]))
+                if dtype == torch.float32:
+                    # The reference itself: the plain backward, given the
+                    # plain forward's output and lse, against autograd
+                    # through that forward.
+                    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                    out = pa.pooled_attention_packed_torch(*qkv, H, scale, residual)
+                    auto = torch.autograd.grad(out, qkv, g)
+                    plain = pa.pooled_attention_packed_bwd_torch(q, k, v, out.detach(), ref_lse, g,
+                                                                 H, scale, residual)
+                    for a, b in zip(plain, auto):
+                        autograd_err = worse(autograd_err, close_rel(a, b, **GRAD_TOL["float32"]))
+                    del qkv, out, auto, plain
+                del o, lse, o_h, lse_h, got, ref, got_h, ref_h
+    print(f"attention backward vs plain ({len(shapes)} shapes, both layouts, residual on and "
+          f"off): (max |err|, over max |ref|) f32 {errs['float32']!r}, bf16 "
+          f"{errs['bfloat16']!r}; lse max |err| {lse_err!r}; plain backward vs autograd (f32) "
+          f"{autograd_err!r}")
+
+    B = TRAIN_BATCH
+    packed, per_head, timed_err = [], [], (0.0, 0.0)
+    for HC, H, Lq, Lk, calls in attention_rows():
+        c = HC // H
+        scale = c**-0.5
+        timed = []
+        for layout in ("packed", "per-head"):
+            if layout == "packed":
+                q, k, v, g = (torch.randn(B, L, HC, device="cuda", generator=gen).bfloat16()
+                              for L in (Lq, Lk, Lk, Lq))
+                Lq_run = Lq
+                o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, return_lse=True)
+
+                def kernel():
+                    return pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, H, scale)
+
+                def plain(f=lambda t: t):
+                    return pa.pooled_attention_packed_bwd_torch(*(f(t) for t in (q, k, v, o)),
+                                                                lse, f(g), H, scale)
+
+                def views(t):
+                    return pa._heads(t, H)
+            elif Lq > 1:
+                # pool_first runs one per-head launch per block, cls row included.
+                q, g = (torch.randn(B, H, Lq + 1, c, device="cuda", generator=gen).bfloat16()
+                        for _ in range(2))
+                k, v = (torch.randn(B, H, Lk, c, device="cuda", generator=gen).bfloat16()
+                        for _ in range(2))
+                Lq_run = Lq + 1
+                o, lse = pa.pooled_attention_cuda(q, k, v, scale, return_lse=True)
+
+                def kernel():
+                    return pa.pooled_attention_bwd_cuda(q, k, v, o, lse, g, scale)
+
+                def plain(f=lambda t: t):
+                    return pa.pooled_attention_bwd_torch(*(f(t) for t in (q, k, v, o)), lse, f(g),
+                                                         scale)
+
+                def views(t):
+                    return t
+            else:
+                continue
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def library():
+                # The same (dq, dk, dv) from q, k, v and g: SDPA's forward
+                # and backward.
+                out = F.scaled_dot_product_attention(*(views(t) for t in leaves), scale=scale)
+                return torch.autograd.grad(out, leaves, views(g))
+
+            # Five products of the forward's size; q, o, g, dq and k, v, dk,
+            # dv once in bf16, and the f32 lse.
+            bound, bound_by = bound_ms(10 * B * Lq_run * Lk * HC,
+                                       2 * B * HC * (4 * Lq_run + 4 * Lk) + 4 * B * H * Lq_run)
+            row = {"shape": f"B{B} H*c {HC} heads {H} Lq {Lq_run} Lk {Lk}", "calls": calls,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   **time_three(plain, kernel, library, iters=5)}
+            err = worse(*(close_rel(a, b, **GRAD_TOL["bfloat16"])
+                          for a, b in zip(kernel(), plain(lambda t: t.float()))))
+            row["max_abs_err"], row["max_rel_err"] = err
+            timed_err = worse(timed_err, err)
+            (packed if layout == "packed" else per_head).append(row)
+            timed.append((layout, row))
+            del q, k, v, g, o, lse, leaves
+        for label, r in timed:
+            print(f"attention backward {label} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
+                  f"{r['plain_ms']!r} ms, SDPA fwd+bwd {r['library_ms']!r} ms, bound "
+                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return {"errs": errs, "timed_err": timed_err, "lse_err": lse_err,
+            "autograd_err": autograd_err, "packed": packed, "per_head": per_head}
+
+
+def check_pool_backward(tp) -> dict:
+    """Phase 8, pools: the conv pool's dx and dw kernels against their plain
+    versions at B2, then timed at the training batch in bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    conv_pools = [(grid, kernel, stride, calls)
+                  for grid, kernel, stride, mode, calls in MVIT_POOLS if mode == "conv"]
+    errs = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    autograd_err = (0.0, 0.0)
+    for grid, kernel, stride, _ in conv_pools:
+        out_grid = tuple(tp.pool_out_size(d, k, s) for d, k, s in zip(grid[:3], kernel, stride))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn(2, *grid, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(2, *out_grid, grid[-1], device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(HEAD_DIM, 1, *kernel, device="cuda", generator=gen) * 0.2).to(dtype)
+            dx = tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride)
+            dw = tp.depthwise_token_pool_dw_cuda(x, g, w, stride)
+            assert dx.shape == x.shape and dx.dtype == dtype
+            assert dw.shape == w.shape and dw.dtype == dtype
+            ref_dx = tp.depthwise_token_pool_dx_torch(g.float(), w.float(), x.shape, stride)
+            ref_dw = tp.depthwise_token_pool_dw_torch(x.float(), g.float(), w.float(), stride)
+            errs[name] = worse(errs[name], close_rel(dx, ref_dx, **GRAD_TOL[name]),
+                               close_rel(dw, ref_dw, **GRAD_TOL[name]))
+            if dtype == torch.float32:
+                xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+                auto = torch.autograd.grad(tp.depthwise_token_pool_torch(xr, wr, stride),
+                                           (xr, wr), g)
+                autograd_err = worse(autograd_err, close_rel(ref_dx, auto[0], **GRAD_TOL[name]),
+                                     close_rel(ref_dw, auto[1], **GRAD_TOL[name]))
+    print(f"token pool backward vs plain ({len(conv_pools)} conv geometries, dx and dw, "
+          f"weight rows shared by C / {HEAD_DIM} heads): (max |err|, over max |ref|) f32 "
+          f"{errs['float32']!r}, bf16 {errs['bfloat16']!r}; plain backward vs autograd (f32) "
+          f"{autograd_err!r}")
+
+    B = TRAIN_BATCH
+    rows, timed_err = {"dx": [], "dw": []}, (0.0, 0.0)
+    for grid, kernel, stride, calls in conv_pools:
+        C = grid[-1]
+        out_grid = [tp.pool_out_size(d, k, s) for d, k, s in zip(grid[:3], kernel, stride)]
+        x = torch.randn(B, *grid, device="cuda", generator=gen).bfloat16()
+        g = torch.randn(B, *out_grid, C, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(HEAD_DIM, 1, *kernel, device="cuda", generator=gen) * 0.2).bfloat16()
+        x_nc, g_nc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        w_full, pad = w.repeat(C // HEAD_DIM, 1, 1, 1, 1), [k // 2 for k in kernel]
+
+        def library(mask):
+            # The channels-last F.conv3d(groups=C)'s own backward, one call.
+            return torch.ops.aten.convolution_backward(
+                g_nc, x_nc, w_full, None, list(stride), pad, [1, 1, 1], False, [0, 0, 0], C, mask)
+
+        reads = math.prod(needed_positions(d, k, s, o)
+                          for d, k, s, o in zip(grid[:3], kernel, stride, out_grid))
+        outputs = B * math.prod(out_grid) * C
+        ops = 2 * math.prod(kernel) * outputs
+        for which in ("dx", "dw"):
+            if which == "dx":
+                fns = (lambda: tp.depthwise_token_pool_dx_torch(g, w, x.shape, stride),
+                       lambda: tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride),
+                       lambda: library([True, False, False]))
+                # g and the weight in, dx out, once in bf16.
+                nbytes = 2 * (outputs + x.numel() + w.numel())
+                got = tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride)
+                ref = tp.depthwise_token_pool_dx_torch(g.float(), w.float(), x.shape, stride)
+            else:
+                fns = (lambda: tp.depthwise_token_pool_dw_torch(x, g, w, stride),
+                       lambda: tp.depthwise_token_pool_dw_cuda(x, g, w, stride),
+                       lambda: library([False, True, False]))
+                # The input positions some output reads and g in, dw out.
+                nbytes = 2 * (B * reads * C + outputs + w.numel())
+                got = tp.depthwise_token_pool_dw_cuda(x, g, w, stride)
+                ref = tp.depthwise_token_pool_dw_torch(x.float(), g.float(), w.float(), stride)
+            err = close_rel(got, ref, **GRAD_TOL["bfloat16"])
+            timed_err = worse(timed_err, err)
+            del got, ref
+            bound, bound_by = bound_ms(ops, nbytes)
+            rows[which].append({"shape": f"B{B} {grid} k{kernel} s{stride}", "calls": calls,
+                                "bound_ms": bound, "bound_by": bound_by,
+                                "max_abs_err": err[0], "max_rel_err": err[1],
+                                **time_three(*fns, iters=10)})
+            r = rows[which][-1]
+            print(f"token pool {which} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
+                  f"{r['plain_ms']!r} ms, convolution_backward {r['library_ms']!r} ms, bound "
+                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+        del x, g, w, x_nc, g_nc, w_full
+    torch.cuda.empty_cache()
+    return {"errs": errs, "timed_err": timed_err, "autograd_err": autograd_err, "rows": rows}
+
+
+class SyntheticClips:
+    """A datamodule of seeded random clips made on the card:
+    ``train_dataloader(n)`` yields n batches {"video": (B, 3, 16, 224, 224)
+    float32, "label": (B,)} of 400 classes; with ``fixed`` every batch is the
+    first one."""
+
+    def __init__(self, batch: int, seed: int, fixed: bool = False):
+        self.batch, self.seed, self.fixed = batch, seed, fixed
+
+    def train_dataloader(self, n: int):
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(self.seed)
+        for _ in range(n):
+            if self.fixed:
+                gen.manual_seed(self.seed)
+            yield {"video": torch.randn(self.batch, 3, *MVIT_CLIP, device="cuda", generator=gen),
+                   "label": torch.randint(0, 400, (self.batch,), device="cuda", generator=gen)}
+
+
+def train_app(train, batch: int, seed: int, model=None, **overrides):
+    """The ``classification_mvit_16x4`` recipe in bf16 compute through
+    ``VideoClassificationTrainApp``; a model it builds itself
+    (``hub.mvit_base_16x4`` at full width and depth, on the card) gets seeded
+    random weights. Each ``train()`` runs ``steps_per_epoch`` steps and
+    reads the loss back at the preset's log interval, its first step
+    included."""
+    import torch
+
+    cfg = train.get_preset("classification_mvit_16x4", **{
+        "trainer.compute_dtype": "bfloat16", "trainer.max_epochs": 1, **overrides})
+    app = train.VideoClassificationTrainApp(cfg, model=model,
+                                            datamodule=SyntheticClips(batch, seed),
+                                            steps_per_epoch=1, seed=seed)
+    if model is None:
+        assert all(p.is_cuda for p in app.model.parameters()), "the app built off the card"
+        randomize_mvit_(app.model, torch.Generator().manual_seed(seed))
+    app.setup()
+    return app
+
+
+def run_steps(app, steps: int):
+    """``steps`` training steps through ``app.train()``; returns the losses
+    it logged and the wall-clock ms per step (the card synchronised at both
+    ends)."""
+    import torch
+
+    app.steps_per_epoch = steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = app.train()
+    torch.cuda.synchronize()
+    return history, (time.perf_counter() - t0) * 1000.0 / steps
+
+
+def _module_of(name: str) -> str:
+    """The module a parameter belongs to: "blocks.3.attn.norm_k.bias" ->
+    "blocks.3", "head.proj.weight" -> "head"."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "blocks" else parts[0]
+
+
+def check_step_grads(train, model, batch) -> dict:
+    """One step's gradients (``forward_backward``, the step's own) with the
+    kernels against the same step with every kernel swapped for its plain
+    version, in f32 and in bf16 compute, per tensor (STEP_GRAD_TOL)."""
+    import torch
+
+    named = dict(model.named_parameters())
+    report = {}
+    for compute in ("float32", "bfloat16"):
+        dtype = None if compute == "float32" else torch.bfloat16
+        grads, losses = {}, {}
+        for form in ("kernels", "plain"):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.manual_seed(11)  # the same dropout masks in both forms
+            reset_counts()
+            with plain_kernels() if form == "plain" else contextlib.nullcontext():
+                loss, _ = train.forward_backward(model.train(), batch["video"], batch["label"],
+                                                 compute_dtype=dtype)
+            counts = read_counts()
+            if form == "plain":
+                assert not any(counts.values()), f"the plain step launched kernels: {counts}"
+            else:
+                check_path_counts(f"grad check ({compute})", counts, MVIT_PER_STEP, 1, "steps")
+            grads[form] = {n: p.grad.clone() for n, p in named.items()}
+            losses[form] = loss.item()
+        rel, floor = STEP_GRAD_TOL[compute]
+        scales = {n: ref.abs().max().item() for n, ref in grads["plain"].items()}
+        module_max = {}
+        for n, scale in scales.items():
+            module_max[_module_of(n)] = max(module_max.get(_module_of(n), 0.0), scale)
+        rows = []
+        for n, ref in grads["plain"].items():
+            got = grads["kernels"][n]
+            assert torch.isfinite(got).all(), f"{n}: non-finite gradient"
+            err, scale, mod = (got - ref).abs().max().item(), scales[n], module_max[_module_of(n)]
+            rows.append((err / (rel * scale + floor * mod), n, err, scale, mod))
+        rows.sort(reverse=True)
+        for share, n, err, scale, mod in rows[:8]:
+            print(f"  {compute} step grad {n}: |err| {err!r}, max |g| {scale!r}, module max "
+                  f"|g| {mod!r}, {share!r} of its bound")
+        share, n, err, scale, mod = rows[0]
+        assert share <= 1.0, (f"{compute} step: {n} gradient off by {err} (max |g| {scale}, "
+                              f"module {mod})")
+        print(f"one step's grads at B{len(batch['video'])}, {compute} compute, kernels vs plain: "
+              f"loss {losses['kernels']!r} vs {losses['plain']!r}; worst tensor {n} at "
+              f"{share!r} of its bound ({rel} x its max |g| + {floor} x its module's)")
+        report[compute] = {"losses": losses, "worst_share_of_bound": share, "worst_tensor": n}
+        del grads
+    model.zero_grad(set_to_none=True)
+    return report
+
+
+def train_slice(train) -> dict:
+    """Phases 9 and 10: MViT-B 16x4 training through the app, then one
+    ``pool_first`` step."""
+    import torch
+
+    app = train_app(train, TRAIN_BATCH, seed=21)
+    model = app.model
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+
+    # The first step: every parameter receives its gradient through autograd
+    # (the step's zero fill for parameters the loss misses does not count).
+    reached = set()
+    hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n: reached.add(n))
+             for n, p in named.items()]
+    history, first_ms = run_steps(app, 1)
+    for hook in hooks:
+        hook.remove()
+    missing = sorted(set(named) - reached)
+    assert not missing, f"no gradient reached {missing}"
+    bad = [n for n, p in named.items() if not torch.isfinite(p.grad).all()]
+    assert not bad and all(math.isfinite(h) for h in history), f"non-finite gradients: {bad}"
+    print(f"train step 1 (B{TRAIN_BATCH}): loss {history[0]!r}, all {len(named)} parameter "
+          f"tensors ({n_params} values) got finite gradients through autograd; {first_ms!r} ms")
+
+    # The main path: warm-up steps, then timed steps with the counts reset.
+    rates, counts = {}, {name: 0 for name in read_counts()}
+    for B in (TRAIN_BATCH, PRESET_BATCH):
+        app.datamodule = SyntheticClips(B, seed=22 + B)
+        run_steps(app, TRAIN_WARMUP_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        history, ms = run_steps(app, TRAIN_TIMED_STEPS)
+        run_counts = read_counts()
+        bad = [n for n, p in named.items() if not torch.isfinite(p).all()]
+        assert not bad, f"B{B}: non-finite parameters after the timed steps: {bad}"
+        check_path_counts(f"mvit_base_16x4 train B{B}", run_counts, MVIT_PER_STEP,
+                          TRAIN_TIMED_STEPS, "steps")
+        counts = {name: counts[name] + n for name, n in run_counts.items()}
+        peak = torch.cuda.max_memory_allocated()
+        assert all(math.isfinite(h) for h in history), f"B{B}: non-finite loss {history}"
+        rates[B] = {"ms_per_step": ms, "clips_per_s": B * 1000.0 / ms, "peak_bytes": peak,
+                    "losses": history}
+        print(f"mvit_base_16x4 train bf16 16x224x224 B{B}: {rates[B]['clips_per_s']!r} clips/s "
+              f"({ms!r} ms/step over {TRAIN_TIMED_STEPS} steps, MixUp/CutMix, AdamW, clip "
+              f"1.0); peak device memory {peak!r} bytes; losses {history}")
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    batch = {"video": torch.randn(PRESET_BATCH, 3, *MVIT_CLIP, device="cuda", generator=gen),
+             "label": torch.randint(0, 400, (PRESET_BATCH,), device="cuda", generator=gen)}
+    grad_report = check_step_grads(train, model, batch)
+
+    # The loss falls on one fixed batch: hard labels, no warmup, an LR of
+    # 1e-4 (cosine over the preset's 200 epochs, flat over these steps).
+    fit = train_app(train, TRAIN_BATCH, seed=24, model=model, **{
+        "trainer.log_every_n_steps": 1, "mix.enabled": False, "optim.lr": 1e-4, "lr_scheduler.lr": 1e-4,
+        "lr_scheduler.warmup_iters": 0, "lr_scheduler.cosine_end_lr": 0.0})
+    fit.datamodule = SyntheticClips(TRAIN_BATCH, seed=24, fixed=True)
+    losses, _ = run_steps(fit, LOSS_STEPS)
+    print(f"loss over {LOSS_STEPS} steps on one fixed B{TRAIN_BATCH} batch: {losses}")
+    assert all(math.isfinite(h) for h in losses), losses
+    assert losses[-1] < losses[0] and sum(losses[-3:]) < sum(losses[:3]), f"no fall: {losses}"
+    del app, fit, model, named, batch
+    torch.cuda.empty_cache()
+
+    # pool_first: one step, through the per-head attention and its backward.
+    pf = train_app(train, PRESET_BATCH, seed=25, **{"model.kwargs": {"pool_first": True}})
+    reset_counts()
+    pf_losses, pf_ms = run_steps(pf, 1)
+    pf_counts = read_counts()
+    check_path_counts("mvit_base_16x4 pool_first train B2", pf_counts, POOL_FIRST_PER_STEP, 1,
+                      "steps")
+    bad = [n for n, p in pf.model.named_parameters() if not torch.isfinite(p.grad).all()]
+    assert not bad and math.isfinite(pf_losses[0]), f"pool_first: non-finite {bad} {pf_losses}"
+    print(f"mvit_base_16x4 pool_first train bf16 B{PRESET_BATCH}: loss {pf_losses[0]!r}, "
+          f"{pf_ms!r} ms for its one step")
+    del pf
+    torch.cuda.empty_cache()
+    return {"rates": rates, "counts": counts, "pool_first_counts": pf_counts,
+            "grads": grad_report, "fit_losses": losses}
+
+
 def main() -> None:
     import torch
 
@@ -634,6 +1133,7 @@ def main() -> None:
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
     from pytorchvideo_tpu_torch.ops import pooled_attention as pa
     from pytorchvideo_tpu_torch.ops import token_pool as tp
+    from pytorchvideo_tpu_torch import train
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -686,6 +1186,9 @@ def main() -> None:
                       MVIT_PER_FORWARD, gen)
     pool_first = mvit_slice(hub, convert_to_deployable_form, "mvit_base_16x4 pool_first",
                             (MVIT_CHECK_BATCH,), POOL_FIRST_PER_FORWARD, gen, pool_first=True)
+    attention_bwd = check_attention_backward(pa)
+    pool_bwd = check_pool_backward(tp)
+    trained = train_slice(train)
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -757,6 +1260,76 @@ def main() -> None:
             "library": "F.conv3d(groups=C) / F.max_pool3d / F.avg_pool3d",
             "avg_mode_per_shape": pool_report["rows"]["avg"],
             "per_shape": pool_rows,
+        },
+    ]
+    step_timing = "per step at B{}: each shape's time times its launches, summed".format(
+        TRAIN_BATCH)
+    train_path = (f"mvit_base_16x4 train bf16 16x224x224 (classification_mvit_16x4), "
+                  f"B{TRAIN_BATCH} and B{PRESET_BATCH}, {TRAIN_TIMED_STEPS} timed steps each")
+
+    def bwd_errors(report) -> dict:
+        # Absolute, and relative to the largest reference gradient.
+        errs = report["errs"]
+        total = worse(*errs.values(), report["timed_err"])
+        return {"max_abs_err": total[0], "max_rel_err": total[1],
+                "max_abs_err_f32": errs["float32"][0], "max_rel_err_f32": errs["float32"][1],
+                "max_abs_err_bf16": errs["bfloat16"][0], "max_rel_err_bf16": errs["bfloat16"][1],
+                "plain_vs_autograd_f32": report["autograd_err"]}
+
+    attention_bwd_common = {
+        "route": "cuda",
+        "source": "pytorchvideo_tpu_torch/csrc/pooled_attention_bwd.cu",
+        **bwd_errors(attention_bwd),
+        "library": "F.scaled_dot_product_attention forward + backward (torch.autograd.grad): "
+                   "the same (dq, dk, dv) from q, k, v and g",
+    }
+    pool_bwd_common = {
+        "route": "cuda",
+        "source": "pytorchvideo_tpu_torch/csrc/token_pool_bwd.cu",
+        **bwd_errors(pool_bwd),
+        "path": train_path,
+        "timing": "bf16, " + step_timing + " (35 conv pools)",
+    }
+    entries += [
+        {
+            "name": "pooled_attention_packed_bwd",
+            "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:579",
+            "launches": trained["counts"]["pooled_attention_packed_bwd"],
+            "path": train_path,
+            **attention_bwd_common,
+            **per_forward(attention_bwd["packed"]),
+            "timing": "bf16, residual off, " + step_timing + " (16 grid and 16 cls queries)",
+            "per_shape": attention_bwd["packed"],
+        },
+        {
+            "name": "pooled_attention_bwd",
+            "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:411",
+            "launches": trained["pool_first_counts"]["pooled_attention_bwd"],
+            "path": f"mvit_base_16x4(pool_first=True) train bf16 16x224x224, one step at "
+                    f"B{PRESET_BATCH}",
+            **attention_bwd_common,
+            **per_forward(attention_bwd["per_head"]),
+            "timing": "bf16, residual off, " + step_timing
+                      + " (16 per-head launches, cls row included)",
+            "per_shape": attention_bwd["per_head"],
+        },
+        {
+            "name": "token_pool_dw",
+            "replaces": "pytorchvideo_tpu/ops/token_pool.py:450",
+            "launches": trained["counts"]["token_pool_dw"],
+            **pool_bwd_common,
+            **per_forward(pool_bwd["rows"]["dw"]),
+            "library": "aten.convolution_backward of F.conv3d(groups=C), weight gradient",
+            "per_shape": pool_bwd["rows"]["dw"],
+        },
+        {
+            "name": "token_pool_dx",
+            "replaces": "pytorchvideo_tpu/ops/token_pool.py:501",
+            "launches": trained["counts"]["token_pool_dx"],
+            **pool_bwd_common,
+            **per_forward(pool_bwd["rows"]["dx"]),
+            "library": "aten.convolution_backward of F.conv3d(groups=C), input gradient",
+            "per_shape": pool_bwd["rows"]["dx"],
         },
     ]
     for entry in entries:

@@ -18,7 +18,10 @@
 //
 // Arithmetic is float32 throughout (inputs f32 or bf16, converted on load;
 // scores, probabilities, sums and the output accumulator in f32; the +q
-// residual in f32); the output is rounded once to the input type. Keys past
+// residual in f32); the output is rounded once to the input type. In
+// training the caller also passes `lse`, (B, H, Lq) float32, and each row's
+// log-sum-exp of its scaled scores lands there for the backward
+// (csrc/pooled_attention_bwd.cu); the deploy path passes null. Keys past
 // Lk score -inf; head-dim columns past c are zero in shared memory, so any
 // c <= 128 (96 included) needs no padded copy of the tensors.
 //
@@ -65,6 +68,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, H, Lq) row log-sum-exp, natural log; null: not written
   int64_t B, H, Lq, Lk, c;
   int64_t sq[3], sk[3], sv[3], so[3];  // (batch, head, row) strides in elements
   float scale;
@@ -205,6 +209,10 @@ __global__ void __launch_bounds__(kThreads) pooled_attention_kernel(Args a) {
       if (a.residual) y += sQ[r * (DC + 1) + col];
       op[(q0 + r) * a.so[2] + col] = from_f32<T>(y);
     }
+    // m is in the log2 domain (scores * scale * log2 e): lse = (m + log2 l) ln 2.
+    if (a.lse != nullptr && tx == 0) {
+      a.lse[(b * a.H + h) * a.Lq + q0 + r] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
+    }
   }
 }
 
@@ -233,17 +241,18 @@ cudaError_t launch_dc(const Args& a, cudaStream_t stream) {
 // q: (B, H, Lq, c) and k, v: (B, H, Lk, c) as seen through `strides`, 12
 // int64 (batch, head, row) strides in elements for q, k, v and out in that
 // order; the c axis is contiguous. c <= 128, Lk >= 1. dtype: 0 = float32,
-// 1 = bfloat16. residual != 0 adds q to the output.
+// 1 = bfloat16. residual != 0 adds q to the output. lse: null, or a
+// contiguous (B, H, Lq) float32 buffer for each row's log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int pvt_pooled_attention(const void* q, const void* k, const void* v, void* out,
-                                    int64_t B, int64_t H, int64_t Lq, int64_t Lk, int64_t c,
+                                    float* lse, int64_t B, int64_t H, int64_t Lq, int64_t Lk, int64_t c,
                                     const int64_t* strides, float scale, int residual, int dtype,
                                     void* stream) {
   if (B * H * Lq == 0) return (int)cudaSuccess;
   if (Lk < 1 || c < 1 || H > 65535 || B > 65535 || (Lq + kBQ - 1) / kBQ > 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a{q, k, v, out, B, H, Lq, Lk, c, {}, {}, {}, {}, scale, residual};
+  Args a{q, k, v, out, lse, B, H, Lq, Lk, c, {}, {}, {}, {}, scale, residual};
   for (int i = 0; i < 3; ++i) {
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];

@@ -24,5 +24,11 @@ from pytorchvideo_tpu_torch.layers.positional_encoding import (  # noqa: F401
     SpatioTemporalClsPositionalEncoding,
 )
 from pytorchvideo_tpu_torch.layers.squeeze_excitation import SqueezeExcitation  # noqa: F401
-from pytorchvideo_tpu_torch.layers.stochastic import Swish, swish  # noqa: F401
+from pytorchvideo_tpu_torch.layers.stochastic import (  # noqa: F401
+    DropPath,
+    Swish,
+    drop_path,
+    drop_path_pair,
+    swish,
+)
 from pytorchvideo_tpu_torch.layers.utils import round_repeats, round_width  # noqa: F401

@@ -16,10 +16,16 @@ every attention through the pooled-attention dispatcher
 (ops/pooled_attention.py): on CUDA tensors both are the hand-written
 kernels, including the single-row cls query, which is one Lq = 1 launch.
 
+In training mode (``module.train()``) the dropouts of the JAX package are
+active (Mlp, the attention's output projection) and ``MultiScaleBlock``
+applies DropPath to both residual branches with one mask per sample shared by
+the cls token and the grid; the kernels' backward runs through their
+``torch.autograd.Function``s.
+
 Modules keep upstream's ``state_dict`` keys (``attn.q``, ``attn.pool_q``,
 ``attn.norm_q``, ``mlp.fc1``, ...). Not ported: the BatchNorm MViT variant
 (pool-before-norm), the non-depthwise pool conv, the fused kv-pool kernel
-(``PVT_FUSED_KVPOOL``) and ``PVT_FUSED_QKV``; DropPath belongs to training.
+(``PVT_FUSED_KVPOOL``) and ``PVT_FUSED_QKV``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from pytorchvideo_tpu_torch.layers.common import triple
 from pytorchvideo_tpu_torch.layers.norms import LayerNorm
+from pytorchvideo_tpu_torch.layers.stochastic import drop_path_pair
 from pytorchvideo_tpu_torch.ops.pooled_attention import pooled_attention, pooled_attention_packed
 from pytorchvideo_tpu_torch.ops.token_pool import (
     avg_token_pool,
@@ -294,7 +301,9 @@ class MultiScaleBlock(nn.Module):
     """MViT block: x + attn(norm1(x)), then x + mlp(norm2(x)), with a max pool
     on the residual path where the queries are strided (kernel s + 1 where
     s > 1, stride s, padding k // 2; the cls token passes through) and a
-    linear projection where the width changes."""
+    linear projection where the width changes. In training mode each branch
+    goes through DropPath at ``droppath_rate``, its masks drawn from torch's
+    default generator of the device."""
 
     def __init__(
         self,
@@ -354,21 +363,24 @@ class MultiScaleBlock(nn.Module):
             kernel_skip = tuple(s + 1 if s > 1 else s for s in stride_skip)
             self.pool_skip = TokenPool("max", kernel_skip, stride_skip, has_cls_embed=has_cls_embed)
 
+    def _drop_path(self, x: Pair) -> Pair:
+        if not self.training:
+            return x
+        return drop_path_pair(x, self.droppath_rate)
+
     def forward(self, x: Pair, thw: Size3) -> Tuple[Pair, Size3]:
-        if self.training and self.droppath_rate > 0.0:
-            raise NotImplementedError("DropPath belongs to training, which is not ported yet")
         x_norm = _pair_map(self.norm1, x)
         x_block, thw_new = self.attn(x_norm, thw)
         if self.dim_mul_in_att and self.proj is not None:
             x = _pair_map(self.proj, x_norm)
         if self.pool_skip is not None:
             x, _ = self.pool_skip(x, thw)
-        x = _add(x, x_block)
+        x = _add(x, self._drop_path(x_block))
         x_norm = _pair_map(self.norm2, x)
         x_mlp = _pair_map(self.mlp, x_norm)
         if not self.dim_mul_in_att and self.proj is not None:
             x = _pair_map(self.proj, x_norm)
-        return _add(x, x_mlp), thw_new
+        return _add(x, self._drop_path(x_mlp)), thw_new
 
 
 def _add(a: Pair, b: Pair) -> Pair:

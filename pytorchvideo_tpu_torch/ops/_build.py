@@ -124,10 +124,37 @@ def load_library() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     fn = lib.pvt_pooled_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [
         ctypes.POINTER(ctypes.c_int64),
         ctypes.c_float,
         ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_pooled_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 5 + [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_token_pool_dx
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_token_pool_dw
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
         ctypes.c_int,
         ctypes.c_void_p,
     ]

@@ -6,29 +6,44 @@ Counterpart of pytorchvideo_tpu/ops/pooled_attention.py, in its two layouts:
   default path: :func:`pooled_attention_packed`;
 - per-head (B, H, L, c), on the ``pool_first`` path: :func:`pooled_attention`.
 
-One CUDA kernel serves both (``csrc/pooled_attention.cu``, the port of the
-TPU kernels ``_packed_pallas_local`` and ``_pooled_attention_pallas_local``);
-the layouts differ only in the strides it is given.
+One CUDA kernel serves both forwards (``csrc/pooled_attention.cu``, the port
+of the TPU kernels ``_packed_pallas_local`` and
+``_pooled_attention_pallas_local``) and one source both backwards
+(``csrc/pooled_attention_bwd.cu``, the port of ``_packed_pallas_bwd_local``
+and ``_pooled_attention_pallas_bwd_local``); the layouts differ only in the
+strides they are given.
 
-- ``*_cuda`` launch the kernel and count their launches in ``launches``.
-- ``*_torch`` are the plain versions: reshape + einsum + softmax, all in
-  float32 and returned in q's dtype, as the kernel computes (the counterparts
-  of ``pooled_attention_packed_xla`` and ``pooled_attention_xla``).
-- The dispatchers take the plain version for CPU tensors and the kernel for
-  CUDA tensors (or the kernel's checks raise).
+- ``*_cuda`` launch a kernel and count their launches in ``launches``; the
+  forward writes each row's log-sum-exp for the backward when asked to
+  (``return_lse``), and the deploy path does not ask.
+- ``*_torch`` are the plain versions, all in float32 and returned in the
+  inputs' dtype, as the kernels compute: the forward is reshape + einsum +
+  softmax (the counterparts of ``pooled_attention_packed_xla`` and
+  ``pooled_attention_xla``); the backward is the explicit formulas of
+  (q, k, v, o, lse, g) -> (dq, dk, dv) that the kernel evaluates.
+- The dispatchers take the plain versions for CPU tensors and the kernels
+  for CUDA tensors (or the kernels' checks raise). Where autograd needs the
+  gradient they go through a ``torch.autograd.Function`` whose forward and
+  backward follow the same rule, so on the card the backward is the kernel.
 
-Any Lq is taken, Lq = 1 included (MViT's cls query); the kernel takes
+Any Lq is taken, Lq = 1 included (MViT's cls query); the kernels take
 head_dim c <= 128.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# The backward kernels' tile (csrc/pooled_attention_bwd.cu), and the blocks
+# the dk/dv kernel aims for (two waves of the H100's 132 SMs) when it splits
+# the q axis.
+_BWD_TILE = 64
+_BWD_TARGET_BLOCKS = 264
 
 
 def pooled_attention_packed_torch(
@@ -63,34 +78,98 @@ def pooled_attention_torch(
     return out.to(q.dtype)
 
 
-def _launch(q, k, v, heads: int, c: int, strides, scale: float, residual_pool: bool):
-    """Checks q, k, v and launches the kernel on the current stream.
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Head-packed (B, L, H*c) -> a per-head (B, H, L, c) view."""
+    B, L, HC = t.shape
+    return t.view(B, L, num_heads, HC // num_heads).transpose(1, 2)
 
-    Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
-    device, c <= 128 and at least one key. Raises ValueError on anything
-    else and RuntimeError if the launch fails. Returns the output, shaped and
-    laid out like q."""
-    from pytorchvideo_tpu_torch.ops._build import load_library
 
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"q dtype must be float32 or bfloat16, got {q.dtype}")
-    if not q.is_cuda:
-        raise ValueError(f"q must be a CUDA tensor, got device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {q.device}, got {t.dtype} on {t.device}")
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """Per-head (B, H, L, c) -> head-packed (B, L, H*c)."""
+    B, H, L, c = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * c)
+
+
+def attention_lse_torch(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain row log-sum-exp of the scaled scores over per-head q (B, H, Lq, c)
+    and k (B, H, Lk, c): (B, H, Lq) float32, what the forward kernel saves."""
+    return torch.logsumexp(torch.einsum("bhqc,bhkc->bhqk", q.float() * scale, k.float()), dim=-1)
+
+
+def pooled_attention_bwd_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, scale: float, residual_pool: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward over per-head (B, H, L, c) tensors: the explicit formulas
+    of the kernel, in float32, each result in its input's dtype.
+
+    p = exp(q k^T * scale - lse); D = rowsum(g * o_attn), with o_attn the
+    saved output o less q where the residual is on; ds = p * (g v^T - D);
+    dq = ds k * scale (+ g), dk = ds^T q * scale, dv = p^T g."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(torch.einsum("bhqc,bhkc->bhqk", qf * scale, kf) - lse[..., None])
+    o_attn = o.float() - qf if residual_pool else o.float()
+    delta = (gf * o_attn).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqc,bhkc->bhqk", gf, vf) - delta)
+    dq = torch.einsum("bhqk,bhkc->bhqc", ds, kf) * scale
+    if residual_pool:
+        dq = dq + gf
+    dk = torch.einsum("bhqk,bhqc->bhkc", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqc->bhkc", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def pooled_attention_packed_bwd_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, num_heads: int, scale: float, residual_pool: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward over head-packed (B, L, H*c) tensors; lse is (B, H, Lq)."""
+    grads = pooled_attention_bwd_torch(
+        *(_heads(t, num_heads) for t in (q, k, v, o)), lse, _heads(g, num_heads), scale,
+        residual_pool,
+    )
+    return tuple(_packed(t) for t in grads)
+
+
+def _check_cuda(c: int, named) -> None:
+    """The kernels take contiguous CUDA tensors of one dtype (float32 or
+    bfloat16) on one device and c <= 128; raises ValueError on anything else."""
+    ref_name, ref = named[0]
+    if ref.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{ref_name} dtype must be float32 or bfloat16, got {ref.dtype}")
+    if not ref.is_cuda:
+        raise ValueError(f"{ref_name} must be a CUDA tensor, got device {ref.device}")
+    for name, t in named:
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(
+                f"{name} must be {ref.dtype} on {ref.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not 1 <= c <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}], got {c}")
+
+
+def _launch(q, k, v, heads: int, c: int, strides, scale: float, residual_pool: bool,
+            return_lse: bool):
+    """Checks q, k, v and launches the forward kernel on the current stream.
+
+    Raises ValueError on inputs the kernel does not take (see
+    :func:`_check_cuda`; at least one key) and RuntimeError if the launch
+    fails. Returns the output, shaped and laid out like q, and the (B, H, Lq)
+    float32 row log-sum-exp if ``return_lse``, else None."""
+    from pytorchvideo_tpu_torch.ops._build import load_library
+
+    _check_cuda(c, (("q", q), ("k", k), ("v", v)))
     B, Lq, Lk = q.shape[0], q.shape[-2], k.shape[-2]
     if Lk < 1:
         raise ValueError("k and v need at least one key")
     lib = load_library()
     out = torch.empty_like(q)
+    lse = torch.empty((B, heads, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = lib.pvt_pooled_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, heads, Lq, Lk, c,
             (ctypes.c_int64 * 12)(*strides),
             float(scale),
@@ -100,34 +179,20 @@ def _launch(q, k, v, heads: int, c: int, strides, scale: float, residual_pool: b
         )
     if err != 0:
         raise RuntimeError(f"pooled attention kernel launch failed: cudaError {err}")
-    return out
+    return out, lse
 
 
-def pooled_attention_packed_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
-    residual_pool: bool = False,
-) -> torch.Tensor:
-    """The kernel over head-packed q (B, Lq, H*c), k and v (B, Lk, H*c)."""
+def _check_packed(q, k, v, num_heads: int):
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or k.shape[::2] != q.shape[::2]:
         raise ValueError(
             f"expected q (B, Lq, H*c) and k, v (B, Lk, H*c), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    B, Lq, HC = q.shape
-    if HC % num_heads:
-        raise ValueError(f"H*c = {HC} is not a multiple of {num_heads} heads")
-    Lk = k.shape[1]
-    c = HC // num_heads
-    strides = (Lq * HC, c, HC, Lk * HC, c, HC, Lk * HC, c, HC, Lq * HC, c, HC)
-    out = _launch(q, k, v, num_heads, c, strides, scale, residual_pool)
-    pooled_attention_packed_cuda.launches += 1
-    return out
+    if q.shape[2] % num_heads:
+        raise ValueError(f"H*c = {q.shape[2]} is not a multiple of {num_heads} heads")
 
 
-def pooled_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, residual_pool: bool = False
-) -> torch.Tensor:
-    """The kernel over per-head q (B, H, Lq, c), k and v (B, H, Lk, c)."""
+def _check_per_head(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
         k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
     ):
@@ -135,17 +200,181 @@ def pooled_attention_cuda(
             f"expected q (B, H, Lq, c) and k, v (B, H, Lk, c), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
+
+
+def _packed_strides(q, k, num_heads: int):
+    """(batch, head, row) strides of head-packed q-shaped and k-shaped tensors."""
+    B, Lq, HC = q.shape
+    c = HC // num_heads
+    return (Lq * HC, c, HC), (k.shape[1] * HC, c, HC)
+
+
+def _per_head_strides(q, k):
     B, H, Lq, c = q.shape
-    Lk = k.shape[2]
-    strides = (H * Lq * c, Lq * c, c, H * Lk * c, Lk * c, c, H * Lk * c, Lk * c, c,
-               H * Lq * c, Lq * c, c)
-    out = _launch(q, k, v, H, c, strides, scale, residual_pool)
+    return (H * Lq * c, Lq * c, c), (H * k.shape[2] * c, k.shape[2] * c, c)
+
+
+def pooled_attention_packed_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    residual_pool: bool = False, return_lse: bool = False,
+):
+    """The forward kernel over head-packed q (B, Lq, H*c), k and v (B, Lk, H*c).
+    Returns the output, or (output, lse) with ``return_lse``."""
+    _check_packed(q, k, v, num_heads)
+    sq, sk = _packed_strides(q, k, num_heads)
+    out, lse = _launch(q, k, v, num_heads, q.shape[2] // num_heads, sq + sk + sk + sq, scale,
+                       residual_pool, return_lse)
+    pooled_attention_packed_cuda.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def pooled_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, residual_pool: bool = False,
+    return_lse: bool = False,
+):
+    """The forward kernel over per-head q (B, H, Lq, c), k and v (B, H, Lk, c).
+    Returns the output, or (output, lse) with ``return_lse``."""
+    _check_per_head(q, k, v)
+    sq, sk = _per_head_strides(q, k)
+    out, lse = _launch(q, k, v, q.shape[1], q.shape[3], sq + sk + sk + sq, scale, residual_pool,
+                       return_lse)
     pooled_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def bwd_splits(B: int, H: int, Lq: int, Lk: int) -> Tuple[int, int]:
+    """(splits, q tiles per split) of the dk/dv kernel: the q axis is cut so
+    that key tiles x batch x heads x splits reach _BWD_TARGET_BLOCKS blocks."""
+    q_tiles = -(-Lq // _BWD_TILE)
+    base = -(-Lk // _BWD_TILE) * B * H
+    splits = max(1, min(q_tiles, -(-_BWD_TARGET_BLOCKS // base)))
+    per_split = -(-q_tiles // splits)
+    return -(-q_tiles // per_split), per_split
+
+
+def _launch_bwd(q, k, v, o, lse, g, heads: int, c: int, sq, sk, scale: float,
+                residual_pool: bool):
+    """Checks the inputs and launches the backward kernels on the current
+    stream; returns (dq, dk, dv), each shaped, laid out and typed like its
+    input. Raises ValueError on inputs the kernels do not take and
+    RuntimeError if a launch fails."""
+    from pytorchvideo_tpu_torch.ops._build import load_library
+
+    _check_cuda(c, (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)))
+    B, Lq, Lk = q.shape[0], q.shape[-2], k.shape[-2]
+    if o.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"o and g must be shaped like q {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)}, {tuple(g.shape)}")
+    if lse.shape != (B, heads, Lq) or lse.dtype != torch.float32 or lse.device != q.device or (
+        not lse.is_contiguous()
+    ):
+        raise ValueError(f"lse must be contiguous float32 ({B}, {heads}, {Lq}) on {q.device}")
+    if Lk < 1:
+        raise ValueError("k and v need at least one key")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if Lq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    splits, per_split = bwd_splits(B, heads, Lq, Lk)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, heads, Lq), **f32)
+    dk_part = torch.empty((splits, B, heads, Lk, c), **f32)
+    dv_part = torch.empty((splits, B, heads, Lk, c), **f32)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.pvt_pooled_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, heads, Lq, Lk, c,
+            (ctypes.c_int64 * 6)(*sq, *sk),
+            float(scale),
+            int(residual_pool),
+            splits,
+            per_split,
+            _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pooled attention backward kernel launch failed: cudaError {err}")
+    return dq, dk, dv
+
+
+def pooled_attention_packed_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, num_heads: int, scale: float, residual_pool: bool = False,
+):
+    """The backward kernels over head-packed tensors: (dq, dk, dv)."""
+    _check_packed(q, k, v, num_heads)
+    sq, sk = _packed_strides(q, k, num_heads)
+    grads = _launch_bwd(q, k, v, o, lse, g, num_heads, q.shape[2] // num_heads, sq, sk, scale,
+                        residual_pool)
+    pooled_attention_packed_bwd_cuda.launches += 1
+    return grads
+
+
+def pooled_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, scale: float, residual_pool: bool = False,
+):
+    """The backward kernels over per-head tensors: (dq, dk, dv)."""
+    _check_per_head(q, k, v)
+    sq, sk = _per_head_strides(q, k)
+    grads = _launch_bwd(q, k, v, o, lse, g, q.shape[1], q.shape[3], sq, sk, scale, residual_pool)
+    pooled_attention_bwd_cuda.launches += 1
+    return grads
 
 
 pooled_attention_packed_cuda.launches = 0
 pooled_attention_cuda.launches = 0
+pooled_attention_packed_bwd_cuda.launches = 0
+pooled_attention_bwd_cuda.launches = 0
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Head-packed attention with its backward: the kernels on the card, the
+    plain versions on the CPU. Saves q, k, v, the output and the row lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float, residual_pool: bool):
+        if q.device.type == "cpu":
+            out = pooled_attention_packed_torch(q, k, v, num_heads, scale, residual_pool)
+            lse = attention_lse_torch(_heads(q, num_heads), _heads(k, num_heads), scale)
+        else:
+            out, lse = pooled_attention_packed_cuda(q, k, v, num_heads, scale, residual_pool,
+                                                    return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (num_heads, scale, residual_pool)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = pooled_attention_packed_bwd(q, k, v, out, lse, g.contiguous(), *ctx.args)
+        return (*grads, None, None, None)
+
+
+class _PerHeadAttention(torch.autograd.Function):
+    """Per-head attention with its backward; as :class:`_PackedAttention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, residual_pool: bool):
+        if q.device.type == "cpu":
+            out = pooled_attention_torch(q, k, v, scale, residual_pool)
+            lse = attention_lse_torch(q, k, scale)
+        else:
+            out, lse = pooled_attention_cuda(q, k, v, scale, residual_pool, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, residual_pool)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*pooled_attention_bwd(q, k, v, out, lse, g.contiguous(), *ctx.args), None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def pooled_attention_packed(
@@ -153,7 +382,10 @@ def pooled_attention_packed(
     residual_pool: bool = False,
 ) -> torch.Tensor:
     """Attention over head-packed tokens (B, L, H*c); returns (B, Lq, H*c).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain versions; CUDA tensors the kernels, the
+    backward included where autograd needs it."""
+    if _needs_grad(q, k, v):
+        return _PackedAttention.apply(q, k, v, num_heads, scale, residual_pool)
     if q.device.type == "cpu":
         return pooled_attention_packed_torch(q, k, v, num_heads, scale, residual_pool)
     return pooled_attention_packed_cuda(q, k, v, num_heads, scale, residual_pool)
@@ -163,7 +395,28 @@ def pooled_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, residual_pool: bool = False
 ) -> torch.Tensor:
     """Attention over per-head tokens (B, H, L, c); returns (B, H, Lq, c).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain versions; CUDA tensors the kernels, the
+    backward included where autograd needs it."""
+    if _needs_grad(q, k, v):
+        return _PerHeadAttention.apply(q, k, v, scale, residual_pool)
     if q.device.type == "cpu":
         return pooled_attention_torch(q, k, v, scale, residual_pool)
     return pooled_attention_cuda(q, k, v, scale, residual_pool)
+
+
+def pooled_attention_packed_bwd(q, k, v, o, lse, g, num_heads: int, scale: float,
+                                residual_pool: bool = False):
+    """Head-packed backward: CPU tensors take the plain version, CUDA tensors
+    the kernels."""
+    if q.device.type == "cpu":
+        return pooled_attention_packed_bwd_torch(q, k, v, o, lse, g, num_heads, scale,
+                                                 residual_pool)
+    return pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, num_heads, scale, residual_pool)
+
+
+def pooled_attention_bwd(q, k, v, o, lse, g, scale: float, residual_pool: bool = False):
+    """Per-head backward: CPU tensors take the plain version, CUDA tensors the
+    kernels."""
+    if q.device.type == "cpu":
+        return pooled_attention_bwd_torch(q, k, v, o, lse, g, scale, residual_pool)
+    return pooled_attention_bwd_cuda(q, k, v, o, lse, g, scale, residual_pool)

@@ -1,0 +1,161 @@
+"""VideoClassificationTrainApp: the training entry point (counterpart of
+pytorchvideo_tpu/train/app.py; upstream pytorchvideo_trainer/train_app.py
+and module/video_classification.py: per-step LR :161-180, grad clip
+:219-222, batch MixVideo :210).
+
+It builds the model from the config (on ``device``, the card unless the
+caller asks for the CPU), its optimizer groups and LR schedule, and the
+train step of train/train_loop.py, then walks the datamodule's batches.
+Checkpoints are ``torch.save`` files.
+
+The data layer is not ported yet: ``datamodule`` is any object whose
+``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3, T, H, W),
+"label": (B,)}`` (tensors or numpy arrays). Not ported yet either: ``test()``
+and ``predict()``, precise BN (MViT has no BatchNorm), ``load_ssl_backbone``
+and activation rematerialisation (``trainer.remat_policy``).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
+from pytorchvideo_tpu_torch.train.logger import MetricsLogger
+from pytorchvideo_tpu_torch.train.optimizer import construct_optimizer, lr_schedule_from_config
+from pytorchvideo_tpu_torch.train.train_loop import TrainState, make_train_step
+from pytorchvideo_tpu_torch.train.transforms import MixVideoBatchWrapper
+
+logger = logging.getLogger(__name__)
+
+
+class VideoClassificationTrainApp:
+    """Assembles model, optimizer and step from the config and runs the loop.
+
+    ``seed`` seeds the CPU generator of the batch transform's random scalars
+    (MixUp's lambda, the CutMix box, the MixUp/CutMix coin)."""
+
+    def __init__(
+        self,
+        config: VideoClassificationTrainConfig,
+        model: Optional[torch.nn.Module] = None,
+        datamodule=None,
+        steps_per_epoch: int = 100,
+        device: Union[str, torch.device] = "cuda",
+        seed: int = 0,
+    ):
+        if datamodule is None:
+            raise ValueError("the data layer is not ported: pass a datamodule whose "
+                             "train_dataloader(n) yields {'video', 'label'} batches")
+        self.cfg = config
+        self.steps_per_epoch = steps_per_epoch
+        self.device = torch.device(device)
+        self.model = model if model is not None else self._build_model()
+        self.datamodule = datamodule
+        self.generator = torch.Generator().manual_seed(seed)
+        self.state: Optional[TrainState] = None
+        self._train_step = None
+
+    def _build_model(self):
+        from pytorchvideo_tpu_torch.models import hub
+
+        name = self.cfg.model.name
+        factory = getattr(hub, name, None)
+        if factory is None:
+            raise NotImplementedError(f"hub model {name!r} is not ported yet")
+        kwargs = dict(self.cfg.model.kwargs)
+        if name.startswith("mvit"):
+            kwargs.setdefault("head_num_classes", self.cfg.model.num_classes)
+        else:
+            kwargs.setdefault("model_num_class", self.cfg.model.num_classes)
+            if name.startswith("x3d"):
+                kwargs.setdefault("input_clip_length", self.cfg.model.clip_length)
+                kwargs.setdefault("input_crop_size", self.cfg.model.crop_size)
+        return factory(device=self.device, **kwargs)
+
+    def setup(self) -> TrainState:
+        trainer = self.cfg.trainer
+        if trainer.precise_bn_batches > 0:
+            raise NotImplementedError("precise BN is not ported yet")
+        optimizer = construct_optimizer(self.model, self.cfg.optim)
+        schedule = lr_schedule_from_config(self.cfg.lr_scheduler, self.steps_per_epoch)
+        self.state = TrainState(self.model, optimizer, schedule)
+        batch_transform = None
+        if self.cfg.mix.enabled:
+            batch_transform = MixVideoBatchWrapper(
+                mixup_alpha=self.cfg.mix.mixup_alpha,
+                cutmix_prob=self.cfg.mix.cutmix_prob,
+                cutmix_alpha=self.cfg.mix.cutmix_alpha,
+                label_smoothing=self.cfg.mix.label_smoothing,
+                num_classes=self.cfg.model.num_classes,
+            ).mix_video_transform
+        compute_dtype = (None if trainer.compute_dtype in (None, "", "float32")
+                         else getattr(torch, trainer.compute_dtype))
+        self._train_step = make_train_step(
+            batch_transform=batch_transform,
+            clip_grad_norm=trainer.clip_grad_norm,
+            compute_dtype=compute_dtype,
+            remat_policy=trainer.remat_policy,
+            grad_accum_steps=trainer.grad_accum_steps,
+        )
+        return self.state
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {key: torch.as_tensor(batch[key]).to(self.device, non_blocking=True)
+                for key in ("video", "label")}
+
+    def train(self):
+        """Runs ``trainer.max_epochs`` epochs of ``steps_per_epoch`` steps;
+        returns the losses logged (every ``log_every_n_steps`` steps).
+        Repeated calls continue the same state and schedule."""
+        if self.state is None:
+            self.setup()
+        trainer = self.cfg.trainer
+        mlog = MetricsLogger(trainer.log_dir)
+        history = []
+        global_step = 0
+        for epoch in range(trainer.max_epochs):
+            t0 = time.time()
+            for step, batch in enumerate(self.datamodule.train_dataloader(self.steps_per_epoch)):
+                self.state, metrics = self._train_step(
+                    self.state, self._device_batch(batch), self.generator)
+                if step % trainer.log_every_n_steps == 0:
+                    history.append(float(metrics["loss"]))
+                    # The LR of the update just made (the schedule's index
+                    # is the update count before it).
+                    lr = self.state.lr_schedule(self.state.step - 1)
+                    mlog.log({**metrics, "exact_epoch": epoch + step / self.steps_per_epoch,
+                              "lr": lr}, step=global_step, epoch=epoch)
+                global_step += 1
+            logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+            if trainer.checkpoint_dir:
+                self.save_checkpoint(epoch)
+        mlog.close()
+        return history
+
+    def save_checkpoint(self, step: int) -> str:
+        """Writes model, optimizer and update count to
+        ``<checkpoint_dir>/ckpt_<step>.pt`` and the config beside it;
+        returns the checkpoint's path."""
+        directory = self.cfg.trainer.checkpoint_dir
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"ckpt_{step}.pt")
+        torch.save({"model": self.state.model.state_dict(),
+                    "optimizer": self.state.optimizer.state_dict(),
+                    "step": self.state.step}, path)
+        save_config(self.cfg, os.path.join(directory, "config.json"))
+        return path
+
+    def load_checkpoint(self, path: str) -> TrainState:
+        """Restores model, optimizer and update count from ``path``."""
+        if self.state is None:
+            self.setup()
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        self.state.model.load_state_dict(ckpt["model"])
+        self.state.optimizer.load_state_dict(ckpt["optimizer"])
+        self.state.step = int(ckpt["step"])
+        return self.state

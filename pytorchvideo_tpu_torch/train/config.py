@@ -1,0 +1,85 @@
+"""Trainer configuration as dataclasses (counterpart of
+pytorchvideo_tpu/train/config.py; upstream train_app.py:229-253 and its
+conf/ yaml tree), serialisable to json."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+from pytorchvideo_tpu_torch.train.lr_policy import LRSchedulerConfig
+from pytorchvideo_tpu_torch.train.optimizer import OptimizerConfig
+
+
+@dataclass
+class ModelConfig:
+    name: str = "slow_r50"  # a pytorchvideo_tpu_torch.models.hub factory name
+    num_classes: int = 400
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+    clip_length: int = 8
+    crop_size: int = 224
+    slowfast_alpha: Optional[int] = None
+
+
+@dataclass
+class DataConfig:
+    """The data layer's settings, kept as data: the data feed is not ported
+    yet, so the app takes any datamodule (see train/app.py)."""
+
+    data_path: str = ""
+    val_data_path: str = ""
+    clip_duration: float = 2.0
+    clips_per_video: int = 1
+    batch_size: int = 8
+    num_samples: Optional[int] = 8
+    min_size: int = 256
+    max_size: int = 320
+    crop_size: int = 224
+    aug_type: str = "default"
+    val_3crop: bool = False
+    video_mean: Tuple[float, float, float] = (0.45, 0.45, 0.45)
+    video_std: Tuple[float, float, float] = (0.225, 0.225, 0.225)
+    decoder: str = "opencv"
+
+
+@dataclass
+class MixConfig:
+    enabled: bool = False
+    mixup_alpha: float = 0.8
+    cutmix_alpha: float = 1.0
+    cutmix_prob: float = 0.5
+    label_smoothing: float = 0.1
+
+
+@dataclass
+class TrainerConfig:
+    max_epochs: int = 1
+    clip_grad_norm: Optional[float] = None
+    precise_bn_batches: int = 0
+    checkpoint_dir: Optional[str] = None
+    log_dir: Optional[str] = None  # metrics.jsonl output
+    log_every_n_steps: int = 10
+    test_ensemble_method: str = "sum"
+    # "float32" | "bfloat16": the forward/backward dtype; f32 masters and
+    # optimizer state either way.
+    compute_dtype: str = "float32"
+    remat_policy: Optional[str] = None
+    grad_accum_steps: int = 1
+
+
+@dataclass
+class VideoClassificationTrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimizerConfig = field(default_factory=OptimizerConfig)
+    lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
+    mix: MixConfig = field(default_factory=MixConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+
+
+def save_config(cfg, path: str) -> None:
+    """Writes the resolved config as json, for reproducibility."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)

@@ -1,0 +1,93 @@
+"""Optimizer construction over the JAX package's parameter groups
+(counterpart of pytorchvideo_tpu/train/optimizer.py; upstream
+module/optimizer.py:26-236).
+
+Every parameter gets one label, as ``_param_labels`` gives it in the JAX
+package:
+
+- "bn": the weight and bias of a norm module (LayerNorm or BatchNorm), with
+  ``bn_weight_decay``;
+- "zero": with ``zero_weight_decay_1d_param``, any other parameter of at most
+  one dimension or named ``bias``, with no weight decay;
+- "main": everything else (``pos_embed_*`` and ``cls_token`` included, being
+  3-D), with ``weight_decay``.
+
+The optax chains map onto ``torch.optim`` exactly: sgd is
+add_decayed_weights -> trace(momentum, nesterov) -> scale(-lr), which is
+``torch.optim.SGD`` with the group's weight decay; adam and adamw are both
+scale_by_adam -> add_decayed_weights -> scale(-lr) in the JAX package, that is
+decoupled weight decay scaled by the LR, which is ``torch.optim.AdamW``.
+LARS waits for the SSL slice.
+
+:func:`lr_schedule_from_config` is the per-step closed-form schedule
+(upstream's manual_update_lr); the train step sets it on every group before
+each update, indexed by the number of updates made so far, from 0, as
+``optax.scale_by_schedule`` counts.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+import torch
+import torch.nn as nn
+
+from pytorchvideo_tpu_torch.train.lr_policy import LRSchedulerConfig, get_lr_at_epoch
+
+GROUPS = ("main", "zero", "bn")
+_NORMS = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+
+
+@dataclass
+class OptimizerConfig:
+    method: str = "sgd"  # sgd | adam | adamw
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    bn_weight_decay: float = 0.0
+    nesterov: bool = False
+    zero_weight_decay_1d_param: bool = False
+    lars_on: bool = False
+
+
+def param_labels(model: nn.Module, zero_wd_1d: bool) -> Dict[str, str]:
+    """{parameter name: "bn" | "zero" | "main"} (JAX optimizer.py:36-47)."""
+    labels = {}
+    for module_name, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            full = f"{module_name}.{name}" if module_name else name
+            if isinstance(module, _NORMS):
+                labels[full] = "bn"
+            elif zero_wd_1d and (p.dim() <= 1 or name == "bias"):
+                labels[full] = "zero"
+            else:
+                labels[full] = "main"
+    return labels
+
+
+def lr_schedule_from_config(cfg: LRSchedulerConfig, steps_per_epoch: int) -> Callable[[int], float]:
+    """step -> LR, the closed form of :func:`get_lr_at_epoch` at epoch
+    step / steps_per_epoch (JAX optimizer.py:50-88)."""
+    return lambda step: get_lr_at_epoch(cfg, step / steps_per_epoch)
+
+
+def construct_optimizer(model: nn.Module, cfg: OptimizerConfig) -> torch.optim.Optimizer:
+    """The optimizer over ``model``'s trainable parameters in the JAX
+    package's groups; each group carries its ``label``."""
+    if cfg.lars_on:
+        raise NotImplementedError("LARS is not ported yet")
+    labels = param_labels(model, cfg.zero_weight_decay_1d_param)
+    wd = {"bn": cfg.bn_weight_decay, "zero": 0.0, "main": cfg.weight_decay}
+    params = dict(model.named_parameters())
+    groups = []
+    for label in GROUPS:
+        members = [params[n] for n, lab in labels.items()
+                   if lab == label and params[n].requires_grad]
+        if members:
+            groups.append({"params": members, "weight_decay": wd[label], "label": label})
+    if cfg.method == "sgd":
+        return torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum, nesterov=cfg.nesterov)
+    if cfg.method in ("adam", "adamw"):
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    raise NotImplementedError(f"optimizer {cfg.method}")

@@ -212,3 +212,116 @@ def test_token_pool_rejects_bad_inputs(cuda):
         tp.avg_token_pool_cuda(x.cpu(), (3, 3, 3), (1, 2, 2))
     with pytest.raises(ValueError, match="Cw, 1, kt"):
         tp.depthwise_token_pool(x, torch.zeros(3, 1, 3, 3, 3, device=cuda), (1, 1, 1))
+
+
+def _close(out, ref, rtol, atol_rel):
+    """Elementwise: |out - ref| <= atol_rel * max |ref| + rtol * |ref|."""
+    torch.testing.assert_close(out.float(), ref, rtol=rtol,
+                               atol=atol_rel * ref.abs().max().item() + 1e-12)
+
+
+# Backward vs its plain version in f32 on the same inputs. f32: sums over up
+# to Lq (dk, dv) or Lk (dq) rows in another order. bf16: each gradient is
+# rounded once to bf16 (2^-8 relative), on top of the f32 sums.
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol_rel=1e-5),
+            torch.bfloat16: dict(rtol=2**-7, atol_rel=2e-3)}
+# (H*c, heads, Lq, Lk): MViT's c = 96 with a grid and a cls query, a ragged Lq
+# and Lk, narrow and wide head widths.
+BWD_SHAPES = [(192, 2, 200, 57), (192, 2, 1, 57), (96, 1, 130, 393), (64, 2, 65, 64),
+              (256, 2, 77, 5), (768, 8, 1, 393)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "hc%d_h%d_q%d_k%d" % s)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_matches_plain(cuda, shape, dtype):
+    HC, heads, Lq, Lk = shape
+    c = HC // heads
+    q, k, v = _qkv(cuda, 2, Lq, Lk, HC, dtype, seed=7)
+    g = torch.randn(2, Lq, HC, device=cuda, generator=torch.Generator(device=cuda).manual_seed(8)).to(dtype)
+    per_head = [t.reshape(2, -1, heads, c).transpose(1, 2).contiguous() for t in (q, k, v, g)]
+    for residual in (False, True):
+        # Head-packed.
+        o, lse = pa.pooled_attention_packed_cuda(q, k, v, heads, c**-0.5, residual, return_lse=True)
+        ref_lse = pa.attention_lse_torch(*(t.float() for t in per_head[:2]), c**-0.5)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+        before = pa.pooled_attention_packed_bwd_cuda.launches
+        got = pa.pooled_attention_packed_bwd(q, k, v, o, lse, g, heads, c**-0.5, residual)
+        assert pa.pooled_attention_packed_bwd_cuda.launches == before + 1
+        ref = pa.pooled_attention_packed_bwd_torch(
+            *(t.float() for t in (q, k, v, o)), lse, g.float(), heads, c**-0.5, residual)
+        for a, b, t in zip(got, ref, (q, k, v)):
+            assert a.dtype == dtype and a.shape == t.shape
+            _close(a, b, **GRAD_TOL[dtype])
+        # Per-head.
+        qh, kh, vh, gh = per_head
+        o, lse = pa.pooled_attention_cuda(qh, kh, vh, c**-0.5, residual, return_lse=True)
+        before = pa.pooled_attention_bwd_cuda.launches
+        got = pa.pooled_attention_bwd(qh, kh, vh, o, lse, gh, c**-0.5, residual)
+        assert pa.pooled_attention_bwd_cuda.launches == before + 1
+        ref = pa.pooled_attention_bwd_torch(
+            *(t.float() for t in (qh, kh, vh, o)), lse, gh.float(), c**-0.5, residual)
+        for a, b in zip(got, ref):
+            _close(a, b, **GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_attention_autograd_runs_the_backward_kernel(cuda, residual):
+    # Through the dispatcher under autograd: the forward and backward kernels
+    # launch once each, and the gradients match autograd of the plain forward.
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, 2, 150, 40, 192, torch.float32, seed=9))
+    g = torch.randn(2, 150, 192, device=cuda)
+    before = (pa.pooled_attention_packed_cuda.launches, pa.pooled_attention_packed_bwd_cuda.launches)
+    got = torch.autograd.grad(pa.pooled_attention_packed(q, k, v, 2, 0.1, residual), (q, k, v), g)
+    assert (pa.pooled_attention_packed_cuda.launches,
+            pa.pooled_attention_packed_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    ref = torch.autograd.grad(pa.pooled_attention_packed_torch(q, k, v, 2, 0.1, residual), (q, k, v), g)
+    for a, b in zip(got, ref):
+        _close(a, b, **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [gm for gm in MVIT_POOLS if gm[1][0] == 3],
+                         ids=lambda g: "x%s_k%s_s%s" % g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_pool_backward_matches_plain(cuda, geometry, dtype):
+    grid, kernel, stride = geometry
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(2, *grid, device=cuda, generator=g).to(dtype)
+    C = grid[-1]
+    # Head-packed where C > 32: the weight's rows are shared by C / Cw heads.
+    w = (torch.randn(min(C, 32), 1, *kernel, device=cuda, generator=g) * 0.2).to(dtype)
+    out_shape = (2, *tp.check_geometry(x.shape, kernel, stride), C)
+    gy = torch.randn(out_shape, device=cuda, generator=g).to(dtype)
+    before = (tp.depthwise_token_pool_dx_cuda.launches, tp.depthwise_token_pool_dw_cuda.launches)
+    dx = tp.depthwise_token_pool_dx(gy, w, x.shape, stride)
+    dw = tp.depthwise_token_pool_dw(x, gy, w, stride)
+    assert (tp.depthwise_token_pool_dx_cuda.launches,
+            tp.depthwise_token_pool_dw_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dtype and dx.shape == x.shape and dw.dtype == dtype and dw.shape == w.shape
+    _close(dx, tp.depthwise_token_pool_dx_torch(gy.float(), w.float(), x.shape, stride),
+           **GRAD_TOL[dtype])
+    _close(dw, tp.depthwise_token_pool_dw_torch(x.float(), gy.float(), w.float(), stride),
+           **GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_token_pool_autograd(cuda):
+    # The conv pool's dx and dw kernels and the max pool's PyTorch backward,
+    # under autograd, against autograd of the plain versions.
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(2, 4, 12, 12, 64, device=cuda, generator=gen).requires_grad_()
+    w = torch.randn(32, 1, 3, 3, 3, device=cuda, generator=gen).requires_grad_()
+    before = {f: f.launches for f in (tp.depthwise_token_pool_cuda, tp.depthwise_token_pool_dx_cuda,
+                                      tp.depthwise_token_pool_dw_cuda, tp.max_token_pool_cuda)}
+    out = tp.depthwise_token_pool(x, w, (1, 2, 2))
+    out2 = tp.max_token_pool(x, (1, 3, 3), (1, 2, 2))
+    gy, gy2 = torch.randn_like(out), torch.randn_like(out2)
+    got = torch.autograd.grad((out, out2), (x, w), (gy, gy2))
+    assert all(f.launches == n + 1 for f, n in before.items())
+    ref = torch.autograd.grad(
+        (tp.depthwise_token_pool_torch(x, w, (1, 2, 2)), tp.max_token_pool_torch(x, (1, 3, 3), (1, 2, 2))),
+        (x, w), (gy, gy2))
+    for a, b in zip(got, ref):
+        _close(a, b, **GRAD_TOL[torch.float32])

@@ -19,7 +19,6 @@ from pytorchvideo_tpu.layers.attention import Mlp as JaxMlp
 from pytorchvideo_tpu.layers.positional_encoding import (
     SpatioTemporalClsPositionalEncoding as JaxPositionalEncoding,
 )
-from pytorchvideo_tpu.models import create_multiscale_vision_transformers as jax_create_mvit
 from pytorchvideo_tpu.models.head import create_vit_basic_head as jax_create_vit_basic_head
 from pytorchvideo_tpu.models.hub.vision_transformers import mvit_base_16x4 as jax_mvit_base_16x4
 from pytorchvideo_tpu.models.stem import create_conv_patch_embed as jax_create_conv_patch_embed
@@ -29,24 +28,15 @@ from pytorchvideo_tpu_torch import models as port_models
 from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form
 from pytorchvideo_tpu_torch.layers import attention as port_attention
 from pytorchvideo_tpu_torch.models import hub
-from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
-from torch_port_helpers import TOL, random_variables, torch_logits
-
-# A small MViT: 3 blocks, 2 heads (4 from block 1), a q pool and a width
-# change at block 1, adaptive kv pools, 4x32x32 clips (tokens (2, 8, 8)).
-SMALL = dict(
-    spatial_size=32,
-    temporal_size=4,
-    depth=3,
-    num_heads=2,
-    patch_embed_dim=32,
-    embed_dim_mul=[[2, 2.0]],
-    atten_head_mul=[[1, 2.0]],
-    pool_q_stride_size=[[1, 1, 2, 2]],
-    pool_kv_stride_adaptive=[1, 2, 2],
-    pool_kvq_kernel=[3, 3, 3],
-    head_num_classes=7,
+from torch_port_helpers import (
+    TOL,
+    build_mvit_pair,
+    init_variables,
+    load_jax_variables,
+    small_mvit_pair,
+    torch_logits,
 )
+
 # bf16 deploy form against the f32 model, relative to the largest logit (as
 # for X3D, tests/test_torch_deploy.py).
 BF16_REL_TOL = 3e-2
@@ -54,36 +44,6 @@ BF16_REL_TOL = 3e-2
 
 def _jax_input(x_ncthw):
     return jnp.asarray(np.moveaxis(x_ncthw, 1, -1))
-
-
-def _init(module, *inputs, seed):
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs))
-    return random_variables(shapes, seed)
-
-
-def _load(module, variables):
-    module.load_state_dict(jax_variables_to_state_dict(variables["params"], {}), strict=True)
-    return module.eval()
-
-
-def build_mvit_pair(jax_builder, torch_builder, seed=0, batch=2, **kwargs):
-    """The JAX and port MViT of ``kwargs`` with the same random weights
-    (nonzero cls and position embeddings, LN gammas in [0.5, 1.5]).
-
-    Returns (jax_model, variables, torch_model, x) with x a seeded NCTHW
-    numpy batch of the model's clip size."""
-    T, S = kwargs["temporal_size"], kwargs["spatial_size"]
-    jax_model = jax_builder(**kwargs)
-    variables = _init(jax_model, jnp.zeros((1, T, S, S, 3), jnp.float32), False, seed=seed)
-    torch_model = _load(torch_builder(**kwargs, device="cpu"), variables)
-    x = np.random.default_rng(seed + 1).normal(size=(batch, 3, T, S, S)).astype(np.float32)
-    return jax_model, variables, torch_model, x
-
-
-def small_pair(**variant):
-    return build_mvit_pair(
-        jax_create_mvit, port_models.create_multiscale_vision_transformers, **SMALL, **variant
-    )
 
 
 def jax_logits(jax_model, variables, x_ncthw):
@@ -97,10 +57,10 @@ def test_positional_encoding_matches_jax(sep_pos_embed, has_cls):
     thw, C = (2, 3, 4), 8
     x = np.random.default_rng(0).normal(size=(2, 24, C)).astype(np.float32)
     jax_pe = JaxPositionalEncoding(C, thw, sep_pos_embed=sep_pos_embed, has_cls=has_cls)
-    variables = _init(jax_pe, jnp.asarray(x), seed=1)
+    variables = init_variables(jax_pe, jnp.asarray(x), seed=1)
     ref = np.asarray(jax_pe.apply(variables, jnp.asarray(x)))
-    pe = _load(port_layers.SpatioTemporalClsPositionalEncoding(C, thw, sep_pos_embed, has_cls),
-               variables)
+    pe = load_jax_variables(
+        port_layers.SpatioTemporalClsPositionalEncoding(C, thw, sep_pos_embed, has_cls), variables)
     with torch.no_grad():
         out = pe(torch.from_numpy(x)).numpy()
     assert out.shape == (2, 24 + has_cls, C)
@@ -114,9 +74,9 @@ def test_patch_embed_matches_jax():
               conv_padding=(1, 3, 3))
     x = np.random.default_rng(0).normal(size=(2, 3, 4, 32, 32)).astype(np.float32)
     jax_pe = jax_create_conv_patch_embed(**kw)
-    variables = _init(jax_pe, _jax_input(x), False, seed=2)
+    variables = init_variables(jax_pe, _jax_input(x), False, seed=2)
     ref = np.asarray(jax_pe.apply(variables, _jax_input(x), False))
-    pe = _load(port_models.create_conv_patch_embed(**kw, device="cpu"), variables)
+    pe = load_jax_variables(port_models.create_conv_patch_embed(**kw, device="cpu"), variables)
     with torch.no_grad():
         out = pe(torch.from_numpy(x)).numpy()
     assert out.shape == (2, 2 * 8 * 8, 16)
@@ -128,9 +88,9 @@ def test_vit_head_matches_jax(seq_pool_type):
     x = np.random.default_rng(0).normal(size=(2, 9, 16)).astype(np.float32)
     kw = dict(in_features=16, out_features=5, seq_pool_type=seq_pool_type, dropout_rate=0.5)
     jax_head = jax_create_vit_basic_head(**kw)
-    variables = _init(jax_head, jnp.asarray(x), False, seed=3)
+    variables = init_variables(jax_head, jnp.asarray(x), False, seed=3)
     ref = np.asarray(jax_head.apply(variables, jnp.asarray(x), False))
-    head = _load(port_models.create_vit_basic_head(**kw, device="cpu"), variables)
+    head = load_jax_variables(port_models.create_vit_basic_head(**kw, device="cpu"), variables)
     with torch.no_grad():
         out = head(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
@@ -141,9 +101,9 @@ def test_mlp_matches_jax_tanh_gelu():
     # uses the exact erf GELU, which this input tells apart.
     x = (np.random.default_rng(0).normal(size=(2, 5, 16)) * 3).astype(np.float32)
     jax_mlp = JaxMlp(hidden_features=64, out_features=16)
-    variables = _init(jax_mlp, jnp.asarray(x), seed=4)
+    variables = init_variables(jax_mlp, jnp.asarray(x), seed=4)
     ref = np.asarray(jax_mlp.apply(variables, jnp.asarray(x)))
-    mlp = _load(port_layers.Mlp(16, 64, 16), variables)
+    mlp = load_jax_variables(port_layers.Mlp(16, 64, 16), variables)
     with torch.no_grad():
         out = mlp(torch.from_numpy(x)).numpy()
         erf = mlp.fc2(F.gelu(mlp.fc1(torch.from_numpy(x)))).numpy()
@@ -152,7 +112,7 @@ def test_mlp_matches_jax_tanh_gelu():
 
 
 def test_converter_round_trip_is_exact():
-    _, variables, model, _ = small_pair()
+    _, variables, model, _ = small_mvit_pair()
     state_dict = model.state_dict()
     for key in ("blocks.1.attn.pool_q.weight", "blocks.1.attn.norm_q.bias",
                 "blocks.0.attn.pool_k.weight", "cls_positional_encoding.pos_embed_spatial",
@@ -180,7 +140,7 @@ def test_small_mvit_logits_match_jax(variant, monkeypatch):
     # (as tests/test_ops_token_pool.py:190-194 does); its attention takes the
     # XLA path on the CPU.
     monkeypatch.setenv("PVT_TOKEN_POOL", "interpret")
-    jax_model, variables, model, x = small_pair(**variant)
+    jax_model, variables, model, x = small_mvit_pair(**variant)
     assert all(b.attn.pool_first == variant.get("pool_first", False) for b in model.blocks)
     ours = torch_logits(model, x)
     ref = jax_logits(jax_model, variables, x)
@@ -232,7 +192,7 @@ def test_mvit_base_16x4_widths_depth_and_logits(monkeypatch):
 
 
 def test_deploy_bf16_close_to_f32():
-    _, _, model, x = small_pair()
+    _, _, model, x = small_mvit_pair()
     ref = torch_logits(model, x)
     deploy = convert_to_deployable_form(model)
     assert not deploy.training and model.blocks[0].attn.q.weight.dtype == torch.float32

@@ -1,6 +1,6 @@
 """Shared helpers for the tests that hold pytorchvideo_tpu_torch against the
 JAX package: seeded numpy weights in the JAX layout, the JAX forward, and the
-port model loaded with the same weights."""
+port model (X3D or MViT) loaded with the same weights."""
 
 import numpy as np
 import torch
@@ -8,7 +8,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pytorchvideo_tpu.models import create_multiscale_vision_transformers as jax_create_mvit
 from pytorchvideo_tpu.models.x3d import create_x3d as jax_create_x3d
+from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
 from pytorchvideo_tpu_torch.models.x3d import create_x3d as torch_create_x3d
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
 
@@ -69,3 +71,51 @@ def jax_logits(jax_model, variables, x_ncthw):
 def torch_logits(model, x_ncthw, dtype=torch.float32):
     with torch.no_grad():
         return model(torch.from_numpy(x_ncthw).to(dtype)).float().numpy()
+
+
+# A small MViT: 3 blocks, 2 heads (4 from block 1), a q pool and a width
+# change at block 1, adaptive kv pools, 4x32x32 clips (tokens (2, 8, 8)).
+SMALL_MVIT = dict(
+    spatial_size=32,
+    temporal_size=4,
+    depth=3,
+    num_heads=2,
+    patch_embed_dim=32,
+    embed_dim_mul=[[2, 2.0]],
+    atten_head_mul=[[1, 2.0]],
+    pool_q_stride_size=[[1, 1, 2, 2]],
+    pool_kv_stride_adaptive=[1, 2, 2],
+    pool_kvq_kernel=[3, 3, 3],
+    head_num_classes=7,
+)
+
+
+def init_variables(module, *inputs, seed):
+    """Seeded numpy variables for ``module`` (a flax module) at ``inputs``."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs))
+    return random_variables(shapes, seed)
+
+
+def load_jax_variables(module, variables):
+    """Loads JAX ``variables`` (no batch stats) into a port module, in eval mode."""
+    module.load_state_dict(jax_variables_to_state_dict(variables["params"], {}), strict=True)
+    return module.eval()
+
+
+def build_mvit_pair(jax_builder, torch_builder, seed=0, batch=2, **kwargs):
+    """The JAX and port MViT of ``kwargs`` with the same random weights
+    (nonzero cls and position embeddings, LN gammas in [0.5, 1.5]).
+
+    Returns (jax_model, variables, torch_model, x) with x a seeded NCTHW
+    numpy batch of the model's clip size."""
+    T, S = kwargs["temporal_size"], kwargs["spatial_size"]
+    jax_model = jax_builder(**kwargs)
+    variables = init_variables(jax_model, jnp.zeros((1, T, S, S, 3), jnp.float32), False, seed=seed)
+    torch_model = load_jax_variables(torch_builder(**kwargs, device="cpu"), variables)
+    x = np.random.default_rng(seed + 1).normal(size=(batch, 3, T, S, S)).astype(np.float32)
+    return jax_model, variables, torch_model, x
+
+
+def small_mvit_pair(seed=0, batch=2, **variant):
+    return build_mvit_pair(jax_create_mvit, create_multiscale_vision_transformers, seed, batch,
+                           **{**SMALL_MVIT, **variant})
