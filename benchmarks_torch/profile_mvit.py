@@ -5,17 +5,21 @@
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 The model is ``hub.mvit_base_16x4()`` at full width and depth, 16x224x224,
 with the seeded random weights of ``chip_smoke.py`` (``randomize_mvit_``),
-in its bf16 deploy form, eager:
+in its bf16 deploy form, eager, in three forms: "kernels" (the default
+path), "fused" (the same weights in ``mvit_base_16x4(fused_kvpool=True)``,
+whose kv pools, their norms and the attention go through the fused op) and
+"plain" (the default path with every kernel swapped for its plain version,
+``chip_smoke.plain_kernels``):
 
-1. Clips/s at B1, B8 and B32 of the deploy form with its kernels and of the
-   same model with every kernel swapped for its plain version
-   (``chip_smoke.plain_kernels``), run in the order plain, kernels, kernels,
-   plain; each run is one warm-up forward then ``ITERS`` forwards timed with
-   CUDA events. Both runs are printed; the summary keeps the faster.
-2. Peak device memory of one deploy forward at B32.
-3. ``torch.profiler`` over 3 deploy forwards at B32 and at B1: device time
-   per forward by kernel group and the top kernels. The card's busy share is
-   that device time over the event-timed forward of step 1.
+1. Clips/s at B1, B8 and B32 of each form, run in the order plain, kernels,
+   fused, fused, kernels, plain; each run is one warm-up forward then
+   ``ITERS`` forwards timed with CUDA events. Both runs are printed; the
+   summary keeps the faster.
+2. Peak device memory of one deploy forward at B32, kernels and fused.
+3. ``torch.profiler`` over 3 deploy forwards at B32 and at B1 of the kernels
+   and the fused form: device time per forward by kernel group and the top
+   kernels. The card's busy share is that device time over the event-timed
+   forward of step 1.
 
 Prints one line per measurement, and writes them all, with the full kernel
 tables, as JSON to ``--out``.
@@ -37,6 +41,7 @@ PROFILED_BATCHES = (32, 1)
 PROFILED_FORWARDS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
+    ("fused pool-LN kernel", r"kvpool_ln_kernel"),
     ("pooled-attention kernel", r"pooled_attention_kernel"),
     ("token-pool kernel", r"token_pool_kernel"),
     ("patch-embed conv (cuDNN)", r"fprop|nhwcAddPadding|convolve|cudnn"),
@@ -67,20 +72,23 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     model = hub.mvit_base_16x4()
     randomize_mvit_(model, gen)
+    fused = hub.mvit_base_16x4(fused_kvpool=True)
+    fused.load_state_dict(model.state_dict(), strict=True)
     deploy = convert_to_deployable_form(model, dtype=torch.bfloat16)
-    del model
+    deploy_fused = convert_to_deployable_form(fused, dtype=torch.bfloat16)
+    del model, fused
     report = {"card": card, "torch": torch.__version__, "iters": ITERS, "batches": {}}
 
     def forward_plain(x):
         with plain_kernels():
             return deploy(x)
 
-    forms = {"kernels": deploy, "plain": forward_plain}
+    forms = {"kernels": deploy, "fused": deploy_fused, "plain": forward_plain}
     with torch.no_grad():
         for B in BATCHES:
             x = torch.randn(B, 3, *MVIT_CLIP, generator=gen).to("cuda", torch.bfloat16)
             runs = {name: [] for name in forms}
-            for name in ("plain", "kernels", "kernels", "plain"):
+            for name in ("plain", "kernels", "fused", "fused", "kernels", "plain"):
                 runs[name].append(cuda_time_ms(lambda: forms[name](x), ITERS, warmup=1))
             entry = {}
             for name, times in runs.items():
@@ -91,32 +99,34 @@ def main() -> None:
             report["batches"][B] = entry
 
         x = torch.randn(max(BATCHES), 3, *MVIT_CLIP, generator=gen).to("cuda", torch.bfloat16)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        deploy(x)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        report["deploy_peak_bytes_b32"] = peak
-        print(f"mvit_base_16x4 deploy B{max(BATCHES)}: peak device memory {peak!r} bytes")
+        for name in ("kernels", "fused"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            forms[name](x)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            report[f"deploy_peak_bytes_b32_{name}"] = peak
+            print(f"mvit_base_16x4 deploy ({name}) B{max(BATCHES)}: peak device memory "
+                  f"{peak!r} bytes")
 
         report["profiles"] = {}
-        for B in PROFILED_BATCHES:
+        for B, name in ((B, name) for B in PROFILED_BATCHES for name in ("kernels", "fused")):
             x = torch.randn(B, 3, *MVIT_CLIP, generator=gen).to("cuda", torch.bfloat16)
-            deploy(x)
+            forms[name](x)
             torch.cuda.synchronize()
             with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             ) as prof:
                 for _ in range(PROFILED_FORWARDS):
-                    deploy(x)
+                    forms[name](x)
                 torch.cuda.synchronize()
             rows = kernel_table(prof, PROFILED_FORWARDS)
             groups = group_table(rows, KERNEL_GROUPS)
             device_ms = sum(r["ms"] for r in rows)
-            wall_ms = min(report["batches"][B]["kernels"]["ms_runs"])
-            report["profiles"][B] = {"device_ms": device_ms, "event_ms": wall_ms,
-                                     "groups": groups, "kernels": rows}
-            print(f"profile deploy B{B} ({PROFILED_FORWARDS} forwards): device "
+            wall_ms = min(report["batches"][B][name]["ms_runs"])
+            report["profiles"][f"{name} B{B}"] = {"device_ms": device_ms, "event_ms": wall_ms,
+                                                  "groups": groups, "kernels": rows}
+            print(f"profile deploy ({name}) B{B} ({PROFILED_FORWARDS} forwards): device "
                   f"{device_ms!r} ms/forward of {wall_ms!r} ms event-timed "
                   f"(busy share {device_ms / wall_ms!r})")
             for name, g in groups.items():

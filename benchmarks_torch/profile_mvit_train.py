@@ -9,18 +9,21 @@ the seeded random weights of ``chip_smoke.py``, through
 (AdamW, clip 1.0, MixUp/CutMix) with ``compute_dtype="bfloat16"``, on
 ``chip_smoke.SyntheticClips`` (seeded clips made on the card):
 
-1. ms per step and clips/s at B8 and at the preset's B2, with the kernels
-   and with every kernel swapped for its plain version
-   (``chip_smoke.plain_kernels``), run in the order plain, kernels,
-   kernels, plain; each run is ``WARMUP`` steps, then ``STEPS`` steps timed
-   by the host's clock with the card synchronised at both ends. ``STEPS`` is
-   the preset's log interval, so a timed run reads the loss back to the host
-   once, as a user's run does. Both runs
-   are printed; the summary keeps the faster. The peak device memory of
-   each form's timed steps.
-2. ``torch.profiler`` over ``PROFILED_STEPS`` steps with the kernels at each
-   batch: device time per step by kernel group and the top kernels. The
-   card's busy share is that device time over the timed step of 1.
+1. ms per step and clips/s at B8 and at the preset's B2, in three forms:
+   "kernels" (the default path), "fused" (every block's ``fused_kvpool`` on:
+   the fused kv-pool op, whose backward recomputes the unfused composition)
+   and "plain" (every kernel swapped for its plain version,
+   ``chip_smoke.plain_kernels``), one model and optimizer throughout, run in
+   the order plain, kernels, fused, fused, kernels, plain; each run is
+   ``WARMUP`` steps, then ``STEPS`` steps timed by the host's clock with the
+   card synchronised at both ends. ``STEPS`` is the preset's log interval, so
+   a timed run reads the loss back to the host once, as a user's run does.
+   Both runs are printed; the summary keeps the faster. The peak device
+   memory of each form's timed steps.
+2. ``torch.profiler`` over ``PROFILED_STEPS`` steps with the kernels and
+   with the fused form at each batch: device time per step by kernel group
+   and the top kernels. The card's busy share is that device time over the
+   timed step of 1.
 
 Prints one line per measurement, and writes them all, with the full kernel
 tables, as JSON to ``--out``.
@@ -43,6 +46,7 @@ STEPS = 10
 PROFILED_STEPS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
+    ("fused pool-LN kernel", r"kvpool_ln_kernel"),
     ("attention forward kernel", r"pooled_attention_kernel"),
     ("attention backward kernels", r"attention_bwd_"),
     ("token-pool forward kernel", r"token_pool_kernel"),
@@ -77,11 +81,21 @@ def main() -> None:
           f"CUDA {torch.version.cuda}; {card}")
     app = train_app(train, BATCHES[0], seed=0)
     report = {"card": card, "torch": torch.__version__, "steps": STEPS, "batches": {}}
+
+    @contextlib.contextmanager
+    def form_of(name):
+        for block in app.model.blocks:
+            block.attn.fused_kvpool = name == "fused"
+        with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            yield
+        for block in app.model.blocks:
+            block.attn.fused_kvpool = False
+
     for B in BATCHES:
         app.datamodule = SyntheticClips(B, seed=B)
-        runs, peaks = {"plain": [], "kernels": []}, {}
-        for form in ("plain", "kernels", "kernels", "plain"):
-            with plain_kernels() if form == "plain" else contextlib.nullcontext():
+        runs, peaks = {"plain": [], "kernels": [], "fused": []}, {}
+        for form in ("plain", "kernels", "fused", "fused", "kernels", "plain"):
+            with form_of(form):
                 run_steps(app, WARMUP)
                 torch.cuda.reset_peak_memory_stats()
                 _, ms = run_steps(app, STEPS)
@@ -96,24 +110,25 @@ def main() -> None:
                   f"{entry[form]['clips_per_s']!r} clips/s (faster run); peak device memory "
                   f"{peaks[form]!r} bytes; on {card}")
 
-        run_steps(app, 1)
-        with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        ) as prof:
-            run_steps(app, PROFILED_STEPS)
-        rows = kernel_table(prof, PROFILED_STEPS)
-        groups = group_table(rows, KERNEL_GROUPS)
-        device_ms = sum(r["ms"] for r in rows)
-        step_ms = min(runs["kernels"])
-        entry["profile"] = {"device_ms": device_ms, "step_ms": step_ms, "groups": groups,
-                            "kernels": rows}
-        print(f"profile train B{B} ({PROFILED_STEPS} steps): device {device_ms!r} ms/step of "
-              f"{step_ms!r} ms timed (busy share {device_ms / step_ms!r})")
-        for name, g in groups.items():
-            print(f"  group {name}: {g['ms']!r} ms/step, {g['launches']!r} launches/step, "
-                  f"{g['ms'] / device_ms!r} of device time")
-        for r in rows[:20]:
-            print(f"  kernel {r['ms']!r} ms x{r['launches']!r}: {r['name'][:120]}")
+        for form in ("kernels", "fused"):
+            with form_of(form):
+                run_steps(app, 1)
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    run_steps(app, PROFILED_STEPS)
+            rows = kernel_table(prof, PROFILED_STEPS)
+            groups = group_table(rows, KERNEL_GROUPS)
+            device_ms = sum(r["ms"] for r in rows)
+            step_ms = min(runs[form])
+            entry[f"profile_{form}"] = {"device_ms": device_ms, "step_ms": step_ms,
+                                        "groups": groups, "kernels": rows}
+            print(f"profile train ({form}) B{B} ({PROFILED_STEPS} steps): device {device_ms!r} "
+                  f"ms/step of {step_ms!r} ms timed (busy share {device_ms / step_ms!r})")
+            for name, g in groups.items():
+                print(f"  group {name}: {g['ms']!r} ms/step, {g['launches']!r} launches/step, "
+                      f"{g['ms'] / device_ms!r} of device time")
+            for r in rows[:20]:
+                print(f"  kernel {r['ms']!r} ms x{r['launches']!r}: {r['name'][:120]}")
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

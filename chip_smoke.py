@@ -68,6 +68,31 @@ exits nonzero, printing no result, when a check fails or no card is present.
 10. ``pool_first`` training: one step at B2 of
     ``hub.mvit_base_16x4(pool_first=True)``; the per-head attention backward
     (#3) rises by 16.
+11. Fused kv-pool kernel: the fused op (the pool-LN kernel, then the
+    attention kernel for the grid and the cls query) at every MViT-B 16x4
+    block geometry, all of which pass ``fusable``, at B2 in f32 and bf16: the
+    pooled k and v against the plain version in f32 on the same inputs, each
+    attention against the plain attention over the kernel's own k and v (in
+    f32 also the whole op against the plain version). Then at B32 bf16 the
+    op, the unfused kernel path the layer otherwise runs (two conv pools,
+    LayerNorms, concatenations, two attention launches), a library
+    composition (``F.conv3d(groups=C)``, ``F.layer_norm``, SDPA) and the
+    plain version are timed per shape, with the bound.
+12. The per-head attention kernel at the four shapes of the benchmark-only
+    TPU variant ``_pallas_nopad`` (benchmarks/mvit_micro.py:236-241, B16
+    bf16, residual on) against ``pooled_attention_torch``, timed with SDPA.
+13. Fused serving: ``hub.mvit_base_16x4(fused_kvpool=True)`` with seeded
+    random weights, deploy bf16, B1/B8/B32; per forward the counts rise by
+    16 (fused pool-LN), 32 (attention), 3 (conv pools: pool_q only) and 3
+    (max). Its logits at B4 (bf16 and f32 deploy) against the plain f32 model
+    and the bf16 ones against the unfused deploy form of the same weights;
+    the unfused form is served after it for clips/s side by side.
+14. Fused training: the ``classification_mvit_16x4`` recipe with
+    ``model.kwargs={"fused_kvpool": True}``: every parameter's gradient
+    through autograd, timed steps at B8 and B2 (per step 16 fused, 64
+    attention forwards (the backward recomputes), 32 attention backwards, 35
+    conv pools with 35 dx and 35 dw, 3 max pools), and one B2 step's
+    gradients against the unfused kernel step of the same weights.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path, its errors, its time per forward or per step
@@ -183,6 +208,41 @@ GRAD_TOL = {"float32": dict(rtol=1e-4, atol_rel=1e-4),
 # gradient is zero (norm_k's shift: one shift of every key leaves each
 # softmax as it was), where both sides hold only rounding noise.
 STEP_GRAD_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (0.1, 0.01)}
+# MViT-B 16x4's kv pools as the fused op sees them: (unpooled grid (T, H, W),
+# H*c, heads, kv stride, Lq of the grid queries, blocks of that geometry).
+# Every block passes the card's ``fusable`` (the pooled grids are those of
+# MVIT_ATTENTION, whose Lk counts the cls row).
+MVIT_FUSED = [
+    ((8, 56, 56), 96, 1, (1, 8, 8), 25088, 1),
+    ((8, 56, 56), 192, 2, (1, 4, 4), 6272, 1),
+    ((8, 28, 28), 192, 2, (1, 4, 4), 6272, 1),
+    ((8, 28, 28), 384, 4, (1, 2, 2), 1568, 1),
+    ((8, 14, 14), 384, 4, (1, 2, 2), 1568, 10),
+    ((8, 14, 14), 768, 8, (1, 1, 1), 392, 1),
+    ((8, 7, 7), 768, 8, (1, 1, 1), 392, 1),
+]
+FUSED_BLOCKS = sum(n for *_, n in MVIT_FUSED)  # 16
+FUSED_EPS = 1e-6  # MViT's LayerNorm eps
+# Per forward with fused_kvpool: one pool-LN launch per block, the attention
+# for the grid and the cls query, the q pools of blocks 1, 3 and 14 (the k
+# and v pools go into the fused kernel), the skip max pools.
+FUSED_PER_FORWARD = {
+    "fused_kvpool_attention": FUSED_BLOCKS,
+    "pooled_attention_packed": 2 * FUSED_BLOCKS,
+    "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"] - 2 * FUSED_BLOCKS,  # 3
+    "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
+}
+# Per step: the fused op's backward recomputes the unfused composition (the
+# k and v conv pools and both attentions) and differentiates it.
+FUSED_PER_STEP = {**FUSED_PER_FORWARD,
+                  "pooled_attention_packed": 4 * FUSED_BLOCKS,
+                  "pooled_attention_packed_bwd": 2 * FUSED_BLOCKS,
+                  "token_pool_conv": CONV_POOLS, "token_pool_dx": CONV_POOLS,
+                  "token_pool_dw": CONV_POOLS}
+# The benchmark-only TPU variant `_pallas_nopad` (benchmarks/mvit_micro.py
+# :236-241): (label, B, heads, Lq, c, Lk), per-head, bf16, residual on.
+NOPAD_SHAPES = [("d0", 16, 1, 25089, 96, 393), ("d1", 16, 2, 6273, 96, 393),
+                ("d3", 16, 4, 1569, 96, 393), ("d14", 16, 8, 393, 96, 99)]
 # Published peaks of one H100 SXM at its 700 W limit (dense bf16 tensor
 # cores; HBM3): the bound of a call is the larger of its operations over the
 # first and its bytes over the second.
@@ -225,21 +285,27 @@ def bound_ms(flops: float, nbytes: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def time_three(plain, kernel, library, iters: int) -> dict:
-    """Kernel, plain version and library call, timed in turns (plain,
-    kernel, library, library, kernel, plain); the faster run of each."""
-    runs = {"plain_ms": [], "ms": [], "library_ms": []}
-    for key, fn in (("plain_ms", plain), ("ms", kernel), ("library_ms", library),
-                    ("library_ms", library), ("ms", kernel), ("plain_ms", plain)):
+def time_turns(fns: dict, iters: int) -> dict:
+    """Each of ``fns`` (key -> call) timed in turns, in order and then in
+    reverse; the faster run of each."""
+    order = list(fns.items())
+    runs = {key: [] for key in fns}
+    for key, fn in order + order[::-1]:
         runs[key].append(cuda_time_ms(fn, iters))
     return {key: min(ts) for key, ts in runs.items()}
 
 
-def per_forward(rows) -> dict:
+def time_three(plain, kernel, library, iters: int) -> dict:
+    """Kernel, plain version and library call, timed in turns (plain,
+    kernel, library, library, kernel, plain); the faster run of each."""
+    return time_turns({"plain_ms": plain, "ms": kernel, "library_ms": library}, iters)
+
+
+def per_forward(rows, extra=()) -> dict:
     """Sums the per-call times and bounds of ``rows`` (each with its
     per-forward ``calls``) into one forward's figures."""
     total = {key: sum(r["calls"] * r[key] for r in rows)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", *extra)}
     by_time = {}
     for r in rows:
         by_time[r["bound_by"]] = by_time.get(r["bound_by"], 0.0) + r["calls"] * r["bound_ms"]
@@ -250,11 +316,13 @@ def per_forward(rows) -> dict:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count is read under."""
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
+    from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
     from pytorchvideo_tpu_torch.ops import pooled_attention as pa
     from pytorchvideo_tpu_torch.ops import token_pool as tp
 
     return {
         "depthwise3x3x3_bn_swish": dw.depthwise3x3x3_bn_swish_cuda,
+        "fused_kvpool_attention": fk.fused_kvpool_attention_cuda,
         "pooled_attention_packed": pa.pooled_attention_packed_cuda,
         "pooled_attention": pa.pooled_attention_cuda,
         "token_pool_conv": tp.depthwise_token_pool_cuda,
@@ -352,10 +420,12 @@ def plain_kernels():
     differentiates the plain versions): the reference of the logit and
     gradient checks."""
     from pytorchvideo_tpu_torch.layers import attention
+    from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
     from pytorchvideo_tpu_torch.ops import pooled_attention as pa
     from pytorchvideo_tpu_torch.ops import token_pool as tp
 
     plain = {
+        "fused_kvpool_attention": fk.fused_kvpool_attention_torch,
         "pooled_attention_packed": pa.pooled_attention_packed_torch,
         "pooled_attention": pa.pooled_attention_torch,
         "depthwise_token_pool": tp.depthwise_token_pool_torch,
@@ -922,6 +992,258 @@ def check_pool_backward(tp) -> dict:
     return {"errs": errs, "timed_err": timed_err, "autograd_err": autograd_err, "rows": rows}
 
 
+def fused_inputs(gen, B: int, thw, HC: int, heads: int, Lq: int, dtype) -> dict:
+    """The fused op's inputs as MViT's layer passes them: q, the unpooled k
+    and v grids, per-head taps (27, c) and LayerNorm parameters (2, c) that
+    every head shares, cls rows for k and v and a cls query."""
+    import torch
+
+    c = HC // heads
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale + shift).to(dtype)
+
+    L = math.prod(thw)
+    return dict(q=randn(B, Lq, HC), k_grid=randn(B, L, HC), v_grid=randn(B, L, HC),
+                wk=randn(27, c, scale=0.2), wv=randn(27, c, scale=0.2),
+                lnk=randn(2, c, scale=0.3, shift=1.0), lnv=randn(2, c, scale=0.3, shift=1.0),
+                cls_k=randn(B, 1, HC), cls_v=randn(B, 1, HC), cls_q=randn(B, 1, HC))
+
+
+def fused_call(fn, t: dict, thw, heads: int, stride, residual: bool, cls_k=None, cls_v=None):
+    """``fn`` (the fused op or its plain version) on the inputs ``t``; the cls
+    rows are ``t``'s unless normed ones are given."""
+    HC = t["q"].shape[2]
+    return fn(t["q"], t["k_grid"], t["v_grid"], t["wk"], t["wv"], t["lnk"], t["lnv"],
+              t["cls_k"] if cls_k is None else cls_k, t["cls_v"] if cls_v is None else cls_v,
+              thw, heads, (HC // heads) ** -0.5, residual, (3, 3, 3), stride, FUSED_EPS,
+              cls_q=t["cls_q"])
+
+
+def check_fused_kvpool(fk, pa, tp) -> dict:
+    """Phase 11: the fused op against its plain version at B2 at every
+    MViT-B 16x4 block geometry, then timed at B32 bf16 beside the unfused
+    kernel path, a library composition and the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    bf16_end_to_end = 0.0
+    for thw, HC, heads, stride, Lq, _ in MVIT_FUSED:
+        assert fk.fusable(thw, HC, (3, 3, 3), stride, HC // heads), f"{thw} {stride} not fusable"
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            t = fused_inputs(gen, 2, thw, HC, heads, Lq, dtype)
+            f32 = {key: v.float() for key, v in t.items()}
+            for residual in (False, True):
+                outs = fused_call(fk.fused_kvpool_attention_cuda, t, thw, heads, stride, residual)
+                torch.cuda.synchronize()
+                ref = fused_call(fk.fused_kvpool_attention_torch, f32, thw, heads, stride, residual)
+                assert [o.shape for o in outs] == [r.shape for r in ref]
+                assert all(o.dtype == dtype for o in outs)
+                # The pool-LN kernel: pooled, normed k and v.
+                for got, want in zip(outs[1:3], ref[1:3]):
+                    torch.testing.assert_close(got.float(), want, **KERNEL_TOL[name])
+                    errs[name] = max(errs[name], (got.float() - want).abs().max().item())
+                # The attention launches, over the kernel's own k and v.
+                k_full, v_full = (torch.cat([t[f"cls_{x}"], o], dim=1).float()
+                                  for x, o in (("k", outs[1]), ("v", outs[2])))
+                for got, qq in ((outs[0], f32["q"]), (outs[3], f32["cls_q"])):
+                    want = pa.pooled_attention_packed_torch(qq, k_full, v_full, heads,
+                                                            (HC // heads) ** -0.5, residual)
+                    torch.testing.assert_close(got.float(), want, **ATTENTION_TOL[name])
+                    errs[name] = max(errs[name], (got.float() - want).abs().max().item())
+                # The whole op: in f32 held to the attention's tolerance; in
+                # bf16 its k and v are rounded before the attention reads
+                # them, so the end-to-end error is reported.
+                for got, want in zip(outs[::3], ref[::3]):
+                    if dtype == torch.float32:
+                        torch.testing.assert_close(got, want, **ATTENTION_TOL[name])
+                    else:
+                        bf16_end_to_end = max(bf16_end_to_end,
+                                              (got.float() - want).abs().max().item())
+                del outs, ref, k_full, v_full
+    print(f"fused kv-pool vs plain ({len(MVIT_FUSED)} geometries, residual on and off, cls query "
+          f"included): max |err| f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r} (pooled k, v "
+          f"and each attention); bf16 whole op vs plain f32 {bf16_end_to_end!r}")
+
+    B = MVIT_TIMING_BATCH
+    rows, timed_err = [], 0.0
+    for thw, HC, heads, stride, Lq, calls in MVIT_FUSED:
+        c = HC // heads
+        scale = c**-0.5
+        t = fused_inputs(gen, B, thw, HC, heads, Lq, torch.bfloat16)
+        pooled = tuple(fk.pool_out(d, 3, st, 1) for d, st in zip(thw, stride))
+        Lk = math.prod(pooled)
+
+        def norm(x, ln):
+            # The layer's per-head LayerNorm of a (B, L, H*c) tensor.
+            return F.layer_norm(x.view(B, -1, heads, c), (c,), ln[0], ln[1],
+                                FUSED_EPS).view(B, -1, HC)
+
+        cls_k, cls_v = norm(t["cls_k"], t["lnk"]), norm(t["cls_v"], t["lnv"])
+        w_k, w_v = (t[w].t().contiguous().view(c, 1, 3, 3, 3) for w in ("wk", "wv"))
+
+        def kernel():
+            # As the layer calls it: the cls rows normed, then the op.
+            ck, cv = norm(t["cls_k"], t["lnk"]), norm(t["cls_v"], t["lnv"])
+            return fused_call(fk.fused_kvpool_attention_cuda, t, thw, heads, stride, False, ck, cv)
+
+        def pool_ln():
+            return fk._pool_ln_cuda(t["k_grid"], t["v_grid"], t["wk"], t["wv"], t["lnk"],
+                                    t["lnv"], cls_k, cls_v, thw, heads, (3, 3, 3), stride,
+                                    FUSED_EPS, pooled)
+
+        def plain():
+            ck, cv = norm(t["cls_k"], t["lnk"]), norm(t["cls_v"], t["lnv"])
+            return fused_call(fk.fused_kvpool_attention_torch, t, thw, heads, stride, False, ck, cv)
+
+        def two_pools(pool, weights):
+            # k and v: pooled by ``pool`` (grid, weight), normed, cls row in front.
+            return [torch.cat([norm(t[f"cls_{x}"], t[f"ln{x}"]),
+                               norm(pool(t[f"{x}_grid"].view(B, *thw, HC), w).reshape(B, -1, HC),
+                                    t[f"ln{x}"])], dim=1)
+                    for x, w in zip("kv", weights)]
+
+        def unfused():
+            # The layer's unfused path: two conv pools, four LayerNorms, two
+            # concatenations, the grid and the cls attention.
+            k_full, v_full = two_pools(lambda g, w: tp.depthwise_token_pool_cuda(g, w, stride),
+                                       (w_k, w_v))
+            return [pa.pooled_attention_packed_cuda(qq, k_full, v_full, heads, scale)
+                    for qq in (t["q"], t["cls_q"])]
+
+        w_full = [w.repeat(heads, 1, 1, 1, 1) for w in (w_k, w_v)]
+
+        def library():
+            # F.conv3d(groups=C) on the channels-last grids, F.layer_norm,
+            # torch.cat and SDPA on (B, H, L, c) views.
+            k_full, v_full = two_pools(lambda g, w: F.conv3d(
+                g.permute(0, 4, 1, 2, 3), w, stride=stride, padding=1,
+                groups=HC).permute(0, 2, 3, 4, 1), w_full)
+            k4, v4 = (x.view(B, -1, heads, c).transpose(1, 2) for x in (k_full, v_full))
+            return [F.scaled_dot_product_attention(qq.view(B, -1, heads, c).transpose(1, 2), k4,
+                                                   v4, scale=scale)
+                    for qq in (t["q"], t["cls_q"])]
+
+        reads = math.prod(needed_positions(d, 3, st, o) for d, st, o in zip(thw, stride, pooled))
+        # q, out, the k and v positions some output reads, pooled k and v
+        # out, the cls rows of k, v and q in and the cls output, the taps and
+        # norms, once in bf16. The products of both attentions, 27 FMAs and
+        # ~8 LayerNorm operations per pooled output.
+        bound, bound_by = bound_ms(
+            4 * B * (Lq + 1) * (Lk + 1) * HC + 2 * B * Lk * HC * (2 * 27 + 8),
+            2 * (2 * B * Lq * HC + 2 * B * reads * HC + 2 * B * Lk * HC + 4 * B * HC + 58 * c))
+        # The k and v buffers the pool-LN launch writes and the attention
+        # reads back: their cost had each byte gone through HBM once each way.
+        handover_ms = 2 * 2 * (2 * B * (Lk + 1) * HC) / PEAK_BYTES_PER_S * 1e3
+        row = {"shape": f"B{B} {thw} H*c {HC} heads {heads} s{stride} Lq {Lq} Lk {Lk + 1}",
+               "calls": calls, "bound_ms": bound, "bound_by": bound_by,
+               "handover_ms": handover_ms,
+               **time_turns({"plain_ms": plain, "ms": kernel, "pool_ln_ms": pool_ln,
+                             "unfused_ms": unfused, "library_ms": library}, iters=5)}
+        # The timed shape held against the plain version as above.
+        outs = kernel()
+        f32 = {key: v.float() for key, v in t.items()}
+        ref = fused_call(fk.fused_kvpool_attention_torch, f32, thw, heads, stride, False,
+                         cls_k.float(), cls_v.float())
+        for got, want in zip(outs[1:3], ref[1:3]):
+            torch.testing.assert_close(got.float(), want, **KERNEL_TOL["bfloat16"])
+        row["max_abs_err"] = max((got.float() - want).abs().max().item()
+                                 for got, want in zip(outs[1:3], ref[1:3]))
+        timed_err = max(timed_err, row["max_abs_err"])
+        rows.append(row)
+        del outs, ref, f32, t, w_full
+        print(f"fused kv-pool {row['shape']} bf16: op {row['ms']!r} ms (pool-LN launch "
+              f"{row['pool_ln_ms']!r}), unfused kernel path {row['unfused_ms']!r} ms, plain "
+              f"{row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound "
+              f"{row['bound_ms']!r} ms ({row['bound_by']}); k/v handover at the HBM rate "
+              f"{handover_ms!r} ms")
+    torch.cuda.empty_cache()
+    return {"errs": errs, "bf16_end_to_end": bf16_end_to_end, "timed_err": timed_err,
+            "rows": rows}
+
+
+def check_attention_nopad(pa) -> list:
+    """Phase 12: the per-head kernel at `_pallas_nopad`'s shapes against its
+    plain version, timed with SDPA (plus the residual) beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for label, B, H, Lq, c, Lk in NOPAD_SHAPES:
+        # uniform(-1, 1), as the benchmark draws them
+        q, k, v = ((torch.rand(B, H, L, c, device="cuda", generator=gen) * 2 - 1).bfloat16()
+                   for L in (Lq, Lk, Lk))
+        scale = c**-0.5
+        out = pa.pooled_attention_cuda(q, k, v, scale, True).float()
+        ref = pa.pooled_attention_torch(q.float(), k.float(), v.float(), scale, True)
+        torch.testing.assert_close(out, ref, **ATTENTION_TOL["bfloat16"])
+        err = (out - ref).abs().max().item()
+        del out, ref
+        bound, bound_by = bound_ms(4 * B * H * Lq * Lk * c, 2 * B * H * c * (2 * Lq + 2 * Lk))
+        row = {"shape": f"{label}: B{B} heads {H} Lq {Lq} c {c} Lk {Lk}", "calls": 1,
+               "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, **time_three(
+                   lambda: pa.pooled_attention_torch(q, k, v, scale, True),
+                   lambda: pa.pooled_attention_cuda(q, k, v, scale, True),
+                   lambda: F.scaled_dot_product_attention(q, k, v, scale=scale) + q, iters=5)}
+        rows.append(row)
+        print(f"attention nopad {row['shape']} bf16 residual: kernel {row['ms']!r} ms, plain "
+              f"{row['plain_ms']!r} ms, SDPA + q {row['library_ms']!r} ms, bound "
+              f"{row['bound_ms']!r} ms ({row['bound_by']}); max |err| {err!r}")
+        del q, k, v
+    return rows
+
+
+def mvit_fused_slice(hub, convert_to_deployable_form, batches, seed: int) -> dict:
+    """Phase 13: ``mvit_base_16x4(fused_kvpool=True)`` deploy serving
+    ``batches``, its logits against the plain f32 model and against the
+    unfused deploy form of the same weights, which is served after it."""
+    import torch
+
+    label = "mvit_base_16x4 fused_kvpool"
+    gen = torch.Generator().manual_seed(seed)
+    model = hub.mvit_base_16x4(fused_kvpool=True)
+    randomize_mvit_(model, gen)
+    unfused = hub.mvit_base_16x4()
+    unfused.load_state_dict(model.state_dict(), strict=True)  # one checkpoint, both forms
+    unfused.eval()
+    x = torch.randn(MVIT_CHECK_BATCH, 3, *MVIT_CLIP, generator=gen).cuda()
+    deploy = convert_to_deployable_form(model, dtype=torch.bfloat16)
+    unfused_deploy = convert_to_deployable_form(unfused, dtype=torch.bfloat16)
+    with torch.no_grad():
+        with plain_kernels():
+            ref = unfused(x).float()
+        got = {"float32": convert_to_deployable_form(model, dtype=None)(x).float(),
+               "bfloat16": deploy(x.bfloat16()).float()}
+        unfused_bf16 = unfused_deploy(x.bfloat16()).float()
+    check_logits(label, got, ref)
+    diff = (got["bfloat16"] - unfused_bf16).abs().max().item()
+    bound = LOGIT_REL_TOL["bfloat16"] * ref.abs().max().item()
+    agree = int((got["bfloat16"].argmax(1) == unfused_bf16.argmax(1)).sum())
+    print(f"{label} bf16 vs the unfused bf16 deploy form, B{MVIT_CHECK_BATCH}: max |diff| "
+          f"{diff!r} (bound {bound!r}); top-1 equal on {agree}/{MVIT_CHECK_BATCH} rows")
+    assert diff <= bound, f"{label}: fused and unfused bf16 logits differ by {diff} > {bound}"
+    del model, unfused, ref, got, unfused_bf16
+
+    reset_counts()
+    rates = serve(deploy, batches, gen, MVIT_CLIP, 400)
+    counts = read_counts()
+    forwards = sum(r["forwards"] for r in rates.values())
+    check_path_counts(f"{label} path", counts, FUSED_PER_FORWARD, forwards)
+    unfused_rates = serve(unfused_deploy, batches, gen, MVIT_CLIP, 400)
+    for B, r in rates.items():
+        print(f"{label} deploy bf16 16x224x224 B{B}: {r['clips_per_s']!r} clips/s "
+              f"({r['ms']!r} ms/forward); unfused served next: "
+              f"{unfused_rates[B]['clips_per_s']!r} clips/s ({unfused_rates[B]['ms']!r} ms)")
+    del deploy, unfused_deploy
+    torch.cuda.empty_cache()
+    return {"rates": rates, "unfused_rates": unfused_rates, "counts": counts,
+            "forwards": forwards, "logit_diff_vs_unfused": diff}
+
+
 class SyntheticClips:
     """A datamodule of seeded random clips made on the card:
     ``train_dataloader(n)`` yields n batches {"video": (B, 3, 16, 224, 224)
@@ -984,39 +1306,42 @@ def _module_of(name: str) -> str:
     return ".".join(parts[:2]) if parts[0] == "blocks" else parts[0]
 
 
-def check_step_grads(train, model, batch) -> dict:
-    """One step's gradients (``forward_backward``, the step's own) with the
-    kernels against the same step with every kernel swapped for its plain
-    version, in f32 and in bf16 compute, per tensor (STEP_GRAD_TOL)."""
+def check_step_grads(train, forms, batch, label: str) -> dict:
+    """One step's gradients (``forward_backward``, the step's own) of the
+    first of ``forms`` against the second's, in f32 and in bf16 compute, per
+    tensor (STEP_GRAD_TOL). A form is (name, model, context, per-step
+    launches, or None for a form that must launch no kernel)."""
     import torch
 
-    named = dict(model.named_parameters())
     report = {}
+    (got_name, *_), (ref_name, *_) = forms
     for compute in ("float32", "bfloat16"):
         dtype = None if compute == "float32" else torch.bfloat16
         grads, losses = {}, {}
-        for form in ("kernels", "plain"):
+        for form, model, context, per_step in forms:
             model.zero_grad(set_to_none=True)
             torch.cuda.manual_seed(11)  # the same dropout masks in both forms
             reset_counts()
-            with plain_kernels() if form == "plain" else contextlib.nullcontext():
+            with context():
                 loss, _ = train.forward_backward(model.train(), batch["video"], batch["label"],
                                                  compute_dtype=dtype)
             counts = read_counts()
-            if form == "plain":
-                assert not any(counts.values()), f"the plain step launched kernels: {counts}"
+            if per_step is None:
+                assert not any(counts.values()), f"the {form} step launched kernels: {counts}"
             else:
-                check_path_counts(f"grad check ({compute})", counts, MVIT_PER_STEP, 1, "steps")
-            grads[form] = {n: p.grad.clone() for n, p in named.items()}
+                check_path_counts(f"{label} grad check, {form} ({compute})", counts, per_step, 1,
+                                  "steps")
+            grads[form] = {n: p.grad.clone() for n, p in model.named_parameters()}
             losses[form] = loss.item()
+            model.zero_grad(set_to_none=True)
         rel, floor = STEP_GRAD_TOL[compute]
-        scales = {n: ref.abs().max().item() for n, ref in grads["plain"].items()}
+        scales = {n: ref.abs().max().item() for n, ref in grads[ref_name].items()}
         module_max = {}
         for n, scale in scales.items():
             module_max[_module_of(n)] = max(module_max.get(_module_of(n), 0.0), scale)
         rows = []
-        for n, ref in grads["plain"].items():
-            got = grads["kernels"][n]
+        for n, ref in grads[ref_name].items():
+            got = grads[got_name][n]
             assert torch.isfinite(got).all(), f"{n}: non-finite gradient"
             err, scale, mod = (got - ref).abs().max().item(), scales[n], module_max[_module_of(n)]
             rows.append((err / (rel * scale + floor * mod), n, err, scale, mod))
@@ -1025,29 +1350,24 @@ def check_step_grads(train, model, batch) -> dict:
             print(f"  {compute} step grad {n}: |err| {err!r}, max |g| {scale!r}, module max "
                   f"|g| {mod!r}, {share!r} of its bound")
         share, n, err, scale, mod = rows[0]
-        assert share <= 1.0, (f"{compute} step: {n} gradient off by {err} (max |g| {scale}, "
-                              f"module {mod})")
-        print(f"one step's grads at B{len(batch['video'])}, {compute} compute, kernels vs plain: "
-              f"loss {losses['kernels']!r} vs {losses['plain']!r}; worst tensor {n} at "
-              f"{share!r} of its bound ({rel} x its max |g| + {floor} x its module's)")
+        assert share <= 1.0, (f"{label} {compute} step: {n} gradient off by {err} (max |g| "
+                              f"{scale}, module {mod})")
+        print(f"{label}: one step's grads at B{len(batch['video'])}, {compute} compute, "
+              f"{got_name} vs {ref_name}: loss {losses[got_name]!r} vs {losses[ref_name]!r}; "
+              f"worst tensor {n} at {share!r} of its bound ({rel} x its max |g| + {floor} x its "
+              f"module's)")
         report[compute] = {"losses": losses, "worst_share_of_bound": share, "worst_tensor": n}
         del grads
-    model.zero_grad(set_to_none=True)
     return report
 
 
-def train_slice(train) -> dict:
-    """Phases 9 and 10: MViT-B 16x4 training through the app, then one
-    ``pool_first`` step."""
+def first_step_grads(app, label: str) -> None:
+    """The first step: every parameter receives its gradient through autograd
+    (the step's zero fill for parameters the loss misses does not count)."""
     import torch
 
-    app = train_app(train, TRAIN_BATCH, seed=21)
-    model = app.model
-    named = dict(model.named_parameters())
+    named = dict(app.model.named_parameters())
     n_params = sum(p.numel() for p in named.values())
-
-    # The first step: every parameter receives its gradient through autograd
-    # (the step's zero fill for parameters the loss misses does not count).
     reached = set()
     hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n: reached.add(n))
              for n, p in named.items()]
@@ -1055,13 +1375,20 @@ def train_slice(train) -> dict:
     for hook in hooks:
         hook.remove()
     missing = sorted(set(named) - reached)
-    assert not missing, f"no gradient reached {missing}"
+    assert not missing, f"{label}: no gradient reached {missing}"
     bad = [n for n, p in named.items() if not torch.isfinite(p.grad).all()]
     assert not bad and all(math.isfinite(h) for h in history), f"non-finite gradients: {bad}"
-    print(f"train step 1 (B{TRAIN_BATCH}): loss {history[0]!r}, all {len(named)} parameter "
-          f"tensors ({n_params} values) got finite gradients through autograd; {first_ms!r} ms")
+    print(f"{label} train step 1 (B{app.datamodule.batch}): loss {history[0]!r}, all "
+          f"{len(named)} parameter tensors ({n_params} values) got finite gradients through "
+          f"autograd; {first_ms!r} ms")
 
-    # The main path: warm-up steps, then timed steps with the counts reset.
+
+def timed_steps(app, per_step: dict, label: str):
+    """The main path: at B8 and at the preset's B2, warm-up steps, then timed
+    steps with the counts reset; returns (rates by batch, summed counts)."""
+    import torch
+
+    named = dict(app.model.named_parameters())
     rates, counts = {}, {name: 0 for name in read_counts()}
     for B in (TRAIN_BATCH, PRESET_BATCH):
         app.datamodule = SyntheticClips(B, seed=22 + B)
@@ -1071,22 +1398,40 @@ def train_slice(train) -> dict:
         history, ms = run_steps(app, TRAIN_TIMED_STEPS)
         run_counts = read_counts()
         bad = [n for n, p in named.items() if not torch.isfinite(p).all()]
-        assert not bad, f"B{B}: non-finite parameters after the timed steps: {bad}"
-        check_path_counts(f"mvit_base_16x4 train B{B}", run_counts, MVIT_PER_STEP,
-                          TRAIN_TIMED_STEPS, "steps")
+        assert not bad, f"{label} B{B}: non-finite parameters after the timed steps: {bad}"
+        check_path_counts(f"{label} train B{B}", run_counts, per_step, TRAIN_TIMED_STEPS, "steps")
         counts = {name: counts[name] + n for name, n in run_counts.items()}
         peak = torch.cuda.max_memory_allocated()
-        assert all(math.isfinite(h) for h in history), f"B{B}: non-finite loss {history}"
+        assert all(math.isfinite(h) for h in history), f"{label} B{B}: non-finite loss {history}"
         rates[B] = {"ms_per_step": ms, "clips_per_s": B * 1000.0 / ms, "peak_bytes": peak,
                     "losses": history}
-        print(f"mvit_base_16x4 train bf16 16x224x224 B{B}: {rates[B]['clips_per_s']!r} clips/s "
+        print(f"{label} train bf16 16x224x224 B{B}: {rates[B]['clips_per_s']!r} clips/s "
               f"({ms!r} ms/step over {TRAIN_TIMED_STEPS} steps, MixUp/CutMix, AdamW, clip "
               f"1.0); peak device memory {peak!r} bytes; losses {history}")
+    return rates, counts
 
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    batch = {"video": torch.randn(PRESET_BATCH, 3, *MVIT_CLIP, device="cuda", generator=gen),
-             "label": torch.randint(0, 400, (PRESET_BATCH,), device="cuda", generator=gen)}
-    grad_report = check_step_grads(train, model, batch)
+
+def preset_batch(seed: int) -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"video": torch.randn(PRESET_BATCH, 3, *MVIT_CLIP, device="cuda", generator=gen),
+            "label": torch.randint(0, 400, (PRESET_BATCH,), device="cuda", generator=gen)}
+
+
+def train_slice(train) -> dict:
+    """Phases 9 and 10: MViT-B 16x4 training through the app, then one
+    ``pool_first`` step."""
+    import torch
+
+    app = train_app(train, TRAIN_BATCH, seed=21)
+    model = app.model
+    first_step_grads(app, "mvit_base_16x4")
+    rates, counts = timed_steps(app, MVIT_PER_STEP, "mvit_base_16x4")
+    batch = preset_batch(23)
+    grad_report = check_step_grads(
+        train, [("kernels", model, contextlib.nullcontext, MVIT_PER_STEP),
+                ("plain", model, plain_kernels, None)], batch, "mvit_base_16x4")
 
     # The loss falls on one fixed batch: hard labels, no warmup, an LR of
     # 1e-4 (cosine over the preset's 200 epochs, flat over these steps).
@@ -1098,7 +1443,7 @@ def train_slice(train) -> dict:
     print(f"loss over {LOSS_STEPS} steps on one fixed B{TRAIN_BATCH} batch: {losses}")
     assert all(math.isfinite(h) for h in losses), losses
     assert losses[-1] < losses[0] and sum(losses[-3:]) < sum(losses[:3]), f"no fall: {losses}"
-    del app, fit, model, named, batch
+    del app, fit, model, batch
     torch.cuda.empty_cache()
 
     # pool_first: one step, through the per-head attention and its backward.
@@ -1118,6 +1463,36 @@ def train_slice(train) -> dict:
             "grads": grad_report, "fit_losses": losses}
 
 
+def train_fused_slice(train, unfused_rates: dict) -> dict:
+    """Phase 14: the recipe with ``fused_kvpool=True``: gradients through
+    autograd, timed steps beside the unfused ones of phase 9, and one step's
+    gradients against the unfused kernel step of the same weights."""
+    import copy
+
+    import torch
+
+    label = "mvit_base_16x4 fused_kvpool"
+    app = train_app(train, TRAIN_BATCH, seed=31, **{"model.kwargs": {"fused_kvpool": True}})
+    model = app.model
+    assert all(block.attn.fused_kvpool for block in model.blocks)
+    first_step_grads(app, label)
+    rates, counts = timed_steps(app, FUSED_PER_STEP, label)
+    for B, r in rates.items():
+        u = unfused_rates[B]
+        print(f"{label} train B{B}: {r['ms_per_step']!r} ms/step, peak {r['peak_bytes']!r} bytes; "
+              f"unfused (phase 9) {u['ms_per_step']!r} ms/step, peak {u['peak_bytes']!r} bytes")
+    unfused = copy.deepcopy(model)
+    for block in unfused.blocks:
+        block.attn.fused_kvpool = False
+    grad_report = check_step_grads(
+        train, [("fused", model, contextlib.nullcontext, FUSED_PER_STEP),
+                ("unfused", unfused, contextlib.nullcontext, MVIT_PER_STEP)],
+        preset_batch(32), label)
+    del app, model, unfused
+    torch.cuda.empty_cache()
+    return {"rates": rates, "counts": counts, "grads": grad_report}
+
+
 def main() -> None:
     import torch
 
@@ -1131,6 +1506,7 @@ def main() -> None:
     from pytorchvideo_tpu_torch.models import hub
     from pytorchvideo_tpu_torch.ops import _build
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
+    from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
     from pytorchvideo_tpu_torch.ops import pooled_attention as pa
     from pytorchvideo_tpu_torch.ops import token_pool as tp
     from pytorchvideo_tpu_torch import train
@@ -1189,6 +1565,10 @@ def main() -> None:
     attention_bwd = check_attention_backward(pa)
     pool_bwd = check_pool_backward(tp)
     trained = train_slice(train)
+    fused_report = check_fused_kvpool(fk, pa, tp)
+    nopad_rows = check_attention_nopad(pa)
+    fused = mvit_fused_slice(hub, convert_to_deployable_form, MVIT_BATCHES, seed=30)
+    fused_trained = train_fused_slice(train, trained["rates"])
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -1330,6 +1710,54 @@ def main() -> None:
             **per_forward(pool_bwd["rows"]["dx"]),
             "library": "aten.convolution_backward of F.conv3d(groups=C), input gradient",
             "per_shape": pool_bwd["rows"]["dx"],
+        },
+    ]
+    fused_rows = fused_report["rows"]
+    entries += [
+        {
+            "name": "fused_kvpool_attention",
+            "route": "cuda",
+            "source": "pytorchvideo_tpu_torch/csrc/fused_kvpool_attention.cu",
+            "replaces": "pytorchvideo_tpu/ops/fused_kvpool_attention.py:288",
+            "launches": fused["counts"]["fused_kvpool_attention"],
+            "launches_train": fused_trained["counts"]["fused_kvpool_attention"],
+            "path": "mvit_base_16x4(fused_kvpool=True) deploy bf16 16x224x224, B1/8/32; its "
+                    f"training, B{TRAIN_BATCH} and B{PRESET_BATCH}",
+            "max_abs_err": max([*fused_report["errs"].values(), fused_report["timed_err"]]),
+            "max_abs_err_f32": fused_report["errs"]["float32"],
+            "max_abs_err_bf16": fused_report["errs"]["bfloat16"],
+            "bf16_whole_op_vs_plain_f32": fused_report["bf16_end_to_end"],
+            **per_forward(fused_rows, extra=("pool_ln_ms", "unfused_ms", "handover_ms")),
+            "timing": "bf16, residual off, " + timing.format(MVIT_TIMING_BATCH)
+                      + " (16 blocks); ms: the op as the layer calls it (cls rows normed, the "
+                        "pool-LN launch, the grid and cls attention); pool_ln_ms: the pool-LN "
+                        "launch alone; unfused_ms: the unfused kernel path; handover_ms: the k "
+                        "and v buffers written and read once at the HBM rate (computed)",
+            "library": "F.conv3d(groups=C) + F.layer_norm + torch.cat + "
+                       "F.scaled_dot_product_attention (grid and cls queries)",
+            "serving": {B: {"clips_per_s": r["clips_per_s"],
+                            "unfused_clips_per_s": fused["unfused_rates"][B]["clips_per_s"]}
+                        for B, r in fused["rates"].items()},
+            "training": {B: {"ms_per_step": r["ms_per_step"], "peak_bytes": r["peak_bytes"],
+                             "unfused_ms_per_step": trained["rates"][B]["ms_per_step"],
+                             "unfused_peak_bytes": trained["rates"][B]["peak_bytes"]}
+                         for B, r in fused_trained["rates"].items()},
+            "per_shape": fused_rows,
+        },
+        {
+            "name": "attention_nopad",
+            "route": "cuda",
+            "source": "pytorchvideo_tpu_torch/csrc/pooled_attention.cu",
+            "replaces": "benchmarks/mvit_micro.py:193",
+            "launches": pool_first["counts"]["pooled_attention"],
+            "path": "the per-head kernel (kernel #2's port, which pads neither Lq nor Lk); its "
+                    "launches on mvit_base_16x4(pool_first=True) deploy, B4",
+            "max_abs_err": max(r["max_abs_err"] for r in nopad_rows),
+            **per_forward(nopad_rows),
+            "timing": "bf16, residual on, the four shapes of benchmarks/mvit_micro.py:236-241 "
+                      "at B16, one call each, summed",
+            "library": "F.scaled_dot_product_attention + q",
+            "per_shape": nopad_rows,
         },
     ]
     for entry in entries:

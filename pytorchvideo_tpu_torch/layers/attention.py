@@ -22,10 +22,19 @@ applies DropPath to both residual branches with one mask per sample shared by
 the cls token and the grid; the kernels' backward runs through their
 ``torch.autograd.Function``s.
 
+``MultiScaleAttention(fused_kvpool=True)`` is the explicit counterpart of the
+JAX package's ``PVT_FUSED_KVPOOL=1`` (attention.py:376-448, 587-625), off by
+default: where the block's geometry passes ``fusable``, the k and v pools,
+their LayerNorms, the cls rows and both attentions go through one fused op
+(ops/fused_kvpool_attention.py), which reads the unpooled k and v grids and,
+on the card, makes one pool-LN launch and the two attention launches. It uses
+the same ``pool_k``/``norm_k``/``pool_v``/``norm_v`` parameters, so the
+``state_dict`` is the same with the flag on or off; both paths compute the
+same function.
+
 Modules keep upstream's ``state_dict`` keys (``attn.q``, ``attn.pool_q``,
 ``attn.norm_q``, ``mlp.fc1``, ...). Not ported: the BatchNorm MViT variant
-(pool-before-norm), the non-depthwise pool conv, the fused kv-pool kernel
-(``PVT_FUSED_KVPOOL``) and ``PVT_FUSED_QKV``.
+(pool-before-norm), the non-depthwise pool conv and ``PVT_FUSED_QKV``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from pytorchvideo_tpu_torch.layers.common import triple
 from pytorchvideo_tpu_torch.layers.norms import LayerNorm
 from pytorchvideo_tpu_torch.layers.stochastic import drop_path_pair
+from pytorchvideo_tpu_torch.ops.fused_kvpool_attention import fused_kvpool_attention, fusable
 from pytorchvideo_tpu_torch.ops.pooled_attention import pooled_attention, pooled_attention_packed
 from pytorchvideo_tpu_torch.ops.token_pool import (
     avg_token_pool,
@@ -179,7 +189,10 @@ class MultiScaleAttention(nn.Module):
     The default path keeps q, k and v head-packed (B, L, H*c) from the
     projections through the pools and the attention kernel; ``pool_first``
     pools the raw per-head tokens, projects, and runs the per-head kernel on
-    (B, H, L, c). ``forward((cls, grid), thw)`` returns ((cls, grid), thw')."""
+    (B, H, L, c). ``fused_kvpool`` takes the default path's kv pools, norms
+    and attention through the fused op wherever ``fusable`` allows (see the
+    module docstring). ``forward((cls, grid), thw)`` returns ((cls, grid),
+    thw')."""
 
     def __init__(
         self,
@@ -200,18 +213,22 @@ class MultiScaleAttention(nn.Module):
         depthwise_conv: bool = True,
         bias_on: bool = True,
         separate_qkv: bool = True,
+        fused_kvpool: bool = False,
     ):
         super().__init__()
         if pool_mode not in ("conv", "avg", "max"):
             raise ValueError(f"pool_mode must be conv, avg or max, got {pool_mode!r}")
         if not depthwise_conv:
             raise NotImplementedError("only the depthwise pool conv is ported")
+        if fused_kvpool and pool_first:
+            raise ValueError("the fused kv-pool runs on the head-packed path, not with pool_first")
         self.num_heads = num_heads
         self.pool_first = pool_first
         self.residual_pool = residual_pool
         self.separate_qkv = separate_qkv or pool_first
-        head_dim = dim_out // num_heads
-        self.scale = head_dim**-0.5
+        self.fused_kvpool = fused_kvpool
+        self.head_dim = dim_out // num_heads
+        self.scale = self.head_dim**-0.5
         if self.separate_qkv:
             self.q = nn.Linear(dim, dim_out, bias=qkv_bias)
             self.k = nn.Linear(dim, dim_out, bias=qkv_bias)
@@ -258,6 +275,8 @@ class MultiScaleAttention(nn.Module):
             q, k, v = (_pair_map(lambda t, i=i: t.chunk(3, dim=-1)[i].contiguous(), qkv)
                        for i in range(3))
         (cls_q, grid_q), q_thw = self._pool("q", q, thw)
+        if self._fuses(thw):
+            return _pair_map(self._out, self._fused_attention((cls_q, grid_q), k, v, thw)), q_thw
         (cls_k, grid_k), _ = self._pool("k", k, thw)
         (cls_v, grid_v), _ = self._pool("v", v, thw)
         # Every query attends to the cls key too: it goes in front, at the
@@ -271,6 +290,42 @@ class MultiScaleAttention(nn.Module):
             )
 
         return _pair_map(lambda t: self._out(attend(t)), (cls_q, grid_q)), q_thw
+
+    def _fuses(self, thw: Size3) -> bool:
+        """The fused path's gate (JAX attention.py:592-621): the flag, a conv
+        kv pool with a LayerNorm after it, and a geometry ``fusable`` takes."""
+        pool = self.pool_k
+        return (self.fused_kvpool and pool is not None and pool.mode == "conv"
+                and isinstance(self.norm_k, nn.LayerNorm)
+                and fusable(tuple(thw), self.proj.in_features, pool.kernel, pool.stride,
+                            self.head_dim))
+
+    def _fused_attention(self, q: Pair, k: Pair, v: Pair, thw: Size3) -> Pair:
+        """The kv pools, their LayerNorms and the attention of both queries in
+        one fused op (JAX attention.py:376-448): per-head taps (kt*kh*kw, c)
+        and LayerNorm parameters (2, c) that every head shares, cls rows
+        normed here, the norm's eps."""
+        (cls_q, grid_q), (cls_k, grid_k), (cls_v, grid_v) = q, k, v
+        c = self.head_dim
+
+        def taps(pool):
+            return pool.weight.reshape(c, -1).t().contiguous()
+
+        def ln(norm):
+            return torch.stack([norm.weight, norm.bias])
+
+        def norm_cls(t, norm):
+            if t is None:
+                return None
+            return norm(t.reshape(t.shape[0], 1, -1, c)).reshape(t.shape)
+
+        outs = fused_kvpool_attention(
+            grid_q, grid_k, grid_v, taps(self.pool_k), taps(self.pool_v), ln(self.norm_k),
+            ln(self.norm_v), norm_cls(cls_k, self.norm_k), norm_cls(cls_v, self.norm_v),
+            tuple(thw), self.num_heads, self.scale, self.residual_pool, self.pool_k.kernel,
+            self.pool_k.stride, self.norm_k.eps, cls_q=cls_q,
+        )
+        return (None if cls_q is None else outs[3], outs[0])
 
     def _forward_pool_first(self, x: Pair, thw: Size3) -> Tuple[Pair, Size3]:
         cls_x, grid_x = x
@@ -329,6 +384,7 @@ class MultiScaleBlock(nn.Module):
         depthwise_conv: bool = True,
         bias_on: bool = True,
         separate_qkv: bool = True,
+        fused_kvpool: bool = False,
     ):
         super().__init__()
         att_dim = dim_out if dim_mul_in_att else dim
@@ -353,6 +409,7 @@ class MultiScaleBlock(nn.Module):
             depthwise_conv=depthwise_conv,
             bias_on=bias_on,
             separate_qkv=separate_qkv,
+            fused_kvpool=fused_kvpool,
         )
         self.norm2 = norm_layer(att_dim)
         self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out, act_layer, dropout_rate, bias_on)

@@ -111,12 +111,17 @@ def create_multiscale_vision_transformers(
     head_dropout_rate: float = 0.5,
     head_activation: Optional[Callable] = None,
     head_num_classes: int = 400,
+    fused_kvpool: bool = False,
     device: Union[str, torch.device] = "cuda",
 ) -> MultiscaleVisionTransformers:
     """MViT builder (upstream vision_transformers.py:185-506), with the
     parameters created on ``device`` (the card unless the caller asks for
     the CPU). MViT-B's configuration is in models/hub/vision_transformers.py.
-    Takes NCTHW clips of ``temporal_size`` x ``spatial_size``."""
+    Takes NCTHW clips of ``temporal_size`` x ``spatial_size``.
+    ``fused_kvpool`` (off by default) takes each block's kv pools and
+    attention through the fused op where its geometry allows
+    (layers/attention.py), the counterpart of the JAX package's
+    ``PVT_FUSED_KVPOOL=1``."""
     if norm != "layernorm":
         raise NotImplementedError("only the LayerNorm MViT is ported (norm='layernorm')")
     if use_2d_patch and temporal_size != 1:
@@ -223,6 +228,7 @@ def create_multiscale_vision_transformers(
                     depthwise_conv=depthwise_conv,
                     bias_on=bias_on,
                     separate_qkv=separate_qkv,
+                    fused_kvpool=fused_kvpool,
                 )
             )
             dim_in = dim_out

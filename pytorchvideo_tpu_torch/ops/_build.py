@@ -159,4 +159,13 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.pvt_fused_kvpool_ln
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
     return lib

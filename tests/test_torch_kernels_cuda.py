@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from pytorchvideo_tpu_torch.accelerate import DepthwiseConv3x3x3BnAct
+from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
 from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
 from pytorchvideo_tpu_torch.ops.depthwise_conv import (
@@ -323,5 +324,82 @@ def test_token_pool_autograd(cuda):
     ref = torch.autograd.grad(
         (tp.depthwise_token_pool_torch(x, w, (1, 2, 2)), tp.max_token_pool_torch(x, (1, 3, 3), (1, 2, 2))),
         (x, w), (gy, gy2))
+    for a, b in zip(got, ref):
+        _close(a, b, **GRAD_TOL[torch.float32])
+
+
+# Fused kv-pool geometries: (grid T, H, W), H*c, heads, kv stride, cls rows.
+# MViT-B 16x4 blocks 0, 3 and 15, and a ragged grid without a cls token.
+FUSED_GEOMETRIES = [((8, 56, 56), 96, 1, (1, 8, 8), True), ((8, 28, 28), 384, 4, (1, 2, 2), True),
+                    ((8, 7, 7), 768, 8, (1, 1, 1), True), ((3, 10, 13), 64, 2, (1, 3, 2), False)]
+
+
+def _fused_inputs(cuda, geometry, dtype, seed, B=2, Lq=50):
+    """q, the unpooled k and v grids, per-head taps and LayerNorm parameters
+    (shared by every head, as the layer passes them), cls rows and a cls query."""
+    thw, HC, heads, stride, has_cls = geometry
+    c = HC // heads
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device=cuda, generator=g) * scale + shift).to(dtype)
+
+    L = thw[0] * thw[1] * thw[2]
+    cls = [randn(B, 1, HC) if has_cls else None for _ in range(3)]
+    inputs = [randn(B, Lq, HC), randn(B, L, HC), randn(B, L, HC), randn(27, c, scale=0.2),
+              randn(27, c, scale=0.2), randn(2, c, scale=0.3, shift=1.0),
+              randn(2, c, scale=0.3, shift=1.0), cls[0], cls[1]]
+    kw = dict(thw=thw, num_heads=heads, scale=c**-0.5, residual=True, kernel=(3, 3, 3),
+              stride=stride, eps=1e-6)
+    return inputs, cls[2], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", FUSED_GEOMETRIES, ids=lambda g: "x%s_hc%d_h%d_s%s_cls%d" % g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kvpool_matches_plain(cuda, geometry, dtype):
+    inputs, cls_q, kw = _fused_inputs(cuda, geometry, dtype, seed=12)
+    before = (fk.fused_kvpool_attention_cuda.launches, pa.pooled_attention_packed_cuda.launches)
+    outs = fk.fused_kvpool_attention(*inputs, **kw, cls_q=cls_q)
+    assert (fk.fused_kvpool_attention_cuda.launches, pa.pooled_attention_packed_cuda.launches) == (
+        before[0] + 1, before[1] + 1 + (cls_q is not None))
+    f32 = [None if t is None else t.float() for t in inputs]
+    ref = fk.fused_kvpool_attention_torch(*f32, **kw, cls_q=None if cls_q is None else cls_q.float())
+    assert len(outs) == len(ref) and all(o.dtype == dtype for o in outs)
+    # The pooled and normed k and v against the plain version in f32.
+    for got, want in zip(outs[1:3], ref[1:3]):
+        torch.testing.assert_close(got.float(), want, **POOL_TOL[dtype])
+    # Each attention against the plain attention over the kernel's own k and v.
+    k_full, v_full = (t if inputs[7] is None else torch.cat([c, t], dim=1)
+                      for c, t in ((inputs[7], outs[1]), (inputs[8], outs[2])))
+    queries = [inputs[0]] + ([] if cls_q is None else [cls_q])
+    for got, qq in zip(outs[:1] + outs[3:], queries):
+        want = pa.pooled_attention_packed_torch(qq.float(), k_full.float(), v_full.float(),
+                                                kw["num_heads"], kw["scale"], True)
+        torch.testing.assert_close(got.float(), want, **ATTN_TOL[dtype])
+    if dtype == torch.float32:
+        for got, want in zip(outs, ref):
+            torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
+    with pytest.raises(ValueError, match="must be torch"):
+        fk.fused_kvpool_attention(inputs[0], inputs[1].double(), *inputs[2:], **kw)
+
+
+@pytest.mark.cuda
+def test_fused_kvpool_autograd_runs_the_kernels(cuda):
+    # Under autograd the forward is the pool-LN and attention kernels; the
+    # backward recomputes through the conv-pool and attention kernels and
+    # runs their backward kernels. Held against autograd of the plain version.
+    inputs, cls_q, kw = _fused_inputs(cuda, FUSED_GEOMETRIES[1], torch.float32, seed=13)
+    leaves = [t.requires_grad_() for t in (*inputs, cls_q)]
+    wrappers = (fk.fused_kvpool_attention_cuda, pa.pooled_attention_packed_cuda,
+                pa.pooled_attention_packed_bwd_cuda, tp.depthwise_token_pool_cuda,
+                tp.depthwise_token_pool_dx_cuda, tp.depthwise_token_pool_dw_cuda)
+    before = [f.launches for f in wrappers]
+    outs = fk.fused_kvpool_attention(*leaves[:9], **kw, cls_q=leaves[9])
+    gys = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(outs, leaves, gys)
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 4, 2, 2, 2, 2]
+    ref = torch.autograd.grad(fk.fused_kvpool_attention_torch(*leaves[:9], **kw, cls_q=leaves[9]),
+                              leaves, gys)
     for a, b in zip(got, ref):
         _close(a, b, **GRAD_TOL[torch.float32])
