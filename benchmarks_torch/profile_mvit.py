@@ -42,7 +42,9 @@ PROFILED_FORWARDS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
     ("fused pool-LN kernel", r"kvpool_ln_kernel"),
-    ("pooled-attention kernel", r"pooled_attention_kernel"),
+    ("attention forward, tensor cores", r"pooled_attention_tc_kernel"),
+    ("attention forward, split keys (partials, combine)", r"pooled_attention_(split|combine)_kernel"),
+    ("attention forward, CUDA cores", r"pooled_attention_kernel"),
     ("token-pool kernel", r"token_pool_kernel"),
     ("patch-embed conv (cuDNN)", r"fprop|nhwcAddPadding|convolve|cudnn"),
     ("GEMM (q/k/v, proj, MLP, head)", r"nvjet|gemm|xmma|cutlass"),

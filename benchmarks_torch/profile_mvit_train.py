@@ -47,7 +47,9 @@ PROFILED_STEPS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
     ("fused pool-LN kernel", r"kvpool_ln_kernel"),
-    ("attention forward kernel", r"pooled_attention_kernel"),
+    ("attention forward, tensor cores", r"pooled_attention_tc_kernel"),
+    ("attention forward, split keys (partials, combine)", r"pooled_attention_(split|combine)_kernel"),
+    ("attention forward, CUDA cores", r"pooled_attention_kernel"),
     ("attention backward kernels", r"attention_bwd_"),
     ("token-pool forward kernel", r"token_pool_kernel"),
     ("token-pool backward kernels (dx, dw)", r"token_pool_d[xw]_"),

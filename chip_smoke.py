@@ -30,18 +30,24 @@ exits nonzero, printing no result, when a check fails or no card is present.
    MViT-B 32x3's block 14 (Lq 784, Lk 3137); the token-pool kernel in its
    three modes (conv, max, avg) at every pool geometry of MViT-B 16x4; each
    in f32 and bf16, against its plain version in f32 (TF32 off) on the same
-   inputs. Then at B32 bf16 the kernel, its plain version and one library
-   call (``F.scaled_dot_product_attention`` on (B, H, L, c) views;
+   inputs; each attention call's route counter must move (bf16: the tensor
+   cores for the grid queries, the split-key route for the cls query; f32:
+   the CUDA cores). Then at B32 bf16 the kernel, its plain version and one
+   library call (``F.scaled_dot_product_attention`` on (B, H, L, c) views;
    ``F.conv3d(groups=C)``, ``F.max_pool3d``, ``F.avg_pool3d``) are timed per
-   shape, and the kernel's timed output is held against the plain version.
+   shape, the attention also through its CUDA-core kernel (the first
+   version), and the kernel's timed output is held against the plain
+   version.
 6. MViT slice: ``hub.mvit_base_16x4()`` at full width and depth, 16x224x224,
    seeded random weights (``randomize_mvit_``), in its deploy form (bf16),
    serves B1, B8 and B32; per forward the counts rise by 32 (attention: 16
-   grid and 16 cls queries), 35 (conv pools) and 3 (skip max pools). Its
-   logits at B4, and those of the f32 deploy form, are held against the
-   plain f32 model (every kernel swapped for its plain version, TF32 off).
+   grid queries on the tensor cores and 16 cls queries on the split-key
+   route), 35 (conv pools) and 3 (skip max pools). Its logits at B4, and
+   those of the f32 deploy form, are held against the plain f32 model
+   (every kernel swapped for its plain version, TF32 off).
 7. ``pool_first``: ``hub.mvit_base_16x4(pool_first=True)`` the same way at
-   B4; the per-head attention count rises by 16 per forward.
+   B4; the per-head attention count rises by 16 per forward, all on the
+   tensor cores (the cls row rides with the grid).
 8. Backward kernels: the attention backward in both layouts (#5 head-packed,
    #3 per-head), residual on and off, at the shapes of phase 5, and the conv
    pool's input and weight gradients (dx, dw) at every conv-pool geometry of
@@ -61,8 +67,9 @@ exits nonzero, printing no result, when a check fails or no card is present.
    clips made on the card. Every parameter must receive a finite gradient
    through autograd in the first step. Timed steps at B8 and at the preset's
    B2 (clips/s, ms per step, peak memory); per step the counts rise by 32
-   attention forwards and 32 backwards, 35 conv pools with 35 dx and 35 dw,
-   and 3 max pools. One step's gradients at B2 are held against the same
+   attention forwards (16 on the tensor cores, 16 split-key; in f32 compute
+   all 32 on the CUDA cores) and 32 backwards, 35 conv pools with 35 dx and
+   35 dw, and 3 max pools. One step's gradients at B2 are held against the same
    step with every kernel swapped for its plain version (in f32 and in bf16
    compute), and the loss must fall over 10 steps on one fixed batch.
 10. ``pool_first`` training: one step at B2 of
@@ -80,7 +87,8 @@ exits nonzero, printing no result, when a check fails or no card is present.
     plain version are timed per shape, with the bound.
 12. The per-head attention kernel at the four shapes of the benchmark-only
     TPU variant ``_pallas_nopad`` (benchmarks/mvit_micro.py:236-241, B16
-    bf16, residual on) against ``pooled_attention_torch``, timed with SDPA.
+    bf16, residual on) against ``pooled_attention_torch``, timed with SDPA
+    and the first version.
 13. Fused serving: ``hub.mvit_base_16x4(fused_kvpool=True)`` with seeded
     random weights, deploy bf16, B1/B8/B32; per forward the counts rise by
     16 (fused pool-LN), 32 (attention), 3 (conv pools: pool_q only) and 3
@@ -95,9 +103,10 @@ exits nonzero, printing no result, when a check fails or no card is present.
     gradients against the unfused kernel step of the same weights.
 
 The line before the last is a JSON object with one entry per kernel, each
-with its launches on its path, its errors, its time per forward or per step
-beside its plain version's, the library call's and its bound; the last line
-is ``{"ok": true, "device": {...}}``.
+with its launches on its path (the attention forwards also by route), its
+errors, its time per forward or per step beside its plain version's, the
+library call's and its bound (the attention forwards also the first
+version's); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -166,16 +175,23 @@ MVIT_POOLS = [
     ((8, 28, 28, 384), (1, 3, 3), (1, 2, 2), "max", 1),
     ((8, 14, 14, 768), (1, 3, 3), (1, 2, 2), "max", 1),
 ]
+MVIT_BLOCKS = sum(n for *_, n in MVIT_ATTENTION)  # 16
+# In bf16 the attention forward takes the tensor cores for the grid queries
+# and the split-key route for the cls query (Lq 1); in f32 the CUDA cores.
 MVIT_PER_FORWARD = {
-    "pooled_attention_packed": 2 * sum(n for *_, n in MVIT_ATTENTION),  # 32
+    "pooled_attention_packed": 2 * MVIT_BLOCKS,  # 32
+    "pooled_attention_packed.tensor_core": MVIT_BLOCKS,
+    "pooled_attention_packed.split_key": MVIT_BLOCKS,
     "token_pool_conv": sum(n for *_, mode, n in MVIT_POOLS if mode == "conv"),  # 35
     "token_pool_max": sum(n for *_, mode, n in MVIT_POOLS if mode == "max"),  # 3
 }
 POOL_FIRST_PER_FORWARD = {
-    "pooled_attention": sum(n for *_, n in MVIT_ATTENTION),  # 16
+    "pooled_attention": MVIT_BLOCKS,  # 16, cls row included: tensor cores
+    "pooled_attention.tensor_core": MVIT_BLOCKS,
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"],
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
 }
+ROUTED_WRAPPERS = ("pooled_attention_packed", "pooled_attention")
 # Training: the step's batch (timings of phase 8 too) and the preset's own.
 TRAIN_BATCH = 8
 PRESET_BATCH = 2
@@ -229,6 +245,8 @@ FUSED_EPS = 1e-6  # MViT's LayerNorm eps
 FUSED_PER_FORWARD = {
     "fused_kvpool_attention": FUSED_BLOCKS,
     "pooled_attention_packed": 2 * FUSED_BLOCKS,
+    "pooled_attention_packed.tensor_core": FUSED_BLOCKS,
+    "pooled_attention_packed.split_key": FUSED_BLOCKS,
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"] - 2 * FUSED_BLOCKS,  # 3
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
 }
@@ -236,6 +254,8 @@ FUSED_PER_FORWARD = {
 # k and v conv pools and both attentions) and differentiates it.
 FUSED_PER_STEP = {**FUSED_PER_FORWARD,
                   "pooled_attention_packed": 4 * FUSED_BLOCKS,
+                  "pooled_attention_packed.tensor_core": 2 * FUSED_BLOCKS,
+                  "pooled_attention_packed.split_key": 2 * FUSED_BLOCKS,
                   "pooled_attention_packed_bwd": 2 * FUSED_BLOCKS,
                   "token_pool_conv": CONV_POOLS, "token_pool_dx": CONV_POOLS,
                   "token_pool_dw": CONV_POOLS}
@@ -263,7 +283,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    """Mean time of ``fn()`` over ``iters`` calls, by CUDA events: the
+    device's time where it is the slower side, the host's launches where
+    they are (a served forward at B1)."""
     import torch
 
     for _ in range(warmup):
@@ -313,6 +335,14 @@ def per_forward(rows, extra=()) -> dict:
     return total
 
 
+def route_sums(rows) -> dict:
+    """ms per forward of ``rows`` by the route each shape takes."""
+    sums = {}
+    for r in rows:
+        sums[r["route"]] = sums.get(r["route"], 0.0) + r["calls"] * r["ms"]
+    return sums
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count is read under."""
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
@@ -338,10 +368,34 @@ def kernel_wrappers() -> dict:
 def reset_counts() -> None:
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_route"):
+            wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
 
 
 def read_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    """Each wrapper's launches, and the attention forwards' per route as
+    "<name>.<route>"."""
+    counts = {}
+    for name, wrapper in kernel_wrappers().items():
+        counts[name] = wrapper.launches
+        for route, n in getattr(wrapper, "launches_by_route", {}).items():
+            counts[f"{name}.{route}"] = n
+    return counts
+
+
+def by_route(counts: dict, name: str) -> dict:
+    """The per-route launches of ``name`` in ``counts``."""
+    return {key.split(".")[1]: n for key, n in counts.items() if key.startswith(name + ".")}
+
+
+def f32_routes(per_run: dict) -> dict:
+    """The launches of ``per_run`` (a bf16 path's) when the path runs in
+    float32: every attention forward on the CUDA cores."""
+    out = {key: n for key, n in per_run.items() if "." not in key}
+    for name in ROUTED_WRAPPERS:
+        if per_run.get(name):
+            out[f"{name}.cuda_core"] = per_run[name]
+    return out
 
 
 def check_path_counts(label: str, counts: dict, per_run_counts: dict, runs: int,
@@ -588,13 +642,17 @@ def check_attention(pa) -> dict:
             q, k, v = (torch.randn(2, L, HC, device="cuda", generator=gen).to(dtype)
                        for L in (Lq, Lk, Lk))
             heads = [t.view(2, -1, H, c).transpose(1, 2).contiguous() for t in (q, k, v)]
+            route = pa.forward_route(dtype, Lq, c)
             for residual in (False, True):
+                reset_counts()
                 out = pa.pooled_attention_packed(q, k, v, H, c**-0.5, residual)
                 ref = pa.pooled_attention_packed_torch(
                     q.float(), k.float(), v.float(), H, c**-0.5, residual)
                 out_h = pa.pooled_attention(*heads, c**-0.5, residual)
                 ref_h = pa.pooled_attention_torch(*(t.float() for t in heads), c**-0.5, residual)
                 torch.cuda.synchronize()
+                counts = read_counts()
+                assert all(by_route(counts, name)[route] == 1 for name in ROUTED_WRAPPERS), counts
                 assert out.shape == q.shape and out.dtype == dtype and out_h.dtype == dtype
                 torch.testing.assert_close(out.float(), ref, **ATTENTION_TOL[name])
                 torch.testing.assert_close(out_h.float(), ref_h, **ATTENTION_TOL[name])
@@ -611,14 +669,20 @@ def check_attention(pa) -> dict:
         q, k, v = (torch.randn(B, L, HC, device="cuda", generator=gen).bfloat16()
                    for L in (Lq, Lk, Lk))
         q4, k4, v4 = (t.view(B, -1, H, c).transpose(1, 2) for t in (q, k, v))
+        sq, sk = pa._packed_strides(q, k, H)
         # The products q k^T and p v; q, out, k and v once in bf16.
         bound, bound_by = bound_ms(4 * B * Lq * Lk * HC, 2 * B * HC * (2 * Lq + 2 * Lk))
         packed.append({
             "shape": f"B{B} H*c {HC} heads {H} Lq {Lq} Lk {Lk}", "calls": calls,
-            "bound_ms": bound, "bound_by": bound_by, **time_three(
-                lambda: pa.pooled_attention_packed_torch(q, k, v, H, scale),
-                lambda: pa.pooled_attention_packed_cuda(q, k, v, H, scale),
-                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), iters=5)})
+            "route": pa.forward_route(q.dtype, Lq, c), "bound_ms": bound, "bound_by": bound_by,
+            **time_turns({
+                "plain_ms": lambda: pa.pooled_attention_packed_torch(q, k, v, H, scale),
+                "ms": lambda: pa.pooled_attention_packed_cuda(q, k, v, H, scale),
+                # The first version: the CUDA-core kernel, bf16's route before these two.
+                "first_ms": lambda: pa._launch(q, k, v, H, c, sq + sk + sk + sq, scale, False,
+                                               False, route="cuda_core"),
+                "library_ms": lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)},
+                iters=5)})
         out = pa.pooled_attention_packed_cuda(q, k, v, H, scale).float()
         ref = pa.pooled_attention_packed_torch(q.float(), k.float(), v.float(), H, scale)
         torch.testing.assert_close(out, ref, **ATTENTION_TOL["bfloat16"])
@@ -630,20 +694,25 @@ def check_attention(pa) -> dict:
             # pool_first runs one per-head launch per block, cls row included.
             qh = torch.randn(B, H, Lq + 1, c, device="cuda", generator=gen).bfloat16()
             kh, vh = k4.contiguous(), v4.contiguous()
+            sqh, skh = pa._per_head_strides(qh, kh)
             bound_h, by_h = bound_ms(4 * B * (Lq + 1) * Lk * HC,
                                      2 * B * HC * (2 * (Lq + 1) + 2 * Lk))
             per_head.append({
                 "shape": f"B{B} heads {H} c {c} Lq {Lq + 1} Lk {Lk}", "calls": calls,
-                "bound_ms": bound_h, "bound_by": by_h, **time_three(
-                    lambda: pa.pooled_attention_torch(qh, kh, vh, scale),
-                    lambda: pa.pooled_attention_cuda(qh, kh, vh, scale),
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), iters=5)})
+                "route": pa.forward_route(qh.dtype, Lq + 1, c), "bound_ms": bound_h,
+                "bound_by": by_h, **time_turns({
+                    "plain_ms": lambda: pa.pooled_attention_torch(qh, kh, vh, scale),
+                    "ms": lambda: pa.pooled_attention_cuda(qh, kh, vh, scale),
+                    "first_ms": lambda: pa._launch(qh, kh, vh, H, c, sqh + skh + skh + sqh, scale,
+                                                   False, False, route="cuda_core"),
+                    "library_ms": lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)},
+                    iters=5)})
             timed.append(("per-head", per_head[-1]))
             del qh, kh, vh
         for label, r in timed:
-            print(f"attention {label} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
-                  f"{r['plain_ms']!r} ms, SDPA {r['library_ms']!r} ms, bound "
-                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+            print(f"attention {label} {r['shape']} bf16: kernel ({r['route']}) {r['ms']!r} ms, "
+                  f"first version (cuda_core) {r['first_ms']!r} ms, plain {r['plain_ms']!r} ms, "
+                  f"SDPA {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms ({r['bound_by']})")
         del q, k, v, q4, k4, v4
     return {"errs": errs, "timed_err": timed_err, "packed": packed, "per_head": per_head}
 
@@ -1184,13 +1253,19 @@ def check_attention_nopad(pa) -> list:
         err = (out - ref).abs().max().item()
         del out, ref
         bound, bound_by = bound_ms(4 * B * H * Lq * Lk * c, 2 * B * H * c * (2 * Lq + 2 * Lk))
+        sq, sk = pa._per_head_strides(q, k)
         row = {"shape": f"{label}: B{B} heads {H} Lq {Lq} c {c} Lk {Lk}", "calls": 1,
-               "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err, **time_three(
-                   lambda: pa.pooled_attention_torch(q, k, v, scale, True),
-                   lambda: pa.pooled_attention_cuda(q, k, v, scale, True),
-                   lambda: F.scaled_dot_product_attention(q, k, v, scale=scale) + q, iters=5)}
+               "route": pa.forward_route(q.dtype, Lq, c), "bound_ms": bound,
+               "bound_by": bound_by, "max_abs_err": err, **time_turns({
+                   "plain_ms": lambda: pa.pooled_attention_torch(q, k, v, scale, True),
+                   "ms": lambda: pa.pooled_attention_cuda(q, k, v, scale, True),
+                   "first_ms": lambda: pa._launch(q, k, v, H, c, sq + sk + sk + sq, scale, True,
+                                                  False, route="cuda_core"),
+                   "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale) + q},
+                   iters=5)}
         rows.append(row)
-        print(f"attention nopad {row['shape']} bf16 residual: kernel {row['ms']!r} ms, plain "
+        print(f"attention nopad {row['shape']} bf16 residual: kernel ({row['route']}) "
+              f"{row['ms']!r} ms, first version {row['first_ms']!r} ms, plain "
               f"{row['plain_ms']!r} ms, SDPA + q {row['library_ms']!r} ms, bound "
               f"{row['bound_ms']!r} ms ({row['bound_by']}); max |err| {err!r}")
         del q, k, v
@@ -1329,7 +1404,8 @@ def check_step_grads(train, forms, batch, label: str) -> dict:
             if per_step is None:
                 assert not any(counts.values()), f"the {form} step launched kernels: {counts}"
             else:
-                check_path_counts(f"{label} grad check, {form} ({compute})", counts, per_step, 1,
+                expected = per_step if dtype is not None else f32_routes(per_step)
+                check_path_counts(f"{label} grad check, {form} ({compute})", counts, expected, 1,
                                   "steps")
             grads[form] = {n: p.grad.clone() for n, p in model.named_parameters()}
             losses[form] = loss.item()
@@ -1574,6 +1650,8 @@ def main() -> None:
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
     attention_errs = [*attention_report["errs"].values(), attention_report["timed_err"]]
     timing = "per forward at B{}: each shape's time times its launches, summed"
+    first = ("; first_ms: the same shapes through the CUDA-core kernel (the first version, "
+             "bf16's route before the tensor-core and split-key routes)")
     attention_common = {
         "route": "cuda",
         "source": "pytorchvideo_tpu_torch/csrc/pooled_attention.cu",
@@ -1602,11 +1680,13 @@ def main() -> None:
             "name": "pooled_attention_packed",
             "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:487",
             "launches": mvit["counts"]["pooled_attention_packed"],
+            "launches_by_route": by_route(mvit["counts"], "pooled_attention_packed"),
             "path": "mvit_base_16x4 deploy bf16 16x224x224, B1/8/32",
             **attention_common,
-            **per_forward(attention_report["packed"]),
+            **per_forward(attention_report["packed"], extra=("first_ms",)),
+            "ms_by_route": route_sums(attention_report["packed"]),
             "timing": "bf16, residual off, " + timing.format(MVIT_TIMING_BATCH)
-                      + " (16 grid and 16 cls queries)",
+                      + " (16 grid and 16 cls queries)" + first,
             "library": "F.scaled_dot_product_attention on (B, H, L, c) views",
             "per_shape": attention_report["packed"],
         },
@@ -1614,11 +1694,12 @@ def main() -> None:
             "name": "pooled_attention",
             "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:312",
             "launches": pool_first["counts"]["pooled_attention"],
+            "launches_by_route": by_route(pool_first["counts"], "pooled_attention"),
             "path": "mvit_base_16x4(pool_first=True) deploy bf16 16x224x224, B4",
             **attention_common,
-            **per_forward(attention_report["per_head"]),
+            **per_forward(attention_report["per_head"], extra=("first_ms",)),
             "timing": "bf16, residual off, " + timing.format(MVIT_TIMING_BATCH)
-                      + " (16 per-head launches, cls row included)",
+                      + " (16 per-head launches, cls row included)" + first,
             "library": "F.scaled_dot_product_attention",
             "per_shape": attention_report["per_head"],
         },
@@ -1721,6 +1802,7 @@ def main() -> None:
             "replaces": "pytorchvideo_tpu/ops/fused_kvpool_attention.py:288",
             "launches": fused["counts"]["fused_kvpool_attention"],
             "launches_train": fused_trained["counts"]["fused_kvpool_attention"],
+            "attention_launches_by_route": by_route(fused["counts"], "pooled_attention_packed"),
             "path": "mvit_base_16x4(fused_kvpool=True) deploy bf16 16x224x224, B1/8/32; its "
                     f"training, B{TRAIN_BATCH} and B{PRESET_BATCH}",
             "max_abs_err": max([*fused_report["errs"].values(), fused_report["timed_err"]]),
@@ -1750,12 +1832,13 @@ def main() -> None:
             "source": "pytorchvideo_tpu_torch/csrc/pooled_attention.cu",
             "replaces": "benchmarks/mvit_micro.py:193",
             "launches": pool_first["counts"]["pooled_attention"],
+            "launches_by_route": by_route(pool_first["counts"], "pooled_attention"),
             "path": "the per-head kernel (kernel #2's port, which pads neither Lq nor Lk); its "
                     "launches on mvit_base_16x4(pool_first=True) deploy, B4",
             "max_abs_err": max(r["max_abs_err"] for r in nopad_rows),
-            **per_forward(nopad_rows),
+            **per_forward(nopad_rows, extra=("first_ms",)),
             "timing": "bf16, residual on, the four shapes of benchmarks/mvit_micro.py:236-241 "
-                      "at B16, one call each, summed",
+                      "at B16, one call each, summed" + first,
             "library": "F.scaled_dot_product_attention + q",
             "per_shape": nopad_rows,
         },

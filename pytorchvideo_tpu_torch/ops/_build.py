@@ -132,6 +132,24 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    fn = lib.pvt_pooled_attention_tc
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_pooled_attention_split
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
     fn = lib.pvt_pooled_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 5 + [
         ctypes.POINTER(ctypes.c_int64),

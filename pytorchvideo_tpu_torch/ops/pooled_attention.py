@@ -6,20 +6,30 @@ Counterpart of pytorchvideo_tpu/ops/pooled_attention.py, in its two layouts:
   default path: :func:`pooled_attention_packed`;
 - per-head (B, H, L, c), on the ``pool_first`` path: :func:`pooled_attention`.
 
-One CUDA kernel serves both forwards (``csrc/pooled_attention.cu``, the port
+One CUDA source serves both forwards (``csrc/pooled_attention.cu``, the port
 of the TPU kernels ``_packed_pallas_local`` and
-``_pooled_attention_pallas_local``) and one source both backwards
+``_pooled_attention_pallas_local``) and one both backwards
 (``csrc/pooled_attention_bwd.cu``, the port of ``_packed_pallas_bwd_local``
 and ``_pooled_attention_pallas_bwd_local``); the layouts differ only in the
 strides they are given.
 
-- ``*_cuda`` launch a kernel and count their launches in ``launches``; the
-  forward writes each row's log-sum-exp for the backward when asked to
-  (``return_lse``), and the deploy path does not ask.
+The forward takes one of three routes (:func:`forward_route`): bf16 with c a
+multiple of 8 and 16-byte aligned tensors runs on the tensor cores
+(``tensor_core``) or, at most ``SPLIT_MAX_LQ`` query rows, over the key axis
+cut into splits (``split_key``, :func:`split_plan`); float32 and any other
+bf16 call run on the CUDA cores (``cuda_core``). The route is chosen before
+the launch; no route is tried after another fails.
+
+- ``*_cuda`` launch a kernel and count their launches in ``launches``, and
+  per route in ``launches_by_route``; the forward writes each row's
+  log-sum-exp for the backward when asked to (``return_lse``), and the
+  deploy path does not ask.
 - ``*_torch`` are the plain versions, all in float32 and returned in the
   inputs' dtype, as the kernels compute: the forward is reshape + einsum +
   softmax (the counterparts of ``pooled_attention_packed_xla`` and
-  ``pooled_attention_xla``); the backward is the explicit formulas of
+  ``pooled_attention_xla``); :func:`pooled_attention_split_torch` is the
+  split-key route's arithmetic (per-split partials and their combine), used
+  by the tests only; the backward is the explicit formulas of
   (q, k, v, o, lse, g) -> (dq, dk, dv) that the kernel evaluates.
 - The dispatchers take the plain versions for CPU tensors and the kernels
   for CUDA tensors (or the kernels' checks raise). Where autograd needs the
@@ -32,6 +42,7 @@ head_dim c <= 128.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Tuple
 
@@ -39,6 +50,19 @@ import torch
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+FORWARD_ROUTES = ("tensor_core", "split_key", "cuda_core")
+# At most this many query rows, a bf16 call takes the split-key route: a
+# tensor-core block computes 192 query rows (three 64-row wgmma tiles), so at
+# Lq <= 8 it would waste >= 23/24 of its products and give each (batch, head)
+# one block walking all keys alone (64 blocks for 132 SMs at B32 with two
+# heads); the split route reads each key once per split for all its rows,
+# holding 8 rows x 8 columns a lane in registers (the kernel's kMaxRows).
+SPLIT_MAX_LQ = 8
+# The split plan: enough 16-lane groups (one per split) to keep ~2 KB of key
+# and value loads in flight on each of them across the card's 132 SMs, and
+# no fewer than 16 keys a split so the partials stay small beside K and V.
+_SPLIT_TARGET_PARTS = 4096
+_SPLIT_MIN_KEYS = 16
 # The backward kernels' tile (csrc/pooled_attention_bwd.cu), and the blocks
 # the dk/dv kernel aims for (two waves of the H100's 132 SMs) when it splits
 # the q axis.
@@ -88,6 +112,56 @@ def _packed(t: torch.Tensor) -> torch.Tensor:
     """Per-head (B, H, L, c) -> head-packed (B, L, H*c)."""
     B, H, L, c = t.shape
     return t.transpose(1, 2).reshape(B, L, H * c)
+
+
+def forward_route(dtype: torch.dtype, Lq: int, c: int, aligned: bool = True) -> str:
+    """The forward route a CUDA call takes: bf16 with c % 8 == 0 and
+    16-byte aligned q, k and v (``aligned``) takes ``split_key`` at Lq <=
+    SPLIT_MAX_LQ and ``tensor_core`` above; float32, and bf16 with c % 8 != 0
+    or a misaligned tensor, take ``cuda_core``."""
+    if dtype != torch.bfloat16 or c % 8 or not aligned:
+        return "cuda_core"
+    return "split_key" if Lq <= SPLIT_MAX_LQ else "tensor_core"
+
+
+def split_plan(B: int, H: int, Lk: int) -> Tuple[int, int]:
+    """(splits, keys per split) of the split-key route: split s takes keys
+    [s * per, min((s + 1) * per, Lk)), so the splits cover the key axis once
+    and none is empty. About _SPLIT_TARGET_PARTS splits over the B * H
+    (batch, head) pairs, at least _SPLIT_MIN_KEYS keys each."""
+    per = max(_SPLIT_MIN_KEYS, -(-Lk * B * H // _SPLIT_TARGET_PARTS))
+    return -(-Lk // per), per
+
+
+def pooled_attention_split_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    residual_pool: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split-key route over per-head q (B, H, Lq, c), k
+    and v (B, H, Lk, c), in float32: per split of the key axis
+    (:func:`split_plan`) the row max, row sum and unnormalised output, then
+    their combine in split order. Returns (output in q's dtype, row
+    log-sum-exp (B, H, Lq) float32)."""
+    B, H = q.shape[:2]
+    splits, per = split_plan(B, H, k.shape[2])
+    qf = q.float()
+    parts = []
+    for s in range(splits):
+        ks, vs = (t[:, :, s * per:(s + 1) * per].float() for t in (k, v))
+        scores = torch.einsum("bhqc,bhkc->bhqk", qf * scale, ks)
+        row_max = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp(scores - row_max)
+        parts.append((row_max, p.sum(dim=-1, keepdim=True), torch.einsum("bhqk,bhkc->bhqc", p, vs)))
+    row_max = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    row_sum, acc = 0.0, 0.0
+    for m, l, o in parts:
+        w = torch.exp(m - row_max)
+        row_sum = row_sum + l * w
+        acc = acc + o * w
+    out = acc / row_sum
+    if residual_pool:
+        out = out + qf
+    return out.to(q.dtype), (row_max + torch.log(row_sum)).squeeze(-1)
 
 
 def attention_lse_torch(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -149,37 +223,62 @@ def _check_cuda(c: int, named) -> None:
         raise ValueError(f"head_dim must be in [1, {MAX_HEAD_DIM}], got {c}")
 
 
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch(q, k, v, heads: int, c: int, strides, scale: float, residual_pool: bool,
-            return_lse: bool):
-    """Checks q, k, v and launches the forward kernel on the current stream.
+            return_lse: bool, route: str = None):
+    """Checks q, k, v and launches the forward kernel of ``route`` (default:
+    :func:`forward_route`'s) on the current stream.
 
     Raises ValueError on inputs the kernel does not take (see
-    :func:`_check_cuda`; at least one key) and RuntimeError if the launch
-    fails. Returns the output, shaped and laid out like q, and the (B, H, Lq)
-    float32 row log-sum-exp if ``return_lse``, else None."""
+    :func:`_check_cuda`; at least one key; for the bf16 routes, what
+    :func:`forward_route` sends to the CUDA cores) and RuntimeError if the
+    launch fails. Returns the output, shaped and laid out like q, the
+    (B, H, Lq) float32 row log-sum-exp if ``return_lse`` (else None) and the
+    route taken."""
     from pytorchvideo_tpu_torch.ops._build import load_library
 
     _check_cuda(c, (("q", q), ("k", k), ("v", v)))
     B, Lq, Lk = q.shape[0], q.shape[-2], k.shape[-2]
     if Lk < 1:
         raise ValueError("k and v need at least one key")
+    chosen = forward_route(q.dtype, Lq, c, _aligned(q, k, v))
+    route = route or chosen
+    if route != "cuda_core" and chosen == "cuda_core":
+        raise ValueError(f"the {route} route takes bfloat16 with head_dim % 8 == 0 and 16-byte "
+                         f"aligned q, k and v; got {q.dtype}, head_dim {c}")
+    if route == "split_key" and Lq > SPLIT_MAX_LQ:
+        raise ValueError(f"the split_key route takes at most {SPLIT_MAX_LQ} query rows, got {Lq}")
     lib = load_library()
     out = torch.empty_like(q)
-    lse = torch.empty((B, heads, Lq), dtype=torch.float32, device=q.device) if return_lse else None
-    with torch.cuda.device(q.device):
-        err = lib.pvt_pooled_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, heads, Lq, Lk, c,
-            (ctypes.c_int64 * 12)(*strides),
-            float(scale),
-            int(residual_pool),
-            _KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, heads, Lq), **f32) if return_lse else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    shape = (B, heads, Lq, Lk, c, (ctypes.c_int64 * 12)(*strides), float(scale),
+             int(residual_pool))
+    # The current stream's raw handle, and a device guard only where q is not
+    # on the current device: MViT makes 32 of these calls a forward and waits
+    # on the host at B1, so no Stream object or guard is built per call.
+    index = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    same_device = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same_device else torch.cuda.device(index):
+        if route == "tensor_core":
+            err = lib.pvt_pooled_attention_tc(*args, *shape, stream)
+        elif route == "split_key":
+            splits, per = split_plan(B, heads, Lk)
+            # One buffer for the partials: outputs, row maxima, row sums.
+            parts = torch.empty(B * heads * splits * Lq * (c + 2), **f32)
+            err = lib.pvt_pooled_attention_split(*args, parts.data_ptr(), *shape, splits, per,
+                                                 stream)
+        else:
+            err = lib.pvt_pooled_attention(*args, *shape, _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"pooled attention kernel launch failed: cudaError {err}")
-    return out, lse
+        raise RuntimeError(f"pooled attention {route} kernel launch failed: cudaError {err}")
+    return out, lse, route
 
 
 def _check_packed(q, k, v, num_heads: int):
@@ -222,9 +321,10 @@ def pooled_attention_packed_cuda(
     Returns the output, or (output, lse) with ``return_lse``."""
     _check_packed(q, k, v, num_heads)
     sq, sk = _packed_strides(q, k, num_heads)
-    out, lse = _launch(q, k, v, num_heads, q.shape[2] // num_heads, sq + sk + sk + sq, scale,
-                       residual_pool, return_lse)
+    out, lse, route = _launch(q, k, v, num_heads, q.shape[2] // num_heads, sq + sk + sk + sq,
+                              scale, residual_pool, return_lse)
     pooled_attention_packed_cuda.launches += 1
+    pooled_attention_packed_cuda.launches_by_route[route] += 1
     return (out, lse) if return_lse else out
 
 
@@ -236,9 +336,10 @@ def pooled_attention_cuda(
     Returns the output, or (output, lse) with ``return_lse``."""
     _check_per_head(q, k, v)
     sq, sk = _per_head_strides(q, k)
-    out, lse = _launch(q, k, v, q.shape[1], q.shape[3], sq + sk + sk + sq, scale, residual_pool,
-                       return_lse)
+    out, lse, route = _launch(q, k, v, q.shape[1], q.shape[3], sq + sk + sk + sq, scale,
+                              residual_pool, return_lse)
     pooled_attention_cuda.launches += 1
+    pooled_attention_cuda.launches_by_route[route] += 1
     return (out, lse) if return_lse else out
 
 
@@ -326,6 +427,8 @@ def pooled_attention_bwd_cuda(
 
 pooled_attention_packed_cuda.launches = 0
 pooled_attention_cuda.launches = 0
+pooled_attention_packed_cuda.launches_by_route = dict.fromkeys(FORWARD_ROUTES, 0)
+pooled_attention_cuda.launches_by_route = dict.fromkeys(FORWARD_ROUTES, 0)
 pooled_attention_packed_bwd_cuda.launches = 0
 pooled_attention_bwd_cuda.launches = 0
 

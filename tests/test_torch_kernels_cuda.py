@@ -138,6 +138,71 @@ def test_per_head_attention_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(out.float(), ref, **ATTN_TOL[dtype])
 
 
+# The bf16 routes at ragged edges: query rows on both sides of the split-key
+# bound and of the 64- and 128-row tiles, keys from one to past a 64-key
+# tile, head widths the tensor-core tiles pad (40) or fill.
+ROUTE_LQ = [1, 2, 63, 65, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk", [1, 9, 393, 1569])
+@pytest.mark.parametrize("c", [32, 40, 64, 96, 128])
+def test_bf16_routes_match_plain(cuda, c, Lk):
+    # Each call moves its route's counter (and the total) by one; the output
+    # matches the plain version in f32 on the same bf16 inputs, the lse
+    # attention_lse_torch, in both layouts, residual on and off.
+    heads = 2
+    g = torch.Generator(device=cuda).manual_seed(c + Lk)
+    for Lq in ROUTE_LQ:
+        q, k, v = (torch.randn(2, L, heads * c, device=cuda, generator=g).bfloat16()
+                   for L in (Lq, Lk, Lk))
+        route = pa.forward_route(torch.bfloat16, Lq, c)
+        assert route == ("split_key" if Lq <= pa.SPLIT_MAX_LQ else "tensor_core")
+        per_head = [pa._heads(t, heads).contiguous() for t in (q, k, v)]
+        ref_lse = pa.attention_lse_torch(*(t.float() for t in per_head[:2]), c**-0.5)
+        for residual in (False, True):
+            for wrapper, args, plain, to_heads in (
+                (pa.pooled_attention_packed_cuda, (q, k, v, heads),
+                 pa.pooled_attention_packed_torch, lambda t: pa._heads(t, heads)),
+                (pa.pooled_attention_cuda, per_head, pa.pooled_attention_torch, lambda t: t),
+            ):
+                before = wrapper.launches, dict(wrapper.launches_by_route)
+                out, lse = wrapper(*args, c**-0.5, residual, return_lse=True)
+                assert wrapper.launches == before[0] + 1
+                assert wrapper.launches_by_route == {
+                    r: n + (r == route) for r, n in before[1].items()}
+                ref = plain(*(t.float() for t in args[:3]), *args[3:], c**-0.5, residual)
+                assert out.dtype == torch.bfloat16 and out.shape == args[0].shape
+                torch.testing.assert_close(out.float(), ref, **ATTN_TOL[torch.bfloat16])
+                torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_calls_off_the_vector_routes_take_the_cuda_cores(cuda):
+    # c % 8 != 0, and a view 2 bytes off 16-byte alignment, are routed to the
+    # CUDA-core kernel before the launch; asking the bf16 routes for them
+    # raises, as does the split-key route past SPLIT_MAX_LQ rows.
+    g = torch.Generator(device=cuda).manual_seed(14)
+    narrow = [torch.randn(2, L, 2 * 36, device=cuda, generator=g).bfloat16() for L in (70, 9, 9)]
+    flat = torch.randn(3 * 2 * 70 * 192 + 1, device=cuda, generator=g).bfloat16()
+    off = [flat[1 + i * 2 * 70 * 192:1 + (i + 1) * 2 * 70 * 192].view(2, 70, 192) for i in range(3)]
+    assert off[0].data_ptr() % 16 != 0 and all(t.is_contiguous() for t in off)
+    for (q, k, v), c in ((narrow, 36), (off, 96)):
+        before = dict(pa.pooled_attention_packed_cuda.launches_by_route)
+        out = pa.pooled_attention_packed(q, k, v, 2, c**-0.5, True)
+        after = pa.pooled_attention_packed_cuda.launches_by_route
+        assert after == {r: n + (r == "cuda_core") for r, n in before.items()}
+        ref = pa.pooled_attention_packed_torch(q.float(), k.float(), v.float(), 2, c**-0.5, True)
+        torch.testing.assert_close(out.float(), ref, **ATTN_TOL[torch.bfloat16])
+        strides = (70 * 2 * c, c, 2 * c) * 4
+        for route in ("tensor_core", "split_key"):
+            with pytest.raises(ValueError, match=f"the {route} route takes bfloat16"):
+                pa._launch(q, k, v, 2, c, strides, c**-0.5, True, False, route=route)
+    q, k, v = _qkv(cuda, 1, pa.SPLIT_MAX_LQ + 1, 9, 64, torch.bfloat16, seed=15)
+    with pytest.raises(ValueError, match="at most"):
+        pa._launch(q, k, v, 1, 64, (9 * 64, 64, 64) * 4, 0.1, False, False, route="split_key")
+
+
 @pytest.mark.cuda
 def test_attention_rejects_bad_inputs(cuda):
     q, k, v = _qkv(cuda, 1, 8, 4, 64, torch.float32, seed=4)

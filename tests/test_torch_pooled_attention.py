@@ -96,10 +96,11 @@ def test_layouts_agree_and_bf16_is_computed_in_f32():
 
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 5, 8), (1, 3, 8), seed=8))
-    before = (pa.pooled_attention_packed_cuda.launches, pa.pooled_attention_cuda.launches)
+    wrappers = (pa.pooled_attention_packed_cuda, pa.pooled_attention_cuda)
+    before = [(f.launches, dict(f.launches_by_route)) for f in wrappers]
     pa.pooled_attention_packed(q, k, v, 2, 0.5)
     pa.pooled_attention(q[:, None], k[:, None], v[:, None], 0.5)
-    assert (pa.pooled_attention_packed_cuda.launches, pa.pooled_attention_cuda.launches) == before
+    assert [(f.launches, f.launches_by_route) for f in wrappers] == before
 
 
 @pytest.mark.parametrize(
@@ -120,3 +121,68 @@ def test_cuda_wrappers_reject_bad_inputs(call, message):
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 5, 8), (1, 3, 8), seed=9))
     with pytest.raises(ValueError, match=message):
         call(q, k, v)
+
+
+# (dtype, Lq, c, 16-byte aligned, route): bf16 with c % 8 == 0 takes the
+# split-key route up to SPLIT_MAX_LQ query rows (MViT's cls query) and the
+# tensor cores above; f32, a c that is not a multiple of 8 (no 16-byte rows)
+# and a misaligned tensor take the CUDA cores.
+ROUTE_CASES = [
+    (torch.bfloat16, 1, 96, True, "split_key"),
+    (torch.bfloat16, pa.SPLIT_MAX_LQ, 96, True, "split_key"),
+    (torch.bfloat16, pa.SPLIT_MAX_LQ + 1, 96, True, "tensor_core"),
+    (torch.bfloat16, 25089, 96, True, "tensor_core"),
+    (torch.bfloat16, 77, 40, True, "tensor_core"),
+    (torch.bfloat16, 1, 36, True, "cuda_core"),
+    (torch.bfloat16, 392, 96, False, "cuda_core"),
+    (torch.float32, 1, 96, True, "cuda_core"),
+    (torch.float32, 392, 96, True, "cuda_core"),
+]
+
+
+@pytest.mark.parametrize("dtype, Lq, c, aligned, route", ROUTE_CASES)
+def test_forward_route(dtype, Lq, c, aligned, route):
+    assert pa.forward_route(dtype, Lq, c, aligned) == route
+
+
+@pytest.mark.parametrize("Lk", [1, 9, 393, 1569, 3137])
+@pytest.mark.parametrize("B, H", [(1, 1), (2, 2), (32, 2), (32, 8)])
+def test_split_plan_covers_the_keys_once(B, H, Lk):
+    splits, per = pa.split_plan(B, H, Lk)
+    runs = [range(s * per, min((s + 1) * per, Lk)) for s in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert [key for r in runs for key in r] == list(range(Lk))
+
+
+def _split_case(Lq, Lk, residual, seed):
+    """Head-packed q, k, v (B 2, H*c 2x8) and the plain split version's
+    output (packed back) and lse."""
+    H, c = 2, 8
+    q, k, v = _qkv((2, Lq, H * c), (2, Lk, H * c), seed=seed)
+    out, lse = pa.pooled_attention_split_torch(
+        *(pa._heads(torch.from_numpy(a), H) for a in (q, k, v)), c**-0.5, residual)
+    return (q, k, v), pa._packed(out), lse
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("Lk", [5, 393, 1569])
+@pytest.mark.parametrize("Lq", [1, 3])
+def test_split_matches_plain_and_jax(Lq, Lk, residual):
+    # Per-split partials combined in split order against the one-pass plain
+    # version and the JAX package's XLA path, at ROADMAP's parity tolerance.
+    (q, k, v), out, _ = _split_case(Lq, Lk, residual, seed=Lq * Lk)
+    assert out.shape == (2, Lq, 16) and out.dtype == torch.float32
+    plain = pa.pooled_attention_packed_torch(*map(torch.from_numpy, (q, k, v)), 2, 8**-0.5,
+                                             residual)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=5e-3, atol=5e-4)
+    xla = pooled_attention_packed_xla(*map(jnp.asarray, (q, k, v)), 2, 8**-0.5, residual)
+    np.testing.assert_allclose(out.numpy(), np.asarray(xla), rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("Lk", [5, 393, 1569])
+@pytest.mark.parametrize("Lq", [1, 3])
+def test_split_lse_matches_plain(Lq, Lk):
+    (q, k, _), _, lse = _split_case(Lq, Lk, False, seed=Lq + Lk)
+    ref = pa.attention_lse_torch(*(pa._heads(torch.from_numpy(a), 2) for a in (q, k)), 8**-0.5)
+    assert lse.shape == (2, 2, Lq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref, rtol=5e-3, atol=5e-4)
