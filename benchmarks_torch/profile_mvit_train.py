@@ -50,7 +50,10 @@ KERNEL_GROUPS = [
     ("attention forward, tensor cores", r"pooled_attention_tc_kernel"),
     ("attention forward, split keys (partials, combine)", r"pooled_attention_(split|combine)_kernel"),
     ("attention forward, CUDA cores", r"pooled_attention_kernel"),
-    ("attention backward kernels", r"attention_bwd_"),
+    ("attention backward, tensor cores (dq, dk/dv, reduce)",
+     r"attention_bwd_(dq_tc|dkdv_tc|reduce)"),
+    ("attention backward, split keys (dk/dv and dq partials, combine)", r"attention_bwd_split"),
+    ("attention backward, CUDA cores", r"attention_bwd_"),
     ("token-pool forward kernel", r"token_pool_kernel"),
     ("token-pool backward kernels (dx, dw)", r"token_pool_d[xw]_"),
     ("max-pool backward (PyTorch)", r"max_pool|MaxPool"),

@@ -54,11 +54,17 @@ exits nonzero, printing no result, when a check fails or no card is present.
    MViT-B 16x4 (head-packed: the 96-row weight shared by C / 96 heads); each
    at B2 in f32 and bf16 against its plain version in f32 (TF32 off) on the
    same inputs and the same output gradient, and the plain backward against
-   ``torch.autograd.grad`` through the plain forward in f32. Then at the
-   training batch (B8, bf16) the kernel, its plain version and one library
-   call (``F.scaled_dot_product_attention`` forward and backward through
-   ``torch.autograd.grad``; ``aten.convolution_backward`` of the
-   channels-last ``F.conv3d(groups=C)``) are timed per shape.
+   ``torch.autograd.grad`` through the plain forward in f32. Each attention
+   backward call's route counter must move (bf16: the tensor cores for the
+   grid queries, the split-key route for the cls query; f32: the CUDA
+   cores). Then at the training batch (B8, bf16) the kernel, its plain
+   version and one library call (``F.scaled_dot_product_attention`` forward
+   and backward through ``torch.autograd.grad``; ``aten.convolution_backward``
+   of the channels-last ``F.conv3d(groups=C)``) are timed per shape; the
+   attention backward also through its CUDA-core kernels (the first
+   version) and beside SDPA's backward alone. Per B8 step, #5's tensor-core
+   and split-key time and #3's tensor-core time must each stay within a
+   quarter of the first version's (``BWD_GATE_SHARE``).
 9. Training: ``VideoClassificationTrainApp`` on the
    ``classification_mvit_16x4`` recipe (AdamW, cosine after warmup, clip
    1.0, MixUp/CutMix with label smoothing 0.1, soft-target cross-entropy)
@@ -67,14 +73,14 @@ exits nonzero, printing no result, when a check fails or no card is present.
    clips made on the card. Every parameter must receive a finite gradient
    through autograd in the first step. Timed steps at B8 and at the preset's
    B2 (clips/s, ms per step, peak memory); per step the counts rise by 32
-   attention forwards (16 on the tensor cores, 16 split-key; in f32 compute
-   all 32 on the CUDA cores) and 32 backwards, 35 conv pools with 35 dx and
+   attention forwards and 32 backwards (each 16 on the tensor cores, 16
+   split-key; in f32 compute all on the CUDA cores), 35 conv pools with 35 dx and
    35 dw, and 3 max pools. One step's gradients at B2 are held against the same
    step with every kernel swapped for its plain version (in f32 and in bf16
    compute), and the loss must fall over 10 steps on one fixed batch.
 10. ``pool_first`` training: one step at B2 of
     ``hub.mvit_base_16x4(pool_first=True)``; the per-head attention backward
-    (#3) rises by 16.
+    (#3) rises by 16, all on the tensor cores.
 11. Fused kv-pool kernel: the fused op (the pool-LN kernel, then the
     attention kernel for the grid and the cls query) at every MViT-B 16x4
     block geometry, all of which pass ``fusable``, at B2 in f32 and bf16: the
@@ -98,15 +104,17 @@ exits nonzero, printing no result, when a check fails or no card is present.
 14. Fused training: the ``classification_mvit_16x4`` recipe with
     ``model.kwargs={"fused_kvpool": True}``: every parameter's gradient
     through autograd, timed steps at B8 and B2 (per step 16 fused, 64
-    attention forwards (the backward recomputes), 32 attention backwards, 35
+    attention forwards (the backward recomputes), 32 attention backwards (16
+    tensor-core, 16 split-key), 35
     conv pools with 35 dx and 35 dw, 3 max pools), and one B2 step's
     gradients against the unfused kernel step of the same weights.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route), its
 errors, its time per forward or per step beside its plain version's, the
-library call's and its bound (the attention forwards also the first
-version's); the last line is ``{"ok": true, "device": {...}}``.
+library call's and its bound (the attention forwards and backwards also
+by route and the first version's); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -191,7 +199,10 @@ POOL_FIRST_PER_FORWARD = {
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"],
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
 }
-ROUTED_WRAPPERS = ("pooled_attention_packed", "pooled_attention")
+FORWARD_WRAPPERS = ("pooled_attention_packed", "pooled_attention")
+# Every wrapper that counts its launches per route: the attention forwards
+# and backwards.
+ROUTED_WRAPPERS = (*FORWARD_WRAPPERS, "pooled_attention_packed_bwd", "pooled_attention_bwd")
 # Training: the step's batch (timings of phase 8 too) and the preset's own.
 TRAIN_BATCH = 8
 PRESET_BATCH = 2
@@ -202,13 +213,18 @@ TRAIN_TIMED_STEPS = 10
 LOSS_STEPS = 10
 # Launches per training step (one forward and one backward): each attention
 # and each conv pool runs its backward kernels once; the max pools' backward
-# is PyTorch's own.
+# is PyTorch's own. In bf16 the attention backward takes the forward's
+# routes: the tensor cores for the grid queries (and pool_first's per-head
+# calls, cls row included), the split-key route for the cls query.
 CONV_POOLS = MVIT_PER_FORWARD["token_pool_conv"]
 MVIT_PER_STEP = {**MVIT_PER_FORWARD, "token_pool_dx": CONV_POOLS, "token_pool_dw": CONV_POOLS,
-                 "pooled_attention_packed_bwd": MVIT_PER_FORWARD["pooled_attention_packed"]}
+                 "pooled_attention_packed_bwd": MVIT_PER_FORWARD["pooled_attention_packed"],
+                 "pooled_attention_packed_bwd.tensor_core": MVIT_BLOCKS,
+                 "pooled_attention_packed_bwd.split_key": MVIT_BLOCKS}
 POOL_FIRST_PER_STEP = {**POOL_FIRST_PER_FORWARD, "token_pool_dx": CONV_POOLS,
                        "token_pool_dw": CONV_POOLS,
-                       "pooled_attention_bwd": POOL_FIRST_PER_FORWARD["pooled_attention"]}
+                       "pooled_attention_bwd": POOL_FIRST_PER_FORWARD["pooled_attention"],
+                       "pooled_attention_bwd.tensor_core": MVIT_BLOCKS}
 # Backward kernel vs its plain version in f32, elementwise |err| <= atol_rel
 # x max |ref| + rtol x |ref|. f32: sums of up to 25088 products in another
 # order (f32 eps 6e-8 x sqrt(25088) ~ 1e-5 of the largest term; 10x margin).
@@ -224,6 +240,10 @@ GRAD_TOL = {"float32": dict(rtol=1e-4, atol_rel=1e-4),
 # gradient is zero (norm_k's shift: one shift of every key leaves each
 # softmax as it was), where both sides hold only rounding noise.
 STEP_GRAD_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (0.1, 0.01)}
+# The bf16 attention backward (#3, #5) per training step against its first
+# version (the CUDA-core kernels on the same inputs), both on cuda_time_ms:
+# the run fails above this share.
+BWD_GATE_SHARE = 0.25
 # MViT-B 16x4's kv pools as the fused op sees them: (unpooled grid (T, H, W),
 # H*c, heads, kv stride, Lq of the grid queries, blocks of that geometry).
 # Every block passes the card's ``fusable`` (the pooled grids are those of
@@ -257,6 +277,8 @@ FUSED_PER_STEP = {**FUSED_PER_FORWARD,
                   "pooled_attention_packed.tensor_core": 2 * FUSED_BLOCKS,
                   "pooled_attention_packed.split_key": 2 * FUSED_BLOCKS,
                   "pooled_attention_packed_bwd": 2 * FUSED_BLOCKS,
+                  "pooled_attention_packed_bwd.tensor_core": FUSED_BLOCKS,
+                  "pooled_attention_packed_bwd.split_key": FUSED_BLOCKS,
                   "token_pool_conv": CONV_POOLS, "token_pool_dx": CONV_POOLS,
                   "token_pool_dw": CONV_POOLS}
 # The benchmark-only TPU variant `_pallas_nopad` (benchmarks/mvit_micro.py
@@ -390,7 +412,7 @@ def by_route(counts: dict, name: str) -> dict:
 
 def f32_routes(per_run: dict) -> dict:
     """The launches of ``per_run`` (a bf16 path's) when the path runs in
-    float32: every attention forward on the CUDA cores."""
+    float32: every attention forward and backward on the CUDA cores."""
     out = {key: n for key, n in per_run.items() if "." not in key}
     for name in ROUTED_WRAPPERS:
         if per_run.get(name):
@@ -652,7 +674,7 @@ def check_attention(pa) -> dict:
                 ref_h = pa.pooled_attention_torch(*(t.float() for t in heads), c**-0.5, residual)
                 torch.cuda.synchronize()
                 counts = read_counts()
-                assert all(by_route(counts, name)[route] == 1 for name in ROUTED_WRAPPERS), counts
+                assert all(by_route(counts, name)[route] == 1 for name in FORWARD_WRAPPERS), counts
                 assert out.shape == q.shape and out.dtype == dtype and out_h.dtype == dtype
                 torch.testing.assert_close(out.float(), ref, **ATTENTION_TOL[name])
                 torch.testing.assert_close(out_h.float(), ref_h, **ATTENTION_TOL[name])
@@ -844,7 +866,9 @@ def mvit_slice(hub, convert_to_deployable_form, label: str, batches, per_forward
 
 def check_attention_backward(pa) -> dict:
     """Phase 8, attention: the backward kernels in both layouts against the
-    plain backward at B2, then timed at the training batch in bf16."""
+    plain backward at B2, each call on its route; then timed at the training
+    batch in bf16 beside the first version, and held to BWD_GATE_SHARE of
+    its time."""
     import torch
     import torch.nn.functional as F
 
@@ -862,6 +886,7 @@ def check_attention_backward(pa) -> dict:
                           for L in (Lq, Lk, Lk, Lq))
             heads = [pa._heads(t, H).contiguous() for t in (q, k, v, g)]
             ref_lse = pa.attention_lse_torch(heads[0].float(), heads[1].float(), scale)
+            route = pa.backward_route(dtype, Lq, c)
             for residual in (False, True):
                 o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, residual,
                                                          return_lse=True)
@@ -869,11 +894,15 @@ def check_attention_backward(pa) -> dict:
                 for got_lse in (lse, lse_h):
                     torch.testing.assert_close(got_lse, ref_lse, atol=1e-4, rtol=1e-5)
                     lse_err = max(lse_err, (got_lse - ref_lse).abs().max().item())
+                reset_counts()
                 got = pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, H, scale, residual)
                 ref = pa.pooled_attention_packed_bwd_torch(
                     *(t.float() for t in (q, k, v, o)), lse, g.float(), H, scale, residual)
                 got_h = pa.pooled_attention_bwd_cuda(*heads[:3], o_h, lse_h, heads[3], scale,
                                                      residual)
+                counts = read_counts()
+                for wrapper in ("pooled_attention_packed_bwd", "pooled_attention_bwd"):
+                    assert counts[wrapper] == by_route(counts, wrapper)[route] == 1, counts
                 ref_h = pa.pooled_attention_bwd_torch(
                     *(t.float() for t in (*heads[:3], o_h)), lse_h, heads[3].float(), scale,
                     residual)
@@ -894,9 +923,9 @@ def check_attention_backward(pa) -> dict:
                     del qkv, out, auto, plain
                 del o, lse, o_h, lse_h, got, ref, got_h, ref_h
     print(f"attention backward vs plain ({len(shapes)} shapes, both layouts, residual on and "
-          f"off): (max |err|, over max |ref|) f32 {errs['float32']!r}, bf16 "
-          f"{errs['bfloat16']!r}; lse max |err| {lse_err!r}; plain backward vs autograd (f32) "
-          f"{autograd_err!r}")
+          f"off; bf16 on the tensor-core and split-key routes, f32 on the CUDA cores): (max "
+          f"|err|, over max |ref|) f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r}; lse max "
+          f"|err| {lse_err!r}; plain backward vs autograd (f32) {autograd_err!r}")
 
     B = TRAIN_BATCH
     packed, per_head, timed_err = [], [], (0.0, 0.0)
@@ -910,6 +939,7 @@ def check_attention_backward(pa) -> dict:
                               for L in (Lq, Lk, Lk, Lq))
                 Lq_run = Lq
                 o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, return_lse=True)
+                sq, sk = pa._packed_strides(q, k, H)
 
                 def kernel():
                     return pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, H, scale)
@@ -928,6 +958,7 @@ def check_attention_backward(pa) -> dict:
                         for _ in range(2))
                 Lq_run = Lq + 1
                 o, lse = pa.pooled_attention_cuda(q, k, v, scale, return_lse=True)
+                sq, sk = pa._per_head_strides(q, k)
 
                 def kernel():
                     return pa.pooled_attention_bwd_cuda(q, k, v, o, lse, g, scale)
@@ -942,30 +973,54 @@ def check_attention_backward(pa) -> dict:
                 continue
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
+            def first():
+                # The first version: the CUDA-core kernels on the same bf16
+                # inputs, bf16's route before the tensor-core and split-key
+                # routes.
+                return pa._launch_bwd(q, k, v, o, lse, g, H, c, sq, sk, scale, False,
+                                      route="cuda_core")
+
             def library():
                 # The same (dq, dk, dv) from q, k, v and g: SDPA's forward
                 # and backward.
                 out = F.scaled_dot_product_attention(*(views(t) for t in leaves), scale=scale)
                 return torch.autograd.grad(out, leaves, views(g))
 
+            lib_out = F.scaled_dot_product_attention(*(views(t) for t in leaves), scale=scale)
+
+            def library_bwd():
+                # SDPA's backward alone, of one forward kept for it.
+                return torch.autograd.grad(lib_out, leaves, views(g), retain_graph=True)
+
             # Five products of the forward's size; q, o, g, dq and k, v, dk,
             # dv once in bf16, and the f32 lse.
             bound, bound_by = bound_ms(10 * B * Lq_run * Lk * HC,
                                        2 * B * HC * (4 * Lq_run + 4 * Lk) + 4 * B * H * Lq_run)
             row = {"shape": f"B{B} H*c {HC} heads {H} Lq {Lq_run} Lk {Lk}", "calls": calls,
+                   "route": pa.backward_route(q.dtype, Lq_run, c),
                    "bound_ms": bound, "bound_by": bound_by,
-                   **time_three(plain, kernel, library, iters=5)}
+                   **time_turns({"plain_ms": plain, "ms": kernel, "first_ms": first,
+                                 "library_ms": library, "library_bwd_ms": library_bwd}, iters=5)}
             err = worse(*(close_rel(a, b, **GRAD_TOL["bfloat16"])
                           for a, b in zip(kernel(), plain(lambda t: t.float()))))
             row["max_abs_err"], row["max_rel_err"] = err
             timed_err = worse(timed_err, err)
             (packed if layout == "packed" else per_head).append(row)
             timed.append((layout, row))
-            del q, k, v, g, o, lse, leaves
+            del q, k, v, g, o, lse, leaves, lib_out
         for label, r in timed:
-            print(f"attention backward {label} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
-                  f"{r['plain_ms']!r} ms, SDPA fwd+bwd {r['library_ms']!r} ms, bound "
-                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+            print(f"attention backward {label} {r['shape']} bf16: kernel ({r['route']}) "
+                  f"{r['ms']!r} ms, first version (cuda_core) {r['first_ms']!r} ms, plain "
+                  f"{r['plain_ms']!r} ms, SDPA fwd+bwd {r['library_ms']!r} ms, SDPA bwd "
+                  f"{r['library_bwd_ms']!r} ms, bound {r['bound_ms']!r} ms ({r['bound_by']})")
+    for label, rows in (("#5 head-packed", packed), ("#3 per-head", per_head)):
+        new = sum(r["calls"] * r["ms"] for r in rows)
+        old = sum(r["calls"] * r["first_ms"] for r in rows)
+        print(f"attention backward {label} per B{B} step: {new!r} ms ({route_sums(rows)}) "
+              f"against the first version's {old!r} ms; gate {BWD_GATE_SHARE} x")
+        assert new <= BWD_GATE_SHARE * old, (
+            f"attention backward {label}: {new} ms per step, over {BWD_GATE_SHARE} x the first "
+            f"version's {old} ms")
     torch.cuda.empty_cache()
     return {"errs": errs, "timed_err": timed_err, "lse_err": lse_err,
             "autograd_err": autograd_err, "packed": packed, "per_head": per_head}
@@ -1742,8 +1797,11 @@ def main() -> None:
         "source": "pytorchvideo_tpu_torch/csrc/pooled_attention_bwd.cu",
         **bwd_errors(attention_bwd),
         "library": "F.scaled_dot_product_attention forward + backward (torch.autograd.grad): "
-                   "the same (dq, dk, dv) from q, k, v and g",
+                   "the same (dq, dk, dv) from q, k, v and g; library_bwd_ms: its backward "
+                   "alone (retain_graph, one forward kept)",
     }
+    bwd_first = ("; first_ms: the same shapes through the CUDA-core kernels (the first "
+                 "version, bf16's route before the tensor-core and split-key routes)")
     pool_bwd_common = {
         "route": "cuda",
         "source": "pytorchvideo_tpu_torch/csrc/token_pool_bwd.cu",
@@ -1756,22 +1814,27 @@ def main() -> None:
             "name": "pooled_attention_packed_bwd",
             "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:579",
             "launches": trained["counts"]["pooled_attention_packed_bwd"],
+            "launches_by_route": by_route(trained["counts"], "pooled_attention_packed_bwd"),
             "path": train_path,
             **attention_bwd_common,
-            **per_forward(attention_bwd["packed"]),
-            "timing": "bf16, residual off, " + step_timing + " (16 grid and 16 cls queries)",
+            **per_forward(attention_bwd["packed"], extra=("first_ms", "library_bwd_ms")),
+            "ms_by_route": route_sums(attention_bwd["packed"]),
+            "timing": "bf16, residual off, " + step_timing + " (16 grid and 16 cls queries)"
+                      + bwd_first,
             "per_shape": attention_bwd["packed"],
         },
         {
             "name": "pooled_attention_bwd",
             "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:411",
             "launches": trained["pool_first_counts"]["pooled_attention_bwd"],
+            "launches_by_route": by_route(trained["pool_first_counts"], "pooled_attention_bwd"),
             "path": f"mvit_base_16x4(pool_first=True) train bf16 16x224x224, one step at "
                     f"B{PRESET_BATCH}",
             **attention_bwd_common,
-            **per_forward(attention_bwd["per_head"]),
+            **per_forward(attention_bwd["per_head"], extra=("first_ms", "library_bwd_ms")),
+            "ms_by_route": route_sums(attention_bwd["per_head"]),
             "timing": "bf16, residual off, " + step_timing
-                      + " (16 per-head launches, cls row included)",
+                      + " (16 per-head launches, cls row included)" + bwd_first,
             "per_shape": attention_bwd["per_head"],
         },
         {

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper), one
 process per source, all at once, and linked into one shared library with a
 plain C interface, bound with ``ctypes``. The build
 runs at first use and lands in ``build/pytorchvideo_tpu_torch/`` at the root of
-the checkout; the library's file name carries a hash of the sources and flags,
-so an edited source is rebuilt. A missing ``nvcc`` or a failed build raises:
+the checkout; the library's file name carries a hash of the flags and of
+every file under ``csrc/`` (the sources and the headers they include, such
+as ``hopper_tiles.cuh``), so an edited source or header is rebuilt. A missing ``nvcc`` or a failed build raises:
 there is no fallback.
 """
 
@@ -53,9 +54,9 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags is built."""
+    """Where the library for the current sources, headers and flags is built."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(p for p in CSRC_DIR.iterdir() if p.is_file()):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libpvt_kernels_{digest.hexdigest()[:16]}.so"
@@ -158,6 +159,26 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int64,
         ctypes.c_int64,
         ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_pooled_attention_bwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] * 5 + [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.pvt_pooled_attention_bwd_split
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 5 + [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float,
+        ctypes.c_int,
+        ctypes.c_int64,
+        ctypes.c_int64,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int

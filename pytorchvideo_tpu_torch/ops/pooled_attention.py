@@ -13,7 +13,8 @@ of the TPU kernels ``_packed_pallas_local`` and
 and ``_pooled_attention_pallas_bwd_local``); the layouts differ only in the
 strides they are given.
 
-The forward takes one of three routes (:func:`forward_route`): bf16 with c a
+The forward and the backward each take one of three routes
+(:func:`forward_route`, :func:`backward_route`, one rule): bf16 with c a
 multiple of 8 and 16-byte aligned tensors runs on the tensor cores
 (``tensor_core``) or, at most ``SPLIT_MAX_LQ`` query rows, over the key axis
 cut into splits (``split_key``, :func:`split_plan`); float32 and any other
@@ -30,7 +31,9 @@ the launch; no route is tried after another fails.
   ``pooled_attention_xla``); :func:`pooled_attention_split_torch` is the
   split-key route's arithmetic (per-split partials and their combine), used
   by the tests only; the backward is the explicit formulas of
-  (q, k, v, o, lse, g) -> (dq, dk, dv) that the kernel evaluates.
+  (q, k, v, o, lse, g) -> (dq, dk, dv) that the kernels evaluate, and
+  :func:`pooled_attention_bwd_split_torch` the backward split-key route's
+  arithmetic (tests only).
 - The dispatchers take the plain versions for CPU tensors and the kernels
   for CUDA tensors (or the kernels' checks raise). Where autograd needs the
   gradient they go through a ``torch.autograd.Function`` whose forward and
@@ -51,6 +54,7 @@ import torch
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 FORWARD_ROUTES = ("tensor_core", "split_key", "cuda_core")
+BACKWARD_ROUTES = FORWARD_ROUTES
 # At most this many query rows, a bf16 call takes the split-key route: a
 # tensor-core block computes 192 query rows (three 64-row wgmma tiles), so at
 # Lq <= 8 it would waste >= 23/24 of its products and give each (batch, head)
@@ -63,10 +67,12 @@ SPLIT_MAX_LQ = 8
 # no fewer than 16 keys a split so the partials stay small beside K and V.
 _SPLIT_TARGET_PARTS = 4096
 _SPLIT_MIN_KEYS = 16
-# The backward kernels' tile (csrc/pooled_attention_bwd.cu), and the blocks
-# the dk/dv kernel aims for (two waves of the H100's 132 SMs) when it splits
-# the q axis.
+# The backward kernels' tile (csrc/pooled_attention_bwd.cu): q rows and keys
+# of the CUDA-core kernels, q rows of a tensor-core dk/dv tile; the keys of
+# a tensor-core dk/dv block (two warpgroups of 64); and the blocks the dk/dv
+# kernel aims for (two waves of the H100's 132 SMs) when it splits the q axis.
 _BWD_TILE = 64
+_BWD_TC_KEYS = 128
 _BWD_TARGET_BLOCKS = 264
 
 
@@ -122,6 +128,12 @@ def forward_route(dtype: torch.dtype, Lq: int, c: int, aligned: bool = True) -> 
     if dtype != torch.bfloat16 or c % 8 or not aligned:
         return "cuda_core"
     return "split_key" if Lq <= SPLIT_MAX_LQ else "tensor_core"
+
+
+def backward_route(dtype: torch.dtype, Lq: int, c: int, aligned: bool = True) -> str:
+    """The backward route a CUDA call takes, by the forward's rule
+    (:func:`forward_route`), with ``aligned`` over q, k, v, o and g."""
+    return forward_route(dtype, Lq, c, aligned)
 
 
 def split_plan(B: int, H: int, Lk: int) -> Tuple[int, int]:
@@ -191,6 +203,33 @@ def pooled_attention_bwd_torch(
     dk = torch.einsum("bhqk,bhqc->bhkc", ds, qf) * scale
     dv = torch.einsum("bhqk,bhqc->bhkc", p, gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def pooled_attention_bwd_split_torch(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, scale: float, residual_pool: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward's split-key route over per-head
+    (B, H, L, c) tensors, in float32: per split of the key axis
+    (:func:`split_plan`) p and ds of its keys, their dk and dv (each key in
+    one split) and the split's dq partial; the partials summed in split
+    order, then scaled (+ g). Each result in its input's dtype."""
+    splits, per = split_plan(q.shape[0], q.shape[1], k.shape[2])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    o_attn = o.float() - qf if residual_pool else o.float()
+    delta = (gf * o_attn).sum(-1, keepdim=True)
+    dks, dvs, dq = [], [], 0.0
+    for s in range(splits):
+        ks, vs = kf[:, :, s * per:(s + 1) * per], vf[:, :, s * per:(s + 1) * per]
+        p = torch.exp(torch.einsum("bhqc,bhkc->bhqk", qf * scale, ks) - lse[..., None])
+        ds = p * (torch.einsum("bhqc,bhkc->bhqk", gf, vs) - delta)
+        dks.append(torch.einsum("bhqk,bhqc->bhkc", ds, qf) * scale)
+        dvs.append(torch.einsum("bhqk,bhqc->bhkc", p, gf))
+        dq = dq + torch.einsum("bhqk,bhkc->bhqc", ds, ks)
+    dq = dq * scale
+    if residual_pool:
+        dq = dq + gf
+    return dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype), torch.cat(dvs, dim=2).to(v.dtype)
 
 
 def pooled_attention_packed_bwd_torch(
@@ -343,22 +382,36 @@ def pooled_attention_cuda(
     return (out, lse) if return_lse else out
 
 
-def bwd_splits(B: int, H: int, Lq: int, Lk: int) -> Tuple[int, int]:
-    """(splits, q tiles per split) of the dk/dv kernel: the q axis is cut so
-    that key tiles x batch x heads x splits reach _BWD_TARGET_BLOCKS blocks."""
+def bwd_splits(B: int, H: int, Lq: int, Lk: int, keys: int = _BWD_TILE) -> Tuple[int, int]:
+    """(splits, q tiles per split) of a dk/dv kernel whose blocks take
+    ``keys`` keys each: the q axis is cut so that key blocks x batch x heads
+    x splits reach _BWD_TARGET_BLOCKS blocks."""
     q_tiles = -(-Lq // _BWD_TILE)
-    base = -(-Lk // _BWD_TILE) * B * H
+    base = -(-Lk // keys) * B * H
     splits = max(1, min(q_tiles, -(-_BWD_TARGET_BLOCKS // base)))
     per_split = -(-q_tiles // splits)
     return -(-q_tiles // per_split), per_split
 
 
+def _scratch(device, *sizes):
+    """One float32 buffer cut into pieces of ``sizes`` floats, each starting
+    on a 16-byte boundary: the backward's scratch in one allocation."""
+    starts, total = [], 0
+    for n in sizes:
+        starts.append(total)
+        total += -(-n // 4) * 4
+    buf = torch.empty(total, dtype=torch.float32, device=device)
+    return [buf[start:start + n] for start, n in zip(starts, sizes)]
+
+
 def _launch_bwd(q, k, v, o, lse, g, heads: int, c: int, sq, sk, scale: float,
-                residual_pool: bool):
-    """Checks the inputs and launches the backward kernels on the current
-    stream; returns (dq, dk, dv), each shaped, laid out and typed like its
-    input. Raises ValueError on inputs the kernels do not take and
-    RuntimeError if a launch fails."""
+                residual_pool: bool, route: str = None):
+    """Checks the inputs and launches the backward kernels of ``route``
+    (default: :func:`backward_route`'s) on the current stream; returns
+    ((dq, dk, dv), the route taken), each gradient shaped, laid out and typed
+    like its input. Raises ValueError on inputs the kernels do not take (for
+    the bf16 routes, what :func:`backward_route` sends to the CUDA cores)
+    and RuntimeError if a launch fails."""
     from pytorchvideo_tpu_torch.ops._build import load_library
 
     _check_cuda(c, (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)))
@@ -372,44 +425,64 @@ def _launch_bwd(q, k, v, o, lse, g, heads: int, c: int, sq, sk, scale: float,
         raise ValueError(f"lse must be contiguous float32 ({B}, {heads}, {Lq}) on {q.device}")
     if Lk < 1:
         raise ValueError("k and v need at least one key")
+    chosen = backward_route(q.dtype, Lq, c, _aligned(q, k, v, o, g))
+    route = route or chosen
+    if route != "cuda_core" and chosen == "cuda_core":
+        raise ValueError(f"the {route} route takes bfloat16 with head_dim % 8 == 0 and 16-byte "
+                         f"aligned q, k, v, o and g; got {q.dtype}, head_dim {c}")
+    if route == "split_key" and Lq > SPLIT_MAX_LQ:
+        raise ValueError(f"the split_key route takes at most {SPLIT_MAX_LQ} query rows, got {Lq}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Lq == 0:
-        return dq, dk.zero_(), dv.zero_()
-    splits, per_split = bwd_splits(B, heads, Lq, Lk)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, heads, Lq), **f32)
-    dk_part = torch.empty((splits, B, heads, Lk, c), **f32)
-    dv_part = torch.empty((splits, B, heads, Lk, c), **f32)
+        return (dq, dk.zero_(), dv.zero_()), route
     lib = load_library()
-    with torch.cuda.device(q.device):
-        err = lib.pvt_pooled_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, heads, Lq, Lk, c,
-            (ctypes.c_int64 * 6)(*sq, *sk),
-            float(scale),
-            int(residual_pool),
-            splits,
-            per_split,
-            _KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+              lse.data_ptr())
+    outputs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B, heads, Lq, Lk, c, (ctypes.c_int64 * 6)(*sq, *sk), float(scale),
+             int(residual_pool))
+    # As in _launch: the raw stream handle, a device guard only off the
+    # current device, and the scratch in one buffer.
+    index = q.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    same_device = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same_device else torch.cuda.device(index):
+        if route == "split_key":
+            splits, per = split_plan(B, heads, Lk)
+            (dq_part,) = _scratch(q.device, B * heads * splits * Lq * c)
+            err = lib.pvt_pooled_attention_bwd_split(*inputs, dq_part.data_ptr(), *outputs,
+                                                     *shape, splits, per, stream)
+        else:
+            tensor_core = route == "tensor_core"
+            splits, per_split = bwd_splits(B, heads, Lq, Lk,
+                                           _BWD_TC_KEYS if tensor_core else _BWD_TILE)
+            # One q split: the tensor-core dk/dv kernel writes dk and dv itself.
+            n_part = 0 if tensor_core and splits == 1 else splits * B * heads * Lk * c
+            delta, dk_part, dv_part = _scratch(q.device, B * heads * Lq, n_part, n_part)
+            args = (*inputs, delta.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(), *outputs,
+                    *shape, splits, per_split)
+            if tensor_core:
+                err = lib.pvt_pooled_attention_bwd_tc(*args, stream)
+            else:
+                err = lib.pvt_pooled_attention_bwd(*args, _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"pooled attention backward kernel launch failed: cudaError {err}")
-    return dq, dk, dv
+        raise RuntimeError(f"pooled attention backward {route} kernel launch failed: "
+                           f"cudaError {err}")
+    return (dq, dk, dv), route
 
 
 def pooled_attention_packed_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     g: torch.Tensor, num_heads: int, scale: float, residual_pool: bool = False,
 ):
-    """The backward kernels over head-packed tensors: (dq, dk, dv)."""
+    """The backward kernels over head-packed tensors: (dq, dk, dv). Counts
+    its launches in ``launches`` and per route in ``launches_by_route``."""
     _check_packed(q, k, v, num_heads)
     sq, sk = _packed_strides(q, k, num_heads)
-    grads = _launch_bwd(q, k, v, o, lse, g, num_heads, q.shape[2] // num_heads, sq, sk, scale,
-                        residual_pool)
+    grads, route = _launch_bwd(q, k, v, o, lse, g, num_heads, q.shape[2] // num_heads, sq, sk,
+                               scale, residual_pool)
     pooled_attention_packed_bwd_cuda.launches += 1
+    pooled_attention_packed_bwd_cuda.launches_by_route[route] += 1
     return grads
 
 
@@ -417,11 +490,14 @@ def pooled_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     g: torch.Tensor, scale: float, residual_pool: bool = False,
 ):
-    """The backward kernels over per-head tensors: (dq, dk, dv)."""
+    """The backward kernels over per-head tensors: (dq, dk, dv); counted as
+    :func:`pooled_attention_packed_bwd_cuda`."""
     _check_per_head(q, k, v)
     sq, sk = _per_head_strides(q, k)
-    grads = _launch_bwd(q, k, v, o, lse, g, q.shape[1], q.shape[3], sq, sk, scale, residual_pool)
+    grads, route = _launch_bwd(q, k, v, o, lse, g, q.shape[1], q.shape[3], sq, sk, scale,
+                               residual_pool)
     pooled_attention_bwd_cuda.launches += 1
+    pooled_attention_bwd_cuda.launches_by_route[route] += 1
     return grads
 
 
@@ -431,6 +507,8 @@ pooled_attention_packed_cuda.launches_by_route = dict.fromkeys(FORWARD_ROUTES, 0
 pooled_attention_cuda.launches_by_route = dict.fromkeys(FORWARD_ROUTES, 0)
 pooled_attention_packed_bwd_cuda.launches = 0
 pooled_attention_bwd_cuda.launches = 0
+pooled_attention_packed_bwd_cuda.launches_by_route = dict.fromkeys(BACKWARD_ROUTES, 0)
+pooled_attention_bwd_cuda.launches_by_route = dict.fromkeys(BACKWARD_ROUTES, 0)
 
 
 class _PackedAttention(torch.autograd.Function):

@@ -107,9 +107,13 @@ def _fake_nvcc(tmp_path, fail_on=None):
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    # The sources get a directory of their own: the library's hash covers
+    # every file there, and the nvcc stand-in lives beside it.
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
     for name in ("a.cu", "b.cu"):
-        (tmp_path / name).write_text(f"// {name}\n")
-    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+        (csrc / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "find_nvcc", lambda: _fake_nvcc(tmp_path))
     so = _build.build_library()
@@ -120,7 +124,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     assert [p.name for p in (tmp_path / "build").iterdir()] == [so.name]
 
     monkeypatch.setattr(_build, "find_nvcc", lambda: _fake_nvcc(tmp_path, fail_on="b.cu"))
-    (tmp_path / "b.cu").write_text("// b, edited\n")
+    (csrc / "b.cu").write_text("// b, edited\n")
     with pytest.raises(RuntimeError, match="error in b.cu"):
         _build.build_library()
     assert not _build.library_path().exists()
@@ -136,3 +140,14 @@ def test_library_path_follows_source_hash(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_library_path_follows_header_hash(monkeypatch, tmp_path):
+    # A header the sources include is hashed too: an edited one is rebuilt.
+    (tmp_path / "k.cu").write_text('#include "tiles.cuh"\n')
+    header = tmp_path / "tiles.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path()
+    header.write_text("// two\n")
+    assert _build.library_path() != first

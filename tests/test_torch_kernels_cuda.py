@@ -292,9 +292,20 @@ def _close(out, ref, rtol, atol_rel):
 GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol_rel=1e-5),
             torch.bfloat16: dict(rtol=2**-7, atol_rel=2e-3)}
 # (H*c, heads, Lq, Lk): MViT's c = 96 with a grid and a cls query, a ragged Lq
-# and Lk, narrow and wide head widths.
+# and Lk, narrow and wide head widths; and MViT-B's largest shape, taken at B1.
 BWD_SHAPES = [(192, 2, 200, 57), (192, 2, 1, 57), (96, 1, 130, 393), (64, 2, 65, 64),
-              (256, 2, 77, 5), (768, 8, 1, 393)]
+              (256, 2, 77, 5), (768, 8, 1, 393), (96, 1, 25088, 393)]
+BWD_B1 = {(96, 1, 25088, 393)}
+
+
+def _bwd_call(wrapper, call, route):
+    """Runs ``call``; asserts that the backward ``wrapper`` launched once in
+    it, on ``route``."""
+    before = wrapper.launches, dict(wrapper.launches_by_route)
+    got = call()
+    assert wrapper.launches == before[0] + 1
+    assert wrapper.launches_by_route == {r: n + (r == route) for r, n in before[1].items()}
+    return got
 
 
 @pytest.mark.cuda
@@ -302,18 +313,21 @@ BWD_SHAPES = [(192, 2, 200, 57), (192, 2, 1, 57), (96, 1, 130, 393), (64, 2, 65,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_matches_plain(cuda, shape, dtype):
     HC, heads, Lq, Lk = shape
+    B = 1 if shape in BWD_B1 else 2
     c = HC // heads
-    q, k, v = _qkv(cuda, 2, Lq, Lk, HC, dtype, seed=7)
-    g = torch.randn(2, Lq, HC, device=cuda, generator=torch.Generator(device=cuda).manual_seed(8)).to(dtype)
-    per_head = [t.reshape(2, -1, heads, c).transpose(1, 2).contiguous() for t in (q, k, v, g)]
+    route = pa.backward_route(dtype, Lq, c)
+    q, k, v = _qkv(cuda, B, Lq, Lk, HC, dtype, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    g = torch.randn(B, Lq, HC, device=cuda, generator=gen).to(dtype)
+    per_head = [t.reshape(B, -1, heads, c).transpose(1, 2).contiguous() for t in (q, k, v, g)]
     for residual in (False, True):
         # Head-packed.
         o, lse = pa.pooled_attention_packed_cuda(q, k, v, heads, c**-0.5, residual, return_lse=True)
         ref_lse = pa.attention_lse_torch(*(t.float() for t in per_head[:2]), c**-0.5)
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
-        before = pa.pooled_attention_packed_bwd_cuda.launches
-        got = pa.pooled_attention_packed_bwd(q, k, v, o, lse, g, heads, c**-0.5, residual)
-        assert pa.pooled_attention_packed_bwd_cuda.launches == before + 1
+        got = _bwd_call(pa.pooled_attention_packed_bwd_cuda,
+                        lambda: pa.pooled_attention_packed_bwd(
+                            q, k, v, o, lse, g, heads, c**-0.5, residual), route)
         ref = pa.pooled_attention_packed_bwd_torch(
             *(t.float() for t in (q, k, v, o)), lse, g.float(), heads, c**-0.5, residual)
         for a, b, t in zip(got, ref, (q, k, v)):
@@ -322,13 +336,120 @@ def test_attention_backward_matches_plain(cuda, shape, dtype):
         # Per-head.
         qh, kh, vh, gh = per_head
         o, lse = pa.pooled_attention_cuda(qh, kh, vh, c**-0.5, residual, return_lse=True)
-        before = pa.pooled_attention_bwd_cuda.launches
-        got = pa.pooled_attention_bwd(qh, kh, vh, o, lse, gh, c**-0.5, residual)
-        assert pa.pooled_attention_bwd_cuda.launches == before + 1
+        got = _bwd_call(pa.pooled_attention_bwd_cuda,
+                        lambda: pa.pooled_attention_bwd(qh, kh, vh, o, lse, gh, c**-0.5, residual),
+                        route)
         ref = pa.pooled_attention_bwd_torch(
             *(t.float() for t in (qh, kh, vh, o)), lse, gh.float(), c**-0.5, residual)
         for a, b in zip(got, ref):
             _close(a, b, **GRAD_TOL[dtype])
+
+
+# The backward's bf16 routes at ragged edges: query rows on both sides of
+# the split-key bound and of the 64- and 192-row tiles, keys from one to
+# past several 128-key blocks, head widths the tiles pad (40) or fill.
+BWD_ROUTE_LQ = [2, 8, 9, 63, 65, 129]
+
+
+def _close_grads(got, ref, Lk, residual):
+    """(dq, dk, dv) against the plain backward in f32 under the bf16
+    GRAD_TOL. At one key without the residual the saved output is v itself,
+    so ds = p (g.v - g.o) and with it dq and dk are exactly zero: the f32
+    reference holds only its own rounding noise there, and they are held to
+    the bf16 bound of dv, whose scale the same inputs set. (With the
+    residual, o = bf16(v + q) and the reference's ds is the rounding of o,
+    which both sides see.)"""
+    tol = GRAD_TOL[torch.bfloat16]
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if Lk == 1 and i < 2 and not residual:
+            assert a.float().abs().max().item() <= tol["atol_rel"] * ref[2].abs().max().item()
+        else:
+            _close(a, b, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk", [1, 9, 1569])
+@pytest.mark.parametrize("c", [32, 40, 64, 128])
+def test_bf16_backward_routes_match_plain(cuda, c, Lk):
+    # Each call moves its route's counter (and the total) by one; dq, dk and
+    # dv match the plain backward in f32 on the same bf16 inputs, in both
+    # layouts, residual on and off.
+    heads = 2
+    gen = torch.Generator(device=cuda).manual_seed(c + Lk)
+    for Lq in BWD_ROUTE_LQ:
+        q, k, v, g = (torch.randn(2, L, heads * c, device=cuda, generator=gen).bfloat16()
+                      for L in (Lq, Lk, Lk, Lq))
+        route = pa.backward_route(torch.bfloat16, Lq, c)
+        assert route == ("split_key" if Lq <= pa.SPLIT_MAX_LQ else "tensor_core")
+        per_head = [pa._heads(t, heads).contiguous() for t in (q, k, v, g)]
+        for residual in (False, True):
+            o, lse = pa.pooled_attention_packed_cuda(q, k, v, heads, c**-0.5, residual,
+                                                     return_lse=True)
+            got = _bwd_call(pa.pooled_attention_packed_bwd_cuda,
+                            lambda: pa.pooled_attention_packed_bwd_cuda(
+                                q, k, v, o, lse, g, heads, c**-0.5, residual), route)
+            ref = pa.pooled_attention_packed_bwd_torch(
+                *(t.float() for t in (q, k, v, o)), lse, g.float(), heads, c**-0.5, residual)
+            for a, t in zip(got, (q, k, v)):
+                assert a.dtype == torch.bfloat16 and a.shape == t.shape
+            _close_grads(got, ref, Lk, residual)
+            o, lse = pa.pooled_attention_cuda(*per_head[:3], c**-0.5, residual, return_lse=True)
+            got = _bwd_call(pa.pooled_attention_bwd_cuda,
+                            lambda: pa.pooled_attention_bwd_cuda(
+                                *per_head[:3], o, lse, per_head[3], c**-0.5, residual), route)
+            ref = pa.pooled_attention_bwd_torch(
+                *(t.float() for t in (*per_head[:3], o)), lse, per_head[3].float(), c**-0.5,
+                residual)
+            _close_grads(got, ref, Lk, residual)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq, Lk", [(1, 1569), (3, 393), (1000, 393), (392, 1569)])
+def test_bf16_backward_is_deterministic(cuda, Lq, Lk):
+    # No atomics: two calls give the same bits, whether the dk/dv kernel
+    # splits the q axis (1000 x 393) or not (392 x 1569 at 8 heads), and on
+    # the split-key route.
+    heads, c = 8, 96
+    q, k, v = _qkv(cuda, 2, Lq, Lk, heads * c, torch.bfloat16, seed=16)
+    g = torch.randn_like(q)
+    o, lse = pa.pooled_attention_packed_cuda(q, k, v, heads, c**-0.5, True, return_lse=True)
+    first = pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, heads, c**-0.5, True)
+    second = pa.pooled_attention_packed_bwd_cuda(q, k, v, o, lse, g, heads, c**-0.5, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_off_the_vector_routes_takes_the_cuda_cores(cuda):
+    # c % 8 != 0, and views 2 bytes off 16-byte alignment, are routed to the
+    # CUDA-core kernels before the launch; asking the bf16 routes for them
+    # raises, as does the split-key route past SPLIT_MAX_LQ rows.
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    narrow = [torch.randn(2, L, 2 * 36, device=cuda, generator=gen).bfloat16()
+              for L in (70, 9, 9, 70)]
+    n = 2 * 70 * 192
+    flat = torch.randn(4 * n + 1, device=cuda, generator=gen).bfloat16()
+    off = [flat[1 + i * n:1 + (i + 1) * n].view(2, 70, 192) for i in range(4)]
+    assert off[0].data_ptr() % 16 != 0 and all(t.is_contiguous() for t in off)
+    for (q, k, v, g), c in ((narrow, 36), (off, 96)):
+        o, lse = pa.pooled_attention_packed_cuda(q, k, v, 2, c**-0.5, True, return_lse=True)
+        got = _bwd_call(pa.pooled_attention_packed_bwd_cuda,
+                        lambda: pa.pooled_attention_packed_bwd_cuda(
+                            q, k, v, o, lse, g, 2, c**-0.5, True), "cuda_core")
+        ref = pa.pooled_attention_packed_bwd_torch(
+            *(t.float() for t in (q, k, v, o)), lse, g.float(), 2, c**-0.5, True)
+        for a, b in zip(got, ref):
+            _close(a, b, **GRAD_TOL[torch.bfloat16])
+        sq, sk = pa._packed_strides(q, k, 2)
+        for route in ("tensor_core", "split_key"):
+            with pytest.raises(ValueError, match=f"the {route} route takes bfloat16"):
+                pa._launch_bwd(q, k, v, o, lse, g, 2, c, sq, sk, c**-0.5, True, route=route)
+    q, k, v = _qkv(cuda, 1, pa.SPLIT_MAX_LQ + 1, 9, 64, torch.bfloat16, seed=18)
+    o, lse = pa.pooled_attention_packed_cuda(q, k, v, 1, 0.1, False, return_lse=True)
+    sq, sk = pa._packed_strides(q, k, 1)
+    with pytest.raises(ValueError, match="at most"):
+        pa._launch_bwd(q, k, v, o, lse, torch.randn_like(q), 1, 64, sq, sk, 0.1, False,
+                       route="split_key")
 
 
 @pytest.mark.cuda

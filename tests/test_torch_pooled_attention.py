@@ -186,3 +186,63 @@ def test_split_lse_matches_plain(Lq, Lk):
     ref = pa.attention_lse_torch(*(pa._heads(torch.from_numpy(a), 2) for a in (q, k)), 8**-0.5)
     assert lse.shape == (2, 2, Lq) and lse.dtype == torch.float32
     torch.testing.assert_close(lse, ref, rtol=5e-3, atol=5e-4)
+
+
+# backward_route by dtype, Lq on both sides of SPLIT_MAX_LQ, a c the
+# tensor-core tiles pad (40) or fill (96), and alignment of q, k, v, o, g:
+# the forward's rule.
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("c", [40, 96])
+@pytest.mark.parametrize("Lq", [1, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_route(dtype, Lq, c, aligned):
+    route = pa.backward_route(dtype, Lq, c, aligned)
+    if dtype == torch.float32 or not aligned:
+        assert route == "cuda_core"
+    else:
+        assert route == ("split_key" if Lq <= pa.SPLIT_MAX_LQ else "tensor_core")
+    assert route == pa.forward_route(dtype, Lq, c, aligned)
+    assert pa.backward_route(dtype, Lq, 36, aligned) == "cuda_core"
+
+
+def test_cpu_backward_takes_the_plain_version():
+    # The dispatchers' backward on CPU tensors launches nothing and moves no
+    # route counter.
+    B, Lq, Lk, H, c = 1, 3, 5, 2, 8
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv((B, Lq, H * c), (B, Lk, H * c),
+                                                                   seed=10))
+    wrappers = (pa.pooled_attention_packed_bwd_cuda, pa.pooled_attention_bwd_cuda)
+    before = [(f.launches, dict(f.launches_by_route)) for f in wrappers]
+    assert all(set(f.launches_by_route) == set(pa.BACKWARD_ROUTES) for f in wrappers)
+    out = pa.pooled_attention_packed(q, k, v, H, 0.5, True)
+    torch.autograd.grad(out.sum(), (q, k, v))
+    heads = [pa._heads(t, H) for t in (q, k, v)]
+    torch.autograd.grad(pa.pooled_attention(*heads, 0.5).sum(), (q, k, v))
+    assert [(f.launches, f.launches_by_route) for f in wrappers] == before
+
+
+@pytest.mark.parametrize("sizes", [(5, 0, 0), (7, 9, 9), (1, 30, 30), (12,)])
+def test_backward_scratch_is_one_aligned_buffer(sizes):
+    # (An empty piece, the dk/dv partials of a single q split, is never read.)
+    pieces = pa._scratch(torch.device("cpu"), *sizes)
+    assert [p.numel() for p in pieces] == list(sizes)
+    used = [p for p in pieces if p.numel()]
+    assert all(p.untyped_storage().data_ptr() == used[0].untyped_storage().data_ptr()
+               for p in used)
+    assert all((p.data_ptr() - used[0].data_ptr()) % 16 == 0 for p in used)
+    ends = [p.data_ptr() + 4 * p.numel() for p in used]
+    assert all(end <= nxt.data_ptr() for end, nxt in zip(ends, used[1:]))
+
+
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("B, H, Lq, Lk", [(8, 1, 25089, 393), (8, 8, 393, 1569), (2, 2, 9, 1),
+                                          (8, 4, 1569, 393)])
+def test_bwd_splits_cover_the_q_tiles_once(B, H, Lq, Lk, keys):
+    # Every split of the dk/dv kernel's q axis has at least one 64-row tile,
+    # the splits cover the tiles once, and the blocks reach the target
+    # unless the q tiles run out.
+    splits, per = pa.bwd_splits(B, H, Lq, Lk, keys)
+    q_tiles = -(-Lq // 64)
+    assert (splits - 1) * per < q_tiles <= splits * per
+    blocks = -(-Lk // keys) * B * H * splits
+    assert blocks >= pa._BWD_TARGET_BLOCKS or splits == q_tiles

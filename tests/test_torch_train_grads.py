@@ -6,7 +6,13 @@ them): the pooled attention in both layouts (``pooled_attention_packed_ad``,
 head-packed included. Also the port's explicit plain backward formulas
 against ``torch.autograd`` through the plain forwards. The CUDA backward
 kernels are held against these plain versions on the card by
-tests/test_torch_kernels_cuda.py."""
+tests/test_torch_kernels_cuda.py.
+
+The backward's bf16 routes are held here by their arithmetic: the split-key
+route's plain version (``pooled_attention_bwd_split_torch``) against the
+one-pass plain backward and ``jax.vjp`` of the JAX package's XLA paths, and
+an emulation of the tensor-core route's roundings against the f32 plain
+backward, which pins down which of its operands carry a lo term."""
 
 import numpy as np
 import pytest
@@ -17,7 +23,9 @@ import jax.numpy as jnp
 
 from pytorchvideo_tpu.ops.pooled_attention import (
     pooled_attention_packed_ad,
+    pooled_attention_packed_xla,
     pooled_attention_pallas_ad,
+    pooled_attention_xla,
 )
 from pytorchvideo_tpu.ops.token_pool import _token_pool_ad
 from pytorchvideo_tpu_torch.ops import pooled_attention as pa
@@ -108,6 +116,119 @@ def test_plain_backward_formulas_match_autograd(residual, Lq):
     per_head = pa.pooled_attention_bwd_torch(*heads[:4], lse, heads[4], 0.3, residual)
     for a, b in zip(per_head, got):
         torch.testing.assert_close(pa._packed(a), b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("Lk", [5, 393, 1569])
+@pytest.mark.parametrize("Lq", [1, 3])
+def test_split_backward_matches_plain_and_jax(Lq, Lk, residual):
+    # The split-key route's arithmetic: dq partials per split of the keys
+    # (split_plan) summed in split order, dk and dv per key in its split.
+    B, H, c = 2, 2, 8
+    scale = c**-0.5
+    q, k, v, g = _arrays([(B, Lq, H * c), (B, Lk, H * c), (B, Lk, H * c), (B, Lq, H * c)],
+                         Lq * Lk + residual)
+    qh, kh, vh, gh = (pa._heads(torch.from_numpy(a), H) for a in (q, k, v, g))
+    o = pa.pooled_attention_torch(qh, kh, vh, scale, residual)
+    lse = pa.attention_lse_torch(qh, kh, scale)
+    got = pa.pooled_attention_bwd_split_torch(qh, kh, vh, o, lse, gh, scale, residual)
+    splits = pa.split_plan(B, H, Lk)[0]
+    assert splits == 1 if Lk == 5 else splits > 1
+    plain = pa.pooled_attention_bwd_torch(qh, kh, vh, o, lse, gh, scale, residual)
+    for a, b in zip(got, plain):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, **TOL)
+    # Head-packed against the JAX package's packed XLA path, per-head
+    # against its per-head one.
+    _, vjp = jax.vjp(lambda a, b, d: pooled_attention_packed_xla(a, b, d, H, scale, residual),
+                     *map(jnp.asarray, (q, k, v)))
+    for ours, ref in zip(got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(pa._packed(ours).numpy(), np.asarray(ref), **TOL)
+    per_head = [np.ascontiguousarray(t.numpy()) for t in (qh, kh, vh, gh)]
+    _, vjp = jax.vjp(lambda a, b, d: pooled_attention_xla(a, b, d, scale, residual),
+                     *map(jnp.asarray, per_head[:3]))
+    for ours, ref in zip(got, vjp(jnp.asarray(per_head[3]))):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+# The card's bf16 gradient tolerance (tests/test_torch_kernels_cuda.py,
+# chip_smoke.GRAD_TOL): |err| <= rtol |ref| + atol_rel max |ref|.
+BF16_GRAD_TOL = dict(rtol=2**-7, atol_rel=2e-3)
+
+
+def _bf16_operand(x, lo: bool):
+    """x as the tensor-core route passes an A operand: bf16(x), or hi + lo
+    with hi = x with its low 16 bits cut and lo = bf16(x - hi)."""
+    if not lo:
+        return x.bfloat16().float()
+    hi = (x.view(torch.int32) & ~0xFFFF).view(torch.float32)
+    return hi + (x - hi).bfloat16().float()
+
+
+def _tensor_core_rounding(q, k, v, o, lse, g, scale, residual, lo: bool):
+    """The tensor-core backward's arithmetic on the CPU: S and dP exact in
+    f32 (bf16 inputs), P and dS rounded as bf16 A operands, each gradient
+    rounded once to bf16. Test-side only: no path runs it."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.exp(torch.einsum("bhqc,bhkc->bhqk", qf * scale, kf) - lse[..., None])
+    o_attn = o.float() - qf if residual else o.float()
+    ds = p * (torch.einsum("bhqc,bhkc->bhqk", gf, vf) - (gf * o_attn).sum(-1, keepdim=True))
+    p, ds = _bf16_operand(p, lo), _bf16_operand(ds, lo)
+    dq = torch.einsum("bhqk,bhkc->bhqc", ds, kf) * scale + (gf if residual else 0.0)
+    dk = torch.einsum("bhqk,bhqc->bhkc", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqc->bhkc", p, gf)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _share_of_bf16_bound(got, ref) -> float:
+    """The worst element's |err| over its BF16_GRAD_TOL bound."""
+    bound = BF16_GRAD_TOL["atol_rel"] * ref.abs().max() + BF16_GRAD_TOL["rtol"] * ref.abs()
+    return ((got.float() - ref).abs() / bound).max().item()
+
+
+def _bf16_case(seed, B, H, Lq, Lk, c, residual):
+    """Seeded bf16 inputs, the plain forward's o and lse, and the f32 plain
+    backward on them."""
+    q, k, v, g = (torch.from_numpy(a).bfloat16() for a in
+                  _arrays([(B, H, Lq, c), (B, H, Lk, c), (B, H, Lk, c), (B, H, Lq, c)], seed))
+    o = pa.pooled_attention_torch(q, k, v, c**-0.5, residual)
+    lse = pa.attention_lse_torch(q, k, c**-0.5)
+    ref = pa.pooled_attention_bwd_torch(*(t.float() for t in (q, k, v, o)), lse, g.float(),
+                                        c**-0.5, residual)
+    return (q, k, v, o, lse, g), ref
+
+
+# (seed, B, heads, Lq, Lk, c, residual): few keys, where the rounding of P
+# and dS weighs most, and an MViT-B shape (384 / 4 heads, Lk 393) at B1.
+LO_CASES = [(1, 2, 2, 65, 1, 64, True), (2, 2, 2, 65, 5, 64, False), (3, 2, 2, 129, 9, 96, True),
+            (4, 1, 4, 1568, 393, 96, False)]
+
+
+@pytest.mark.parametrize("case", LO_CASES, ids=lambda t: "q%d_k%d_c%d" % t[3:6])
+def test_tensor_core_rounding_with_lo_terms_holds_the_bf16_tolerance(case):
+    seed, *shape, residual = case
+    inputs, ref = _bf16_case(seed, *shape, residual)
+    got = _tensor_core_rounding(*inputs, shape[-1]**-0.5, residual, lo=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        # Within half the bound, as every seeded case tried.
+        assert _share_of_bf16_bound(a, b) < 0.5, name
+
+
+# A seeded case per gradient where bf16(P) or bf16(dS) alone breaks the
+# tolerance: dq (dS K), dk (dS^T Q) and dv (P^T G) each need the lo term.
+NO_LO_CASES = [("dq", (13, 2, 2, 65, 5, 64, False)), ("dk", (21, 2, 2, 17, 3, 96, True)),
+               ("dv", (8, 2, 2, 17, 3, 96, False))]
+
+
+@pytest.mark.parametrize("grad, case", NO_LO_CASES, ids=[name for name, _ in NO_LO_CASES])
+def test_tensor_core_rounding_without_lo_terms_breaks_the_bf16_tolerance(grad, case):
+    seed, *shape, residual = case
+    inputs, ref = _bf16_case(seed, *shape, residual)
+    without = _tensor_core_rounding(*inputs, shape[-1]**-0.5, residual, lo=False)
+    with_lo = _tensor_core_rounding(*inputs, shape[-1]**-0.5, residual, lo=True)
+    i = ("dq", "dk", "dv").index(grad)
+    assert _share_of_bf16_bound(without[i], ref[i]) > 1.0
+    assert _share_of_bf16_bound(with_lo[i], ref[i]) < 0.5
 
 
 # (input grid (B, T, H, W, C), kernel, stride, weight rows Cw): MViT-B's kv
