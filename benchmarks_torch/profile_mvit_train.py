@@ -132,6 +132,9 @@ def main() -> None:
             for name, g in groups.items():
                 print(f"  group {name}: {g['ms']!r} ms/step, {g['launches']!r} launches/step, "
                       f"{g['ms'] / device_ms!r} of device time")
+            pool_bwd = groups["token-pool backward kernels (dx, dw)"]
+            print(f"  token-pool backward: {pool_bwd['launches']!r} kernel launches per step "
+                  f"(35 dx + 35 dw calls)")
             for r in rows[:20]:
                 print(f"  kernel {r['ms']!r} ms x{r['launches']!r}: {r['name'][:120]}")
 

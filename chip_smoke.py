@@ -32,12 +32,15 @@ exits nonzero, printing no result, when a check fails or no card is present.
    in f32 and bf16, against its plain version in f32 (TF32 off) on the same
    inputs; each attention call's route counter must move (bf16: the tensor
    cores for the grid queries, the split-key route for the cls query; f32:
-   the CUDA cores). Then at B32 bf16 the kernel, its plain version and one
-   library call (``F.scaled_dot_product_attention`` on (B, H, L, c) views;
+   the CUDA cores), and every pool call must take the tiled route. Then at
+   B32 bf16 the kernel, its plain version and one library call
+   (``F.scaled_dot_product_attention`` on (B, H, L, c) views;
    ``F.conv3d(groups=C)``, ``F.max_pool3d``, ``F.avg_pool3d``) are timed per
-   shape, the attention also through its CUDA-core kernel (the first
-   version), and the kernel's timed output is held against the plain
-   version.
+   shape, the attention also through its CUDA-core kernel and the pools
+   through their scalar route (each the first version), and the kernel's
+   timed output is held against the plain version. The pools' tiled time per
+   B32 forward (35 conv + 3 max) must stay within a quarter of the first
+   version's (``POOL_GATE_SHARE``).
 6. MViT slice: ``hub.mvit_base_16x4()`` at full width and depth, 16x224x224,
    seeded random weights (``randomize_mvit_``), in its deploy form (bf16),
    serves B1, B8 and B32; per forward the counts rise by 32 (attention: 16
@@ -57,14 +60,16 @@ exits nonzero, printing no result, when a check fails or no card is present.
    ``torch.autograd.grad`` through the plain forward in f32. Each attention
    backward call's route counter must move (bf16: the tensor cores for the
    grid queries, the split-key route for the cls query; f32: the CUDA
-   cores). Then at the training batch (B8, bf16) the kernel, its plain
-   version and one library call (``F.scaled_dot_product_attention`` forward
-   and backward through ``torch.autograd.grad``; ``aten.convolution_backward``
-   of the channels-last ``F.conv3d(groups=C)``) are timed per shape; the
-   attention backward also through its CUDA-core kernels (the first
-   version) and beside SDPA's backward alone. Per B8 step, #5's tensor-core
-   and split-key time and #3's tensor-core time must each stay within a
-   quarter of the first version's (``BWD_GATE_SHARE``).
+   cores); every dx and dw call must take the tiled route. Then at the
+   training batch (B8, bf16) the kernel, its plain version and one library
+   call (``F.scaled_dot_product_attention`` forward and backward through
+   ``torch.autograd.grad``; ``aten.convolution_backward`` of the
+   channels-last ``F.conv3d(groups=C)``) are timed per shape; the attention
+   backward also through its CUDA-core kernels and beside SDPA's backward
+   alone, dx and dw through their scalar route (each the first version).
+   Per B8 step, #5's tensor-core and split-key time and #3's tensor-core
+   time must each stay within a quarter of the first version's
+   (``BWD_GATE_SHARE``), and so must dx's and dw's (``POOL_GATE_SHARE``).
 9. Training: ``VideoClassificationTrainApp`` on the
    ``classification_mvit_16x4`` recipe (AdamW, cosine after warmup, clip
    1.0, MixUp/CutMix with label smoothing 0.1, soft-target cross-entropy)
@@ -75,7 +80,8 @@ exits nonzero, printing no result, when a check fails or no card is present.
    B2 (clips/s, ms per step, peak memory); per step the counts rise by 32
    attention forwards and 32 backwards (each 16 on the tensor cores, 16
    split-key; in f32 compute all on the CUDA cores), 35 conv pools with 35 dx and
-   35 dw, and 3 max pools. One step's gradients at B2 are held against the same
+   35 dw, and 3 max pools, every pool launch on the tiled route (dw one
+   launch each). One step's gradients at B2 are held against the same
    step with every kernel swapped for its plain version (in f32 and in bf16
    compute), and the loss must fall over 10 steps on one fixed batch.
 10. ``pool_first`` training: one step at B2 of
@@ -184,24 +190,34 @@ MVIT_POOLS = [
     ((8, 14, 14, 768), (1, 3, 3), (1, 2, 2), "max", 1),
 ]
 MVIT_BLOCKS = sum(n for *_, n in MVIT_ATTENTION)  # 16
+
+
+def tiled(counts: dict) -> dict:
+    """``counts`` with every token-pool wrapper's launches also on its
+    ``tiled`` route: MViT-B's pools (f32 and bf16, C a multiple of 8, kernel
+    (3, 3, 3) or (1, 3, 3)) take it throughout."""
+    return {**counts, **{f"{name}.tiled": n for name, n in counts.items()
+                         if name.startswith("token_pool") and "." not in name}}
+
+
 # In bf16 the attention forward takes the tensor cores for the grid queries
 # and the split-key route for the cls query (Lq 1); in f32 the CUDA cores.
-MVIT_PER_FORWARD = {
+MVIT_PER_FORWARD = tiled({
     "pooled_attention_packed": 2 * MVIT_BLOCKS,  # 32
     "pooled_attention_packed.tensor_core": MVIT_BLOCKS,
     "pooled_attention_packed.split_key": MVIT_BLOCKS,
     "token_pool_conv": sum(n for *_, mode, n in MVIT_POOLS if mode == "conv"),  # 35
     "token_pool_max": sum(n for *_, mode, n in MVIT_POOLS if mode == "max"),  # 3
-}
-POOL_FIRST_PER_FORWARD = {
+})
+POOL_FIRST_PER_FORWARD = tiled({
     "pooled_attention": MVIT_BLOCKS,  # 16, cls row included: tensor cores
     "pooled_attention.tensor_core": MVIT_BLOCKS,
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"],
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
-}
+})
 FORWARD_WRAPPERS = ("pooled_attention_packed", "pooled_attention")
-# Every wrapper that counts its launches per route: the attention forwards
-# and backwards.
+# The attention forwards and backwards: the wrappers whose float32 calls
+# take another route (cuda_core) than their bf16 ones.
 ROUTED_WRAPPERS = (*FORWARD_WRAPPERS, "pooled_attention_packed_bwd", "pooled_attention_bwd")
 # Training: the step's batch (timings of phase 8 too) and the preset's own.
 TRAIN_BATCH = 8
@@ -217,14 +233,15 @@ LOSS_STEPS = 10
 # routes: the tensor cores for the grid queries (and pool_first's per-head
 # calls, cls row included), the split-key route for the cls query.
 CONV_POOLS = MVIT_PER_FORWARD["token_pool_conv"]
-MVIT_PER_STEP = {**MVIT_PER_FORWARD, "token_pool_dx": CONV_POOLS, "token_pool_dw": CONV_POOLS,
-                 "pooled_attention_packed_bwd": MVIT_PER_FORWARD["pooled_attention_packed"],
-                 "pooled_attention_packed_bwd.tensor_core": MVIT_BLOCKS,
-                 "pooled_attention_packed_bwd.split_key": MVIT_BLOCKS}
-POOL_FIRST_PER_STEP = {**POOL_FIRST_PER_FORWARD, "token_pool_dx": CONV_POOLS,
+MVIT_PER_STEP = tiled({**MVIT_PER_FORWARD, "token_pool_dx": CONV_POOLS,
                        "token_pool_dw": CONV_POOLS,
-                       "pooled_attention_bwd": POOL_FIRST_PER_FORWARD["pooled_attention"],
-                       "pooled_attention_bwd.tensor_core": MVIT_BLOCKS}
+                       "pooled_attention_packed_bwd": MVIT_PER_FORWARD["pooled_attention_packed"],
+                       "pooled_attention_packed_bwd.tensor_core": MVIT_BLOCKS,
+                       "pooled_attention_packed_bwd.split_key": MVIT_BLOCKS})
+POOL_FIRST_PER_STEP = tiled({**POOL_FIRST_PER_FORWARD, "token_pool_dx": CONV_POOLS,
+                             "token_pool_dw": CONV_POOLS,
+                             "pooled_attention_bwd": POOL_FIRST_PER_FORWARD["pooled_attention"],
+                             "pooled_attention_bwd.tensor_core": MVIT_BLOCKS})
 # Backward kernel vs its plain version in f32, elementwise |err| <= atol_rel
 # x max |ref| + rtol x |ref|. f32: sums of up to 25088 products in another
 # order (f32 eps 6e-8 x sqrt(25088) ~ 1e-5 of the largest term; 10x margin).
@@ -244,6 +261,10 @@ STEP_GRAD_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (0.1, 0.01)}
 # version (the CUDA-core kernels on the same inputs), both on cuda_time_ms:
 # the run fails above this share.
 BWD_GATE_SHARE = 0.25
+# The token pool's tiled kernels (#6 per B32 forward; dx and dw each per B8
+# step) against their first version (the scalar route on the same inputs),
+# both on cuda_time_ms: the run fails above this share.
+POOL_GATE_SHARE = 0.25
 # MViT-B 16x4's kv pools as the fused op sees them: (unpooled grid (T, H, W),
 # H*c, heads, kv stride, Lq of the grid queries, blocks of that geometry).
 # Every block passes the card's ``fusable`` (the pooled grids are those of
@@ -262,17 +283,17 @@ FUSED_EPS = 1e-6  # MViT's LayerNorm eps
 # Per forward with fused_kvpool: one pool-LN launch per block, the attention
 # for the grid and the cls query, the q pools of blocks 1, 3 and 14 (the k
 # and v pools go into the fused kernel), the skip max pools.
-FUSED_PER_FORWARD = {
+FUSED_PER_FORWARD = tiled({
     "fused_kvpool_attention": FUSED_BLOCKS,
     "pooled_attention_packed": 2 * FUSED_BLOCKS,
     "pooled_attention_packed.tensor_core": FUSED_BLOCKS,
     "pooled_attention_packed.split_key": FUSED_BLOCKS,
     "token_pool_conv": MVIT_PER_FORWARD["token_pool_conv"] - 2 * FUSED_BLOCKS,  # 3
     "token_pool_max": MVIT_PER_FORWARD["token_pool_max"],
-}
+})
 # Per step: the fused op's backward recomputes the unfused composition (the
 # k and v conv pools and both attentions) and differentiates it.
-FUSED_PER_STEP = {**FUSED_PER_FORWARD,
+FUSED_PER_STEP = tiled({**FUSED_PER_FORWARD,
                   "pooled_attention_packed": 4 * FUSED_BLOCKS,
                   "pooled_attention_packed.tensor_core": 2 * FUSED_BLOCKS,
                   "pooled_attention_packed.split_key": 2 * FUSED_BLOCKS,
@@ -280,7 +301,7 @@ FUSED_PER_STEP = {**FUSED_PER_FORWARD,
                   "pooled_attention_packed_bwd.tensor_core": FUSED_BLOCKS,
                   "pooled_attention_packed_bwd.split_key": FUSED_BLOCKS,
                   "token_pool_conv": CONV_POOLS, "token_pool_dx": CONV_POOLS,
-                  "token_pool_dw": CONV_POOLS}
+                  "token_pool_dw": CONV_POOLS})
 # The benchmark-only TPU variant `_pallas_nopad` (benchmarks/mvit_micro.py
 # :236-241): (label, B, heads, Lq, c, Lk), per-head, bf16, residual on.
 NOPAD_SHAPES = [("d0", 16, 1, 25089, 96, 393), ("d1", 16, 2, 6273, 96, 393),
@@ -339,12 +360,6 @@ def time_turns(fns: dict, iters: int) -> dict:
     return {key: min(ts) for key, ts in runs.items()}
 
 
-def time_three(plain, kernel, library, iters: int) -> dict:
-    """Kernel, plain version and library call, timed in turns (plain,
-    kernel, library, library, kernel, plain); the faster run of each."""
-    return time_turns({"plain_ms": plain, "ms": kernel, "library_ms": library}, iters)
-
-
 def per_forward(rows, extra=()) -> dict:
     """Sums the per-call times and bounds of ``rows`` (each with its
     per-forward ``calls``) into one forward's figures."""
@@ -355,6 +370,19 @@ def per_forward(rows, extra=()) -> dict:
         by_time[r["bound_by"]] = by_time.get(r["bound_by"], 0.0) + r["calls"] * r["bound_ms"]
     total["bound_by"] = max(by_time, key=by_time.get)
     return total
+
+
+def by_route_ms(rows) -> dict:
+    """ms per forward or step of token-pool ``rows`` timed through both
+    routes: ``ms`` on the tiled route, ``first_ms`` on the scalar one."""
+    return {"tiled": sum(r["calls"] * r["ms"] for r in rows),
+            "scalar": sum(r["calls"] * r["first_ms"] for r in rows)}
+
+
+def pool_routes(counts: dict, names) -> dict:
+    """The per-route launches of the token-pool wrappers ``names``, summed."""
+    return {route: sum(counts.get(f"{name}.{route}", 0) for name in names)
+            for route in ("tiled", "scalar")}
 
 
 def route_sums(rows) -> dict:
@@ -395,8 +423,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Each wrapper's launches, and the attention forwards' per route as
-    "<name>.<route>"."""
+    """Each wrapper's launches, and per route as "<name>.<route>" (the
+    attention and token-pool wrappers)."""
     counts = {}
     for name, wrapper in kernel_wrappers().items():
         counts[name] = wrapper.launches
@@ -412,8 +440,10 @@ def by_route(counts: dict, name: str) -> dict:
 
 def f32_routes(per_run: dict) -> dict:
     """The launches of ``per_run`` (a bf16 path's) when the path runs in
-    float32: every attention forward and backward on the CUDA cores."""
-    out = {key: n for key, n in per_run.items() if "." not in key}
+    float32: every attention forward and backward on the CUDA cores; the
+    pools stay on their tiled route."""
+    out = {key: n for key, n in per_run.items()
+           if "." not in key or key.split(".")[0] not in ROUTED_WRAPPERS}
     for name in ROUTED_WRAPPERS:
         if per_run.get(name):
             out[f"{name}.cuda_core"] = per_run[name]
@@ -746,13 +776,15 @@ def needed_positions(D: int, k: int, s: int, out: int) -> int:
 
 def check_token_pool(tp) -> dict:
     """Phase 5, pools: the kernel in its three modes against the plain
-    version at B2, then timed at B32 bf16."""
+    version at B2, each call on the tiled route, then timed at B32 bf16
+    through the tiled route and the first version (the scalar route)."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     geometries = sorted({(grid, kernel, stride) for grid, kernel, stride, _, _ in MVIT_POOLS})
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    before = read_counts()
     for grid, kernel, stride in geometries:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -770,8 +802,12 @@ def check_token_pool(tp) -> dict:
                 assert out.dtype == dtype and out.shape == ref.shape and out.is_contiguous()
                 torch.testing.assert_close(out.float(), ref, **KERNEL_TOL[name])
                 errs[name] = max(errs[name], (out.float() - ref).abs().max().item())
-    print(f"token pool vs plain ({len(geometries)} geometries x conv/max/avg): max |err| "
-          f"f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r}")
+    expected = {f"token_pool_{m}{r}": 2 * len(geometries) * (r != ".scalar")
+                for m in ("conv", "max", "avg") for r in ("", ".tiled", ".scalar")}
+    moved = {name: read_counts()[name] - before[name] for name in expected}
+    assert moved == expected, f"token pool checks: launches {moved}, expected {expected}"
+    print(f"token pool vs plain ({len(geometries)} geometries x conv/max/avg, all tiled): max "
+          f"|err| f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r}")
 
     B = MVIT_TIMING_BATCH
     rows, timed_err = {"conv": [], "max": [], "avg": []}, 0.0
@@ -789,28 +825,31 @@ def check_token_pool(tp) -> dict:
         # The avg mode is on no path of MViT-B: timed at the conv geometries.
         for m in ([mode] if mode == "max" else [mode, "avg"]):
             if m == "conv":
-                fns = (lambda: tp.depthwise_token_pool_torch(x, w, stride),
-                       lambda: tp.depthwise_token_pool_cuda(x, w, stride),
-                       lambda: F.conv3d(x_ncthw, w_full, stride=stride, padding=pad, groups=C))
+                kernel_call, plain, library = (
+                    lambda r: tp.depthwise_token_pool_cuda(x, w, stride, route=r),
+                    lambda: tp.depthwise_token_pool_torch(x, w, stride),
+                    lambda: F.conv3d(x_ncthw, w_full, stride=stride, padding=pad, groups=C))
                 ops, weight_bytes = 2 * taps * outputs, 2 * w.numel()
-                out = tp.depthwise_token_pool_cuda(x, w, stride)
                 ref = tp.depthwise_token_pool_torch(x.float(), w.float(), stride)
             elif m == "max":
-                fns = (lambda: tp.max_token_pool_torch(x, kernel, stride),
-                       lambda: tp.max_token_pool_cuda(x, kernel, stride),
-                       lambda: F.max_pool3d(x_ncthw, kernel, stride, pad))
+                kernel_call, plain, library = (
+                    lambda r: tp.max_token_pool_cuda(x, kernel, stride, route=r),
+                    lambda: tp.max_token_pool_torch(x, kernel, stride),
+                    lambda: F.max_pool3d(x_ncthw, kernel, stride, pad))
                 ops, weight_bytes = taps * outputs, 0
-                out = tp.max_token_pool_cuda(x, kernel, stride)
                 ref = tp.max_token_pool_torch(x.float(), kernel, stride)
             else:
-                fns = (lambda: tp.avg_token_pool_torch(x, kernel, stride),
-                       lambda: tp.avg_token_pool_cuda(x, kernel, stride),
-                       lambda: F.avg_pool3d(x_ncthw, kernel, stride, pad, count_include_pad=True))
+                kernel_call, plain, library = (
+                    lambda r: tp.avg_token_pool_cuda(x, kernel, stride, route=r),
+                    lambda: tp.avg_token_pool_torch(x, kernel, stride),
+                    lambda: F.avg_pool3d(x_ncthw, kernel, stride, pad, count_include_pad=True))
                 ops, weight_bytes = (taps + 1) * outputs, 0
-                out = tp.avg_token_pool_cuda(x, kernel, stride)
                 ref = tp.avg_token_pool_torch(x.float(), kernel, stride)
-            torch.testing.assert_close(out.float(), ref, **KERNEL_TOL["bfloat16"])
-            err = (out.float() - ref).abs().max().item()
+            err = 0.0
+            for route in tp.POOL_ROUTES:
+                out = kernel_call(route)
+                torch.testing.assert_close(out.float(), ref, **KERNEL_TOL["bfloat16"])
+                err = max(err, (out.float() - ref).abs().max().item())
             timed_err = max(timed_err, err)
             del out, ref
             # The input positions some output reads and the output, once in bf16.
@@ -818,12 +857,21 @@ def check_token_pool(tp) -> dict:
             rows[m].append({"shape": f"B{B} {grid} k{kernel} s{stride}",
                             "calls": 0 if m == "avg" else calls,
                             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
-                            **time_three(*fns, iters=10)})
+                            **time_turns({"plain_ms": plain, "ms": lambda: kernel_call("tiled"),
+                                          "first_ms": lambda: kernel_call("scalar"),
+                                          "library_ms": library}, iters=10)})
             r = rows[m][-1]
-            print(f"token pool {m} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
-                  f"{r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound "
-                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+            print(f"token pool {m} {r['shape']} bf16: kernel {r['ms']!r} ms, first version "
+                  f"(scalar) {r['first_ms']!r} ms, plain {r['plain_ms']!r} ms, library "
+                  f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms ({r['bound_by']})")
         del x, x_ncthw, w_full
+    pool_rows = rows["conv"] + rows["max"]
+    new = sum(r["calls"] * r["ms"] for r in pool_rows)
+    old = sum(r["calls"] * r["first_ms"] for r in pool_rows)
+    print(f"token pool per B{B} forward (35 conv + 3 max): tiled {new!r} ms against the first "
+          f"version's {old!r} ms; gate {POOL_GATE_SHARE} x")
+    assert new <= POOL_GATE_SHARE * old, (
+        f"token pool: {new} ms per forward, over {POOL_GATE_SHARE} x the first version's {old} ms")
     return {"errs": errs, "timed_err": timed_err, "rows": rows}
 
 
@@ -1028,7 +1076,9 @@ def check_attention_backward(pa) -> dict:
 
 def check_pool_backward(tp) -> dict:
     """Phase 8, pools: the conv pool's dx and dw kernels against their plain
-    versions at B2, then timed at the training batch in bf16."""
+    versions at B2, each call on the tiled route, then timed at the training
+    batch in bf16 through the tiled route and the first version (the scalar
+    route)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1036,6 +1086,7 @@ def check_pool_backward(tp) -> dict:
                   for grid, kernel, stride, mode, calls in MVIT_POOLS if mode == "conv"]
     errs = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
     autograd_err = (0.0, 0.0)
+    before = read_counts()
     for grid, kernel, stride, _ in conv_pools:
         out_grid = tuple(tp.pool_out_size(d, k, s) for d, k, s in zip(grid[:3], kernel, stride))
         for dtype in (torch.float32, torch.bfloat16):
@@ -1057,8 +1108,12 @@ def check_pool_backward(tp) -> dict:
                                            (xr, wr), g)
                 autograd_err = worse(autograd_err, close_rel(ref_dx, auto[0], **GRAD_TOL[name]),
                                      close_rel(ref_dw, auto[1], **GRAD_TOL[name]))
-    print(f"token pool backward vs plain ({len(conv_pools)} conv geometries, dx and dw, "
-          f"weight rows shared by C / {HEAD_DIM} heads): (max |err|, over max |ref|) f32 "
+    expected = {f"token_pool_{which}{r}": 2 * len(conv_pools) * (r != ".scalar")
+                for which in ("dx", "dw") for r in ("", ".tiled", ".scalar")}
+    moved = {name: read_counts()[name] - before[name] for name in expected}
+    assert moved == expected, f"token pool backward checks: launches {moved}, expected {expected}"
+    print(f"token pool backward vs plain ({len(conv_pools)} conv geometries, dx and dw, all "
+          f"tiled, weight rows shared by C / {HEAD_DIM} heads): (max |err|, over max |ref|) f32 "
           f"{errs['float32']!r}, bf16 {errs['bfloat16']!r}; plain backward vs autograd (f32) "
           f"{autograd_err!r}")
 
@@ -1084,34 +1139,46 @@ def check_pool_backward(tp) -> dict:
         ops = 2 * math.prod(kernel) * outputs
         for which in ("dx", "dw"):
             if which == "dx":
-                fns = (lambda: tp.depthwise_token_pool_dx_torch(g, w, x.shape, stride),
-                       lambda: tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride),
-                       lambda: library([True, False, False]))
+                kernel_call, plain, lib_call = (
+                    lambda r: tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride, route=r),
+                    lambda: tp.depthwise_token_pool_dx_torch(g, w, x.shape, stride),
+                    lambda: library([True, False, False]))
                 # g and the weight in, dx out, once in bf16.
                 nbytes = 2 * (outputs + x.numel() + w.numel())
-                got = tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride)
                 ref = tp.depthwise_token_pool_dx_torch(g.float(), w.float(), x.shape, stride)
             else:
-                fns = (lambda: tp.depthwise_token_pool_dw_torch(x, g, w, stride),
-                       lambda: tp.depthwise_token_pool_dw_cuda(x, g, w, stride),
-                       lambda: library([False, True, False]))
+                kernel_call, plain, lib_call = (
+                    lambda r: tp.depthwise_token_pool_dw_cuda(x, g, w, stride, route=r),
+                    lambda: tp.depthwise_token_pool_dw_torch(x, g, w, stride),
+                    lambda: library([False, True, False]))
                 # The input positions some output reads and g in, dw out.
                 nbytes = 2 * (B * reads * C + outputs + w.numel())
-                got = tp.depthwise_token_pool_dw_cuda(x, g, w, stride)
                 ref = tp.depthwise_token_pool_dw_torch(x.float(), g.float(), w.float(), stride)
-            err = close_rel(got, ref, **GRAD_TOL["bfloat16"])
+            err = worse(*(close_rel(kernel_call(route), ref, **GRAD_TOL["bfloat16"])
+                          for route in tp.POOL_ROUTES))
             timed_err = worse(timed_err, err)
-            del got, ref
+            del ref
             bound, bound_by = bound_ms(ops, nbytes)
             rows[which].append({"shape": f"B{B} {grid} k{kernel} s{stride}", "calls": calls,
                                 "bound_ms": bound, "bound_by": bound_by,
                                 "max_abs_err": err[0], "max_rel_err": err[1],
-                                **time_three(*fns, iters=10)})
+                                **time_turns({"plain_ms": plain, "ms": lambda: kernel_call("tiled"),
+                                              "first_ms": lambda: kernel_call("scalar"),
+                                              "library_ms": lib_call}, iters=10)})
             r = rows[which][-1]
-            print(f"token pool {which} {r['shape']} bf16: kernel {r['ms']!r} ms, plain "
-                  f"{r['plain_ms']!r} ms, convolution_backward {r['library_ms']!r} ms, bound "
-                  f"{r['bound_ms']!r} ms ({r['bound_by']})")
+            print(f"token pool {which} {r['shape']} bf16: kernel {r['ms']!r} ms, first version "
+                  f"(scalar) {r['first_ms']!r} ms, plain {r['plain_ms']!r} ms, "
+                  f"convolution_backward {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+                  f"({r['bound_by']})")
         del x, g, w, x_nc, g_nc, w_full
+    for which in ("dx", "dw"):
+        new = sum(r["calls"] * r["ms"] for r in rows[which])
+        old = sum(r["calls"] * r["first_ms"] for r in rows[which])
+        print(f"token pool {which} per B{B} step ({CONV_POOLS} conv pools): tiled {new!r} ms "
+              f"against the first version's {old!r} ms; gate {POOL_GATE_SHARE} x")
+        assert new <= POOL_GATE_SHARE * old, (
+            f"token pool {which}: {new} ms per step, over {POOL_GATE_SHARE} x the first "
+            f"version's {old} ms")
     torch.cuda.empty_cache()
     return {"errs": errs, "timed_err": timed_err, "autograd_err": autograd_err, "rows": rows}
 
@@ -1707,6 +1774,8 @@ def main() -> None:
     timing = "per forward at B{}: each shape's time times its launches, summed"
     first = ("; first_ms: the same shapes through the CUDA-core kernel (the first version, "
              "bf16's route before the tensor-core and split-key routes)")
+    scalar_first = ("; first_ms: the same shapes through the scalar route (the first version); "
+                    "ms_by_route: ms (tiled) and first_ms (scalar)")
     attention_common = {
         "route": "cuda",
         "source": "pytorchvideo_tpu_torch/csrc/pooled_attention.cu",
@@ -1766,13 +1835,15 @@ def main() -> None:
             "launches": mvit["counts"]["token_pool_conv"] + mvit["counts"]["token_pool_max"],
             "launches_by_mode": {m: mvit["counts"][f"token_pool_{m}"]
                                  for m in ("conv", "max", "avg")},
+            "launches_by_route": pool_routes(mvit["counts"], ("token_pool_conv", "token_pool_max")),
             "path": "mvit_base_16x4 deploy bf16 16x224x224, B1/8/32",
             "max_abs_err": max([*pool_report["errs"].values(), pool_report["timed_err"]]),
             "max_abs_err_f32": pool_report["errs"]["float32"],
             "max_abs_err_bf16": pool_report["errs"]["bfloat16"],
-            **per_forward(pool_rows),
+            **per_forward(pool_rows, extra=("first_ms",)),
+            "ms_by_route": by_route_ms(pool_rows),
             "timing": "bf16, " + timing.format(MVIT_TIMING_BATCH)
-                      + " (35 conv and 3 max pools; the avg mode apart)",
+                      + " (35 conv and 3 max pools; the avg mode apart)" + scalar_first,
             "library": "F.conv3d(groups=C) / F.max_pool3d / F.avg_pool3d",
             "avg_mode_per_shape": pool_report["rows"]["avg"],
             "per_shape": pool_rows,
@@ -1807,7 +1878,7 @@ def main() -> None:
         "source": "pytorchvideo_tpu_torch/csrc/token_pool_bwd.cu",
         **bwd_errors(pool_bwd),
         "path": train_path,
-        "timing": "bf16, " + step_timing + " (35 conv pools)",
+        "timing": "bf16, " + step_timing + " (35 conv pools)" + scalar_first,
     }
     entries += [
         {
@@ -1841,8 +1912,10 @@ def main() -> None:
             "name": "token_pool_dw",
             "replaces": "pytorchvideo_tpu/ops/token_pool.py:450",
             "launches": trained["counts"]["token_pool_dw"],
+            "launches_by_route": pool_routes(trained["counts"], ("token_pool_dw",)),
             **pool_bwd_common,
-            **per_forward(pool_bwd["rows"]["dw"]),
+            **per_forward(pool_bwd["rows"]["dw"], extra=("first_ms",)),
+            "ms_by_route": by_route_ms(pool_bwd["rows"]["dw"]),
             "library": "aten.convolution_backward of F.conv3d(groups=C), weight gradient",
             "per_shape": pool_bwd["rows"]["dw"],
         },
@@ -1850,8 +1923,10 @@ def main() -> None:
             "name": "token_pool_dx",
             "replaces": "pytorchvideo_tpu/ops/token_pool.py:501",
             "launches": trained["counts"]["token_pool_dx"],
+            "launches_by_route": pool_routes(trained["counts"], ("token_pool_dx",)),
             **pool_bwd_common,
-            **per_forward(pool_bwd["rows"]["dx"]),
+            **per_forward(pool_bwd["rows"]["dx"], extra=("first_ms",)),
+            "ms_by_route": by_route_ms(pool_bwd["rows"]["dx"]),
             "library": "aten.convolution_backward of F.conv3d(groups=C), input gradient",
             "per_shape": pool_bwd["rows"]["dx"],
         },

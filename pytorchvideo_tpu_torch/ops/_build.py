@@ -198,6 +198,14 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    # The tiled token-pool routes: one int array (the geometry, then the
+    # plan) that the caller caches per call signature.
+    ints = ctypes.POINTER(ctypes.c_int32)
+    for name, pointers in (("pvt_token_pool_tiled", 3), ("pvt_token_pool_dx_tiled", 3),
+                           ("pvt_token_pool_dw_tiled", 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ints, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     fn = lib.pvt_fused_kvpool_ln
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_int64,

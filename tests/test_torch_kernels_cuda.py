@@ -7,6 +7,8 @@ from the repository root:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -512,6 +514,163 @@ def test_token_pool_autograd(cuda):
         (x, w), (gy, gy2))
     for a, b in zip(got, ref):
         _close(a, b, **GRAD_TOL[torch.float32])
+
+
+# The tiled route's ragged cases: T = 2 under kt = 3; H2 and W2 that no
+# tile size divides; C = 96 (a ragged 32-channel slice); Cw < C.
+TILED_RAGGED = [((2, 9, 11, 64), (3, 3, 3), (1, 2, 2)), ((3, 13, 11, 96), (3, 3, 3), (1, 1, 1)),
+                ((4, 10, 10, 96), (1, 3, 3), (1, 2, 2)), ((3, 23, 19, 40), (3, 3, 3), (1, 4, 4)),
+                ((5, 9, 11, 32), (3, 3, 3), (2, 3, 2))]
+
+
+def _routed(wrapper, call, route):
+    """Runs ``call``; asserts that ``wrapper`` launched once in it, on ``route``."""
+    before = wrapper.launches, dict(wrapper.launches_by_route)
+    got = call()
+    assert wrapper.launches == before[0] + 1
+    assert wrapper.launches_by_route == {r: n + (r == route) for r, n in before[1].items()}
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [g for g in MVIT_POOLS if g[1] in tp.TILED_KERNELS]
+                         + TILED_RAGGED, ids=lambda g: "x%s_k%s_s%s" % g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_pool_routes_match_plain(cuda, geometry, dtype):
+    # The forward's three modes, dx and dw on the tiled route, at B2, against
+    # the plain versions in f32 on the same inputs; the weight rows shared by
+    # C / Cw heads where C > 32.
+    grid, kernel, stride = geometry
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(2, *grid, device=cuda, generator=gen).to(dtype)
+    C = grid[-1]
+    w = (torch.randn(math.gcd(C, 32), 1, *kernel, device=cuda, generator=gen) * 0.2).to(dtype)
+    cases = [
+        (tp.depthwise_token_pool_cuda, (w, stride), lambda a: tp.depthwise_token_pool_torch(
+            a, w.float(), stride)),
+        (tp.max_token_pool_cuda, (kernel, stride), lambda a: tp.max_token_pool_torch(
+            a, kernel, stride)),
+        (tp.avg_token_pool_cuda, (kernel, stride), lambda a: tp.avg_token_pool_torch(
+            a, kernel, stride)),
+    ]
+    for wrapper, args, plain in cases:
+        out = _routed(wrapper, lambda: wrapper(x, *args), "tiled")
+        ref = plain(x.float())
+        assert out.dtype == dtype and out.shape == ref.shape and out.is_contiguous()
+        torch.testing.assert_close(out.float(), ref, **POOL_TOL[dtype])
+    gy = torch.randn((2, *tp.check_geometry(x.shape, kernel, stride), C), device=cuda,
+                     generator=gen).to(dtype)
+    dx = _routed(tp.depthwise_token_pool_dx_cuda,
+                 lambda: tp.depthwise_token_pool_dx_cuda(gy, w, x.shape, stride), "tiled")
+    dw = _routed(tp.depthwise_token_pool_dw_cuda,
+                 lambda: tp.depthwise_token_pool_dw_cuda(x, gy, w, stride), "tiled")
+    assert dx.dtype == dtype and dx.shape == x.shape and dw.dtype == dtype and dw.shape == w.shape
+    _close(dx, tp.depthwise_token_pool_dx_torch(gy.float(), w.float(), x.shape, stride),
+           **GRAD_TOL[dtype])
+    _close(dw, tp.depthwise_token_pool_dw_torch(x.float(), gy.float(), w.float(), stride),
+           **GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [((8, 56, 56, 192), (3, 3, 3), (1, 2, 2)),
+                                      ((8, 14, 14, 384), (3, 3, 3), (1, 2, 2)),
+                                      ((8, 14, 14, 768), (3, 3, 3), (1, 1, 1))],
+                         ids=lambda g: "x%s_k%s_s%s" % g)
+def test_tiled_pool_routes_at_the_path_batches(cuda, geometry):
+    # The forward at the serving batch (B32) and dx, dw at the training batch
+    # (B8), in bf16: larger tiles and deeper rings than B2's plans, whose
+    # shared memory passes 48 KB.
+    grid, kernel, stride = geometry
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    w = (torch.randn(96, 1, *kernel, device=cuda, generator=gen) * 0.2).bfloat16()
+    x = torch.randn(32, *grid, device=cuda, generator=gen).bfloat16()
+    out = _routed(tp.depthwise_token_pool_cuda,
+                  lambda: tp.depthwise_token_pool_cuda(x, w, stride), "tiled")
+    torch.testing.assert_close(out.float(), tp.depthwise_token_pool_torch(
+        x.float(), w.float(), stride), **POOL_TOL[torch.bfloat16])
+    x = x[:8].contiguous()
+    gy = torch.randn((8, *tp.check_geometry(x.shape, kernel, stride), grid[-1]), device=cuda,
+                     generator=gen).bfloat16()
+    dx = _routed(tp.depthwise_token_pool_dx_cuda,
+                 lambda: tp.depthwise_token_pool_dx_cuda(gy, w, x.shape, stride), "tiled")
+    dw = _routed(tp.depthwise_token_pool_dw_cuda,
+                 lambda: tp.depthwise_token_pool_dw_cuda(x, gy, w, stride), "tiled")
+    _close(dx, tp.depthwise_token_pool_dx_torch(gy.float(), w.float(), x.shape, stride),
+           **GRAD_TOL[torch.bfloat16])
+    _close(dw, tp.depthwise_token_pool_dw_torch(x.float(), gy.float(), w.float(), stride),
+           **GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [((8, 56, 56, 96), (3, 3, 3), (1, 8, 8)),
+                                      ((8, 14, 14, 768), (3, 3, 3), (1, 1, 1))],
+                         ids=lambda g: "x%s_k%s_s%s" % g)
+def test_token_pool_backward_is_deterministic(cuda, geometry):
+    # dw's one launch sums its block partials in a fixed order (the counter
+    # is its only atomic): two calls give the same bits, and so does dx.
+    grid, kernel, stride = geometry
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(8, *grid, device=cuda, generator=gen).bfloat16()
+    w = (torch.randn(96, 1, *kernel, device=cuda, generator=gen) * 0.2).bfloat16()
+    gy = torch.randn((8, *tp.check_geometry(x.shape, kernel, stride), grid[-1]), device=cuda,
+                     generator=gen).bfloat16()
+    before = dict(tp.depthwise_token_pool_dw_cuda.launches_by_route)
+    first = tp.depthwise_token_pool_dw_cuda(x, gy, w, stride)
+    second = tp.depthwise_token_pool_dw_cuda(x, gy, w, stride)
+    assert tp.depthwise_token_pool_dw_cuda.launches_by_route["tiled"] == before["tiled"] + 2
+    assert torch.equal(first, second)
+    assert torch.equal(tp.depthwise_token_pool_dx_cuda(gy, w, x.shape, stride),
+                       tp.depthwise_token_pool_dx_cuda(gy, w, x.shape, stride))
+
+
+@pytest.mark.cuda
+def test_pool_calls_off_the_tiled_route_take_scalar(cuda):
+    # bf16 C = 12 (24-byte rows), a view one element off 16 bytes, and a
+    # kernel size the tiled kernels do not instantiate take the first
+    # version; asking for tiled there raises.
+    gen = torch.Generator(device=cuda).manual_seed(16)
+
+    def off_by_one(t):
+        # t's values in a contiguous view one element past a 16-byte boundary.
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        return buf[1:].view(t.shape).copy_(t)
+
+    cases = [
+        (torch.randn(2, 4, 9, 9, 12, device=cuda, generator=gen).bfloat16(), (3, 3, 3), None),
+        (off_by_one(torch.randn(2, 4, 9, 9, 16, device=cuda, generator=gen)), (3, 3, 3),
+         off_by_one),
+        (torch.randn(2, 4, 9, 9, 16, device=cuda, generator=gen), (3, 5, 3), None),
+    ]
+    for x, kernel, place in cases:
+        assert tp.pool_route(x.dtype, x.shape[-1], x.data_ptr() % 16 == 0, kernel) == "scalar"
+        w = (torch.randn(4, 1, *kernel, device=cuda, generator=gen) * 0.2).to(x.dtype)
+        out = _routed(tp.depthwise_token_pool_cuda,
+                      lambda: tp.depthwise_token_pool_cuda(x, w, (1, 2, 2)), "scalar")
+        torch.testing.assert_close(out.float(), tp.depthwise_token_pool_torch(
+            x.float(), w.float(), (1, 2, 2)), **POOL_TOL[x.dtype])
+        gy = torch.randn_like(out)
+        gy = place(gy) if place else gy
+        _routed(tp.depthwise_token_pool_dx_cuda,
+                lambda: tp.depthwise_token_pool_dx_cuda(gy, w, x.shape, (1, 2, 2)), "scalar")
+        _routed(tp.depthwise_token_pool_dw_cuda,
+                lambda: tp.depthwise_token_pool_dw_cuda(x, gy, w, (1, 2, 2)), "scalar")
+        with pytest.raises(ValueError, match="tiled route takes"):
+            tp.max_token_pool_cuda(x, kernel, (1, 2, 2), route="tiled")
+
+
+@pytest.mark.cuda
+def test_forced_scalar_route_matches_tiled(cuda):
+    # The first version stays callable on the tiled route's inputs (the
+    # smoke run times it beside the tiled kernels).
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(2, 8, 28, 28, 384, device=cuda, generator=gen).bfloat16()
+    w = (torch.randn(96, 1, 3, 3, 3, device=cuda, generator=gen) * 0.2).bfloat16()
+    tiled = _routed(tp.depthwise_token_pool_cuda,
+                    lambda: tp.depthwise_token_pool_cuda(x, w, (1, 2, 2)), "tiled")
+    scalar = _routed(tp.depthwise_token_pool_cuda,
+                     lambda: tp.depthwise_token_pool_cuda(x, w, (1, 2, 2), route="scalar"),
+                     "scalar")
+    torch.testing.assert_close(tiled.float(), scalar.float(), **POOL_TOL[torch.bfloat16])
 
 
 # Fused kv-pool geometries: (grid T, H, W), H*c, heads, kv stride, cls rows.

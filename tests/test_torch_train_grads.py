@@ -8,7 +8,13 @@ against ``torch.autograd`` through the plain forwards. The CUDA backward
 kernels are held against these plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 
-The backward's bf16 routes are held here by their arithmetic: the split-key
+The conv pool's tiled dx and dw kernels are held here by their arithmetic
+too: ``depthwise_token_pool_dx_tiled_torch`` and
+``depthwise_token_pool_dw_tiled_torch`` (the tiled walk, dw's block partials
+and their reduction order) against the plain backward and ``jax.vjp`` of
+``_token_pool_ad`` in interpret mode.
+
+The attention backward's bf16 routes are held here by their arithmetic: the split-key
 route's plain version (``pooled_attention_bwd_split_torch``) against the
 one-pass plain backward and ``jax.vjp`` of the JAX package's XLA paths, and
 an emulation of the tensor-core route's roundings against the f32 plain
@@ -290,3 +296,41 @@ def test_max_and_avg_pool_grads_are_autograd_on_the_cpu():
         out = pool(x, (1, 3, 3), (1, 2, 2))
         (dx,) = torch.autograd.grad(out.sum(), x)
         assert dx.shape == x.shape and torch.isfinite(dx).all() and dx.abs().sum() > 0
+
+
+# The tiled dx and dw walks: POOL_CASES with the plan's own tiles, and
+# ragged cases with forced tiles (H2 not a multiple of the tile rows, T = 2
+# under kt = 3, C = 96 with its ragged 32-channel slice, Cw < C, a T stride).
+TILED_POOL_CASES = [(*case, None) for case in POOL_CASES] + [
+    ((2, 4, 13, 11, 8), (3, 3, 3), (1, 2, 2), 4, (3, 4)),
+    ((2, 2, 7, 9, 8), (3, 3, 3), (1, 1, 1), 8, (4, 4)),
+    ((1, 3, 6, 6, 96), (3, 3, 3), (1, 2, 2), 32, (2, 2)),
+    ((2, 4, 16, 16, 8), (3, 3, 3), (1, 8, 8), 4, (3, 2)),
+    ((1, 5, 9, 11, 8), (3, 3, 3), (2, 3, 2), 4, (2, 2)),
+]
+
+
+@pytest.mark.parametrize("shape, kernel, stride, Cw, tile", TILED_POOL_CASES)
+def test_tiled_pool_backward_matches_plain_and_jax(shape, kernel, stride, Cw, tile):
+    C = shape[-1]
+    x, w = _arrays([shape, (Cw, 1, *kernel)], seed=C + Cw + 1)
+    out_shape = (shape[0], *tp.check_geometry(shape, kernel, stride), C)
+    (g,) = _arrays([out_shape], seed=2)
+    xt, wt, gt = (torch.from_numpy(a) for a in (x, w, g))
+    plans = {kind: tile and tp.pool_tile_plan(*shape, kernel, stride, torch.float32, kind,
+                                              tile=tile) for kind in ("dx", "dw")}
+    dx = tp.depthwise_token_pool_dx_tiled_torch(gt, wt, shape, stride, plan=plans["dx"])
+    dw = tp.depthwise_token_pool_dw_tiled_torch(xt, gt, wt, stride, plan=plans["dw"])
+    assert dx.shape == shape and dw.shape == wt.shape
+    torch.testing.assert_close(dx, tp.depthwise_token_pool_dx_torch(gt, wt, shape, stride),
+                               **AUTOGRAD_TOL)
+    torch.testing.assert_close(dw, tp.depthwise_token_pool_dw_torch(xt, gt, wt, stride),
+                               **AUTOGRAD_TOL)
+    padding = tuple(k // 2 for k in kernel)
+    _, vjp = jax.vjp(lambda xx, w_head: _token_pool_ad(
+        xx, jnp.tile(w_head, (1, 1, 1, C // Cw)), stride, padding, True),
+        jnp.asarray(x), jnp.asarray(np.transpose(w[:, 0], (1, 2, 3, 0))))
+    ref_dx, ref_dw = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx), **TOL)
+    np.testing.assert_allclose(dw.numpy()[:, 0], np.transpose(np.asarray(ref_dw), (3, 0, 1, 2)),
+                               **TOL)
