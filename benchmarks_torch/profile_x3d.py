@@ -5,21 +5,25 @@
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 The model is ``hub.x3d_s(model_num_class=400)`` at full width and depth,
 13x160x160, with the seeded random weights of ``chip_smoke.py``
-(``randomize_``), in three bf16 forms, all eager:
+(``randomize_``), in four bf16 forms, all eager:
 
 - ``deploy``: ``convert_to_deployable_form`` (BN folded, the 22 stride-1
-  ``conv_b`` on the fused kernel, the 4 strided ones on ``F.conv3d``);
+  ``conv_b`` on the fused kernel's tiled route, the 4 strided ones on
+  ``F.conv3d``);
+- ``deploy_scalar``: the same model with the fused kernel forced onto its
+  scalar route (the first version);
 - ``folded``: BN folded the same way, every ``conv_b`` left on cuDNN;
 - ``eval``: the eval model cast to bf16, BN unfolded.
 
 1. Clips/s at B1, B8 and B128: per batch the forms run in the order eval,
-   folded, deploy, deploy, folded, eval; each run is one warm-up forward then
-   ``ITERS`` forwards timed with CUDA events. Both runs of each form are
-   printed; the summary keeps the faster.
+   folded, deploy, deploy_scalar, then the reverse; each run is one warm-up
+   forward then ``ITERS`` forwards timed with CUDA events. Both runs of each
+   form are printed; the summary keeps the faster.
 2. Peak device memory of one deploy forward at B128.
-3. ``torch.profiler`` over 3 deploy forwards at B128 and at B1: device time
-   per forward by kernel group and the top kernels. At B1 the card's busy
-   share is that device time over the event-timed forward of step 1.
+3. ``torch.profiler`` over 3 forwards of deploy at B128 and B1 and of
+   deploy_scalar at B128: device time per forward by kernel group and the
+   top kernels. The card's busy share is that device time over the
+   event-timed forward of step 1.
 
 Prints one line per measurement, and writes them all, with the full kernel
 tables, as JSON to ``--out``.
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import re
@@ -37,13 +42,13 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCHES = (1, 8, 128)
 ITERS = 10
-PROFILED_BATCHES = (128, 1)
+PROFILED = (("deploy", 128), ("deploy_scalar", 128), ("deploy", 1))
 PROFILED_FORWARDS = 3
 # Kernel groups by name, first match wins. cuDNN runs a grouped (depthwise)
 # conv in bf16 channels-last as per-group ``implicit_convolveNd_sgemm``
 # launches, hence that group ahead of the GEMMs.
 KERNEL_GROUPS = [
-    ("fused depthwise kernel", r"depthwise3x3x3_kernel"),
+    ("fused depthwise kernel", r"depthwise3x3x3_(kernel|tiled)"),
     ("cuDNN grouped conv", r"convolveNd|conv_depthwise|depthwise"),
     ("GEMM / pointwise conv", r"gemm|xmma|cutlass"),
     ("layout conversion", r"nchwToNhwc|nhwcToNchw"),
@@ -86,6 +91,24 @@ def group_table(rows: list, kernel_groups=KERNEL_GROUPS) -> dict:
     return groups
 
 
+def on_scalar_route(model):
+    """``model`` run with its fused ``conv_b`` calls forced onto the kernel's
+    scalar route (the first version)."""
+    from pytorchvideo_tpu_torch.accelerate import deploy
+    from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
+
+    scalar = functools.partial(dw.depthwise3x3x3_bn_swish_cuda, route="scalar")
+
+    def forward(x):
+        saved, deploy.depthwise3x3x3_bn_swish = deploy.depthwise3x3x3_bn_swish, scalar
+        try:
+            return model(x)
+        finally:
+            deploy.depthwise3x3x3_bn_swish = saved
+
+    return forward
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build", "profile_x3d.json"))
@@ -111,13 +134,15 @@ def main() -> None:
         "folded": fold_conv_bn(copy.deepcopy(model).eval()).to(torch.bfloat16),
         "deploy": convert_to_deployable_form(model, dtype=torch.bfloat16),
     }
+    forms["deploy_scalar"] = on_scalar_route(forms["deploy"])
+    order = ("eval", "folded", "deploy", "deploy_scalar")
     report = {"card": card, "torch": torch.__version__, "iters": ITERS, "batches": {}}
 
     with torch.no_grad():
         for B in BATCHES:
             x = torch.randn(B, 3, 13, 160, 160, generator=gen).to("cuda", torch.bfloat16)
             runs = {name: [] for name in forms}
-            for name in ("eval", "folded", "deploy", "deploy", "folded", "eval"):
+            for name in order + order[::-1]:
                 runs[name].append(cuda_time_ms(lambda: forms[name](x), ITERS, warmup=1))
             entry = {}
             for name, times in runs.items():
@@ -137,23 +162,23 @@ def main() -> None:
         print(f"x3d_s deploy B{max(BATCHES)}: peak device memory {peak!r} bytes")
 
         report["profiles"] = {}
-        for B in PROFILED_BATCHES:
+        for name, B in PROFILED:
             x = torch.randn(B, 3, 13, 160, 160, generator=gen).to("cuda", torch.bfloat16)
-            forms["deploy"](x)
+            forms[name](x)
             torch.cuda.synchronize()
             with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             ) as prof:
                 for _ in range(PROFILED_FORWARDS):
-                    forms["deploy"](x)
+                    forms[name](x)
                 torch.cuda.synchronize()
             rows = kernel_table(prof, PROFILED_FORWARDS)
             groups = group_table(rows)
             device_ms = sum(r["ms"] for r in rows)
-            wall_ms = min(report["batches"][B]["deploy"]["ms_runs"])
-            report["profiles"][B] = {"device_ms": device_ms, "event_ms": wall_ms,
-                                     "groups": groups, "kernels": rows}
-            print(f"profile deploy B{B} ({PROFILED_FORWARDS} forwards): device "
+            wall_ms = min(report["batches"][B][name]["ms_runs"])
+            report["profiles"][f"{name} B{B}"] = {"device_ms": device_ms, "event_ms": wall_ms,
+                                                  "groups": groups, "kernels": rows}
+            print(f"profile {name} B{B} ({PROFILED_FORWARDS} forwards): device "
                   f"{device_ms!r} ms/forward of {wall_ms!r} ms event-timed "
                   f"(busy share {device_ms / wall_ms!r})")
             for name, g in groups.items():

@@ -10,19 +10,23 @@ exits nonzero, printing no result, when a check fails or no card is present.
    process per source, all at once) and loads the library.
 3. X3D kernel vs plain version at X3D-S's four stride-1 ``conv_b`` shapes
    (T13, S40C54 / S20C108 / S10C216 / S5C432, B2): f32 and bf16, swish on
-   and off, with and without scale/bias. The reference is the plain version
-   (``F.conv3d(groups=C)`` + epilogue) in f32 with TF32 off, on the same
-   (bf16-rounded) inputs. Then the kernel, the plain version and the library
-   call ``F.conv3d(groups=C)`` alone are timed at B128 in bf16, and the
-   kernel's B128 output is held against the plain version in f32 as well.
+   and off, with and without scale/bias, every call on the tiled route. The
+   reference is the plain version (``F.conv3d(groups=C)`` + epilogue) in f32
+   with TF32 off, on the same (bf16-rounded) inputs. Then at B128 in bf16
+   the tiled route, the scalar route (the first version), the plain version
+   and the library call ``F.conv3d(groups=C)`` alone are timed per shape,
+   and both routes' B128 outputs are held against the plain version in f32
+   as well. The tiled time per B128 forward (22 launches) must stay within
+   half of the first version's (``DEPTHWISE_GATE_SHARE``).
 4. X3D slice: ``hub.x3d_s(model_num_class=400)`` at full width, 13x160x160,
    with random weights from a seeded ``torch.Generator`` (BN affine
    randomised, running stats measured on seeded random clips; see
    ``randomize_``). The deploy form (``convert_to_deployable_form``, bf16)
    serves request batches of 1, 8 and 128 clips; the kernel's launch count
-   must rise by 22 per forward (the 22 stride-1 ``conv_b``). Its logits are
-   held against the plain f32 eval model (cuDNN for every conv, TF32 off) at
-   B8, as is the f32 deploy form; top-1 must agree on every row whose
+   must rise by 22 per forward (the 22 stride-1 ``conv_b``), all on the
+   tiled route. Its logits are held against the plain f32 eval model (cuDNN
+   for every conv, TF32 off) at B8, as is the f32 deploy form, each form's
+   22 launches on the tiled route; top-1 must agree on every row whose
    top-two margin the measured error cannot bridge.
 5. MViT kernels: the pooled-attention kernel in both layouts (head-packed
    and per-head), residual on and off, at B2 on every distinct
@@ -140,6 +144,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 STAGE_SHAPES = [(13, 40, 54), (13, 20, 108), (13, 10, 216), (13, 5, 432)]
 STAGE_STRIDE1_BLOCKS = [2, 4, 10, 6]
 KERNELS_PER_FORWARD = sum(STAGE_STRIDE1_BLOCKS)  # 22
+# Every one of them takes the tiled route, in bf16 and in f32 (C even).
+X3D_PER_FORWARD = {"depthwise3x3x3_bn_swish": KERNELS_PER_FORWARD,
+                   "depthwise3x3x3_bn_swish.tiled": KERNELS_PER_FORWARD}
+# The tiled depthwise kernel (#1) per B128 forward against its first version
+# (the scalar route on the same inputs), both on cuda_time_ms: the run fails
+# above this share.
+DEPTHWISE_GATE_SHARE = 0.5
 # Kernel vs plain version. f32: summation order only. bf16: the inputs are
 # the same bf16 values, so the kernel differs from the f32 reference by the
 # rounding of its output to bf16 (one ulp is 2^-7 relative at worst).
@@ -307,9 +318,11 @@ FUSED_PER_STEP = tiled({**FUSED_PER_FORWARD,
 NOPAD_SHAPES = [("d0", 16, 1, 25089, 96, 393), ("d1", 16, 2, 6273, 96, 393),
                 ("d3", 16, 4, 1569, 96, 393), ("d14", 16, 8, 393, 96, 99)]
 # Published peaks of one H100 SXM at its 700 W limit (dense bf16 tensor
-# cores; HBM3): the bound of a call is the larger of its operations over the
-# first and its bytes over the second.
+# cores; f32 on the CUDA cores; HBM3): the bound of a call is the larger of
+# its operations over the peak of the units it can use and its bytes over
+# the memory's.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -343,9 +356,10 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least ms, "operations" or "bytes"): the card's bound for one call."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(least ms, "operations" or "bytes"): the card's bound for one call,
+    its operations at ``peak_flops`` (default: the tensor cores' bf16)."""
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -571,13 +585,16 @@ def check_logits(label: str, got: dict, ref) -> None:
 
 
 def check_kernel(dw) -> dict:
-    """Phase 3: the kernel against its plain version; then both timed, with
-    the library call beside them."""
+    """Phase 3: the kernel against its plain version at B2, every call on
+    the tiled route; then timed at B128 bf16 through the tiled route and
+    the first version (the scalar route), with the plain version and the
+    library call beside them."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    before = read_counts()
     for T, S, C in STAGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
@@ -599,8 +616,13 @@ def check_kernel(dw) -> dict:
                     assert out.shape == x.shape and out.dtype == dtype
                     torch.testing.assert_close(out.float(), ref, **KERNEL_TOL[name])
                     errs[name] = max(errs[name], (out.float() - ref).abs().max().item())
-    print(f"kernel vs plain: max |err| f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r} "
-          f"(tolerances {KERNEL_TOL})")
+    calls = 8 * len(STAGE_SHAPES)
+    expected = {"depthwise3x3x3_bn_swish": calls, "depthwise3x3x3_bn_swish.tiled": calls,
+                "depthwise3x3x3_bn_swish.scalar": 0}
+    moved = {name: read_counts()[name] - before[name] for name in expected}
+    assert moved == expected, f"depthwise checks: launches {moved}, expected {expected}"
+    print(f"kernel vs plain (all tiled): max |err| f32 {errs['float32']!r}, bf16 "
+          f"{errs['bfloat16']!r} (tolerances {KERNEL_TOL})")
 
     per_shape = []
     for (T, S, C), calls in zip(STAGE_SHAPES, STAGE_STRIDE1_BLOCKS):
@@ -608,32 +630,49 @@ def check_kernel(dw) -> dict:
         w = torch.randn(3, 3, 3, C, device="cuda", generator=gen).bfloat16()
         s = (torch.rand(C, device="cuda", generator=gen) + 0.5).bfloat16()
         b = torch.randn(C, device="cuda", generator=gen).bfloat16()
-        plain = cuda_time_ms(lambda: dw.depthwise3x3x3_bn_swish_torch(x, w, s, b, True), 10)
-        kernel = cuda_time_ms(lambda: dw.depthwise3x3x3_bn_swish_cuda(x, w, s, b, True), 10)
-        plain2 = cuda_time_ms(lambda: dw.depthwise3x3x3_bn_swish_torch(x, w, s, b, True), 10)
-        kernel2 = cuda_time_ms(lambda: dw.depthwise3x3x3_bn_swish_cuda(x, w, s, b, True), 10)
         # The library call: the depthwise conv alone, on the same
         # channels-last input seen as NCTHW.
         x_ncthw = x.permute(0, 4, 1, 2, 3)
         w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
-        library = min(cuda_time_ms(lambda: F.conv3d(x_ncthw, w_conv, padding=1, groups=C), 10)
-                      for _ in range(2))
-        # The timed shape, held against the plain version in f32 as above.
-        out = dw.depthwise3x3x3_bn_swish_cuda(x, w, s, b, True).float()
+        # Both routes' B128 outputs, held against the plain version in f32.
         ref = dw.depthwise3x3x3_bn_swish_torch(x.float(), w.float(), s.float(), b.float(), True)
-        torch.testing.assert_close(out, ref, **KERNEL_TOL["bfloat16"])
-        err = (out - ref).abs().max().item()
+        err = 0.0
+        for route in dw.DEPTHWISE_ROUTES:
+            out = dw.depthwise3x3x3_bn_swish_cuda(x, w, s, b, True, route=route).float()
+            torch.testing.assert_close(out, ref, **KERNEL_TOL["bfloat16"])
+            err = max(err, (out - ref).abs().max().item())
         del out, ref
         # x in and the output out once in bf16, with the weights and the
-        # affine; 27 FMAs, scale, bias and swish per output.
-        bound, bound_by = bound_ms(x.numel() * (2 * 27 + 4), 2 * (2 * x.numel() + 29 * C))
+        # affine; 27 FMAs, scale, bias and swish per output, on the CUDA
+        # cores (a depthwise conv has no product for the tensor cores).
+        bound, bound_by = bound_ms(x.numel() * (2 * 27 + 4), 2 * (2 * x.numel() + 29 * C),
+                                   peak_flops=PEAK_F32_FLOPS)
         per_shape.append({"shape": f"B128 T{T} S{S} C{C}", "calls": calls,
-                          "ms": min(kernel, kernel2), "plain_ms": min(plain, plain2),
-                          "library_ms": library, "bound_ms": bound, "bound_by": bound_by,
-                          "max_abs_err": err})
-        print(f"depthwise3x3x3 B128 T{T} {S}x{S} C{C} bf16 swish: kernel {kernel!r} / "
-              f"{kernel2!r} ms, plain {plain!r} / {plain2!r} ms, F.conv3d(groups=C) alone "
-              f"{library!r} ms, bound {bound!r} ms ({bound_by}); max |err| vs plain f32 {err!r}")
+                          "copy_bytes": dw.depthwise_copy_bytes(torch.bfloat16, C),
+                          "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+                          **time_turns({
+                              "plain_ms": lambda: dw.depthwise3x3x3_bn_swish_torch(
+                                  x, w, s, b, True),
+                              "ms": lambda: dw.depthwise3x3x3_bn_swish_cuda(
+                                  x, w, s, b, True, route="tiled"),
+                              "first_ms": lambda: dw.depthwise3x3x3_bn_swish_cuda(
+                                  x, w, s, b, True, route="scalar"),
+                              "library_ms": lambda: F.conv3d(x_ncthw, w_conv, padding=1,
+                                                             groups=C)}, iters=10)})
+        r = per_shape[-1]
+        print(f"depthwise3x3x3 B128 T{T} {S}x{S} C{C} bf16 swish: kernel (tiled, "
+              f"{r['copy_bytes']}-byte copies) {r['ms']!r} ms, first version (scalar) "
+              f"{r['first_ms']!r} ms, plain {r['plain_ms']!r} ms, F.conv3d(groups=C) alone "
+              f"{r['library_ms']!r} ms, bound {bound!r} ms ({bound_by}); max |err| vs plain "
+              f"f32 {err!r}")
+        del x, x_ncthw
+    new = sum(r["calls"] * r["ms"] for r in per_shape)
+    old = sum(r["calls"] * r["first_ms"] for r in per_shape)
+    print(f"depthwise3x3x3 per B128 forward (22 launches): tiled {new!r} ms against the first "
+          f"version's {old!r} ms, ratio {new / old!r}; gate {DEPTHWISE_GATE_SHARE} x")
+    assert new <= DEPTHWISE_GATE_SHARE * old, (
+        f"depthwise3x3x3: {new} ms per forward, over {DEPTHWISE_GATE_SHARE} x the first "
+        f"version's {old} ms")
     return {"errs": errs, "per_shape": per_shape}
 
 
@@ -1731,14 +1770,17 @@ def main() -> None:
     n_fused = sum(isinstance(m, DepthwiseConv3x3x3BnAct) for m in deploy.modules())
     assert n_fused == KERNELS_PER_FORWARD, f"{n_fused} fused conv_b, expected 22"
 
-    # Logits against the plain f32 eval model, at B8.
+    # Logits against the plain f32 eval model, at B8; each deploy form's 22
+    # launches on the tiled route.
     x8 = torch.randn(8, 3, 13, 160, 160, generator=gen).cuda()
+    got = {}
     with torch.no_grad():
         ref = model(x8).float()
-        got = {
-            "float32": convert_to_deployable_form(model, dtype=None)(x8).float(),
-            "bfloat16": deploy(x8.bfloat16()).float(),
-        }
+        for name, form, x in (("float32", convert_to_deployable_form(model, dtype=None), x8),
+                              ("bfloat16", deploy, x8.bfloat16())):
+            reset_counts()
+            got[name] = form(x).float()
+            check_path_counts(f"x3d_s deploy {name}", read_counts(), X3D_PER_FORWARD, 1)
     check_logits("x3d_s deploy", got, ref)
 
     # The main path: the counts cover exactly this run.
@@ -1746,8 +1788,7 @@ def main() -> None:
     rates = serve(deploy, BATCHES, gen, (13, 160, 160), 400)
     x3d_counts = read_counts()
     forwards = sum(r["forwards"] for r in rates.values())
-    check_path_counts("x3d_s path", x3d_counts,
-                      {"depthwise3x3x3_bn_swish": KERNELS_PER_FORWARD}, forwards)
+    check_path_counts("x3d_s path", x3d_counts, X3D_PER_FORWARD, forwards)
     for B, r in rates.items():
         print(f"x3d_s deploy bf16 13x160x160 B{B}: {r['clips_per_s']!r} clips/s "
               f"({r['ms']!r} ms/forward) on {card}")
@@ -1774,8 +1815,6 @@ def main() -> None:
     timing = "per forward at B{}: each shape's time times its launches, summed"
     first = ("; first_ms: the same shapes through the CUDA-core kernel (the first version, "
              "bf16's route before the tensor-core and split-key routes)")
-    scalar_first = ("; first_ms: the same shapes through the scalar route (the first version); "
-                    "ms_by_route: ms (tiled) and first_ms (scalar)")
     attention_common = {
         "route": "cuda",
         "source": "pytorchvideo_tpu_torch/csrc/pooled_attention.cu",
@@ -1783,6 +1822,9 @@ def main() -> None:
         "max_abs_err_f32": attention_report["errs"]["float32"],
         "max_abs_err_bf16": attention_report["errs"]["bfloat16"],
     }
+    scalar_first = ("; first_ms: the same shapes through the scalar route (the first version); "
+                    "ms_by_route: ms (tiled) and first_ms (scalar)")
+    x3d_timing = per_forward(x3d_rows, extra=("first_ms",))
     entries = [
         {
             "name": "depthwise3x3x3_bn_swish",
@@ -1790,13 +1832,18 @@ def main() -> None:
             "source": "pytorchvideo_tpu_torch/csrc/depthwise_conv.cu",
             "replaces": "pytorchvideo_tpu/ops/depthwise_conv.py:132",
             "launches": x3d_counts["depthwise3x3x3_bn_swish"],
+            "launches_by_route": by_route(x3d_counts, "depthwise3x3x3_bn_swish"),
             "path": "x3d_s deploy bf16 13x160x160, B1/8/128",
             "max_abs_err": max([*kernel_report["errs"].values(),
                                 *(t["max_abs_err"] for t in x3d_rows)]),
             "max_abs_err_f32": kernel_report["errs"]["float32"],
             "max_abs_err_bf16": kernel_report["errs"]["bfloat16"],
-            **per_forward(x3d_rows),
-            "timing": "bf16 swish, " + timing.format(128) + " (22 stride-1 conv_b)",
+            **x3d_timing,
+            "ms_by_route": by_route_ms(x3d_rows),
+            "first_version_ratio": x3d_timing["ms"] / x3d_timing["first_ms"],
+            "timing": "bf16 swish, " + timing.format(128) + " (22 stride-1 conv_b)"
+                      + scalar_first + "; bound: bytes at the HBM rate, FMAs at the CUDA "
+                                       "cores' f32 peak",
             "library": "F.conv3d(groups=C) alone",
             "per_shape": x3d_rows,
         },

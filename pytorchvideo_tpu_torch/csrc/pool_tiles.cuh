@@ -1,8 +1,11 @@
-// Shared-memory tiles of a channels-last (B, T, H, W, C) grid for the token
-// pool's `tiled` kernels (token_pool.cu, token_pool_bwd.cu), sm_90a (H100):
-// the tile plan that `pool_tile_plan` (ops/token_pool.py) picks, the slot
-// maps of the rows and columns a tile reads, and 16-byte cp.async copies of
-// one plane's slots. Each source includes it into its own translation unit.
+// Shared-memory tiles of a channels-last (B, T, H, W, C) grid for the
+// `tiled` kernels of the token pool (token_pool.cu, token_pool_bwd.cu) and of
+// the depthwise conv (depthwise_conv.cu), sm_90a (H100): the tile plan that
+// `pool_tile_plan` (ops/token_pool.py) picks, the slot maps of the rows and
+// columns a tile reads, and cp.async copies of one plane's slots, 16 bytes
+// wide unless the caller asks for 8 or 4 (rows of C channels that are no
+// whole number of 16-byte vectors, as X3D-S's 54 and 108). Each source
+// includes it into its own translation unit.
 //
 // A block owns one channel slice of kSlice channels: lane l holds channels
 // 2l and 2l + 1 (a bf16x2 or a float2), so a warp reads one position's slice
@@ -184,21 +187,38 @@ struct Slots {
   uint32_t magic;  // div_magic(nx * the chunks of a slot)
 };
 
-template <typename T>
+// kBytes: the width of one copy (load_plane's), 16, 8 or 4.
+template <typename T, int kBytes = 16>
 __device__ __forceinline__ Slots make_slots(const int* ys, int ny, const int* xs, int nx) {
-  return Slots{ys, xs, ny, nx, div_magic(nx * (kSlice * (int)sizeof(T) / 16))};
+  return Slots{ys, xs, ny, nx, div_magic(nx * (kSlice * (int)sizeof(T) / kBytes))};
+}
+
+// kBytes global -> shared, asynchronously; a source size of 0 writes zeros.
+// 16 bytes bypass L1 (.cg); 8 and 4 may only go through it (.ca).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (kBytes == 16) {
+    hopper::cp_async_16(dst, src, valid);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(kBytes), "r"(valid ? kBytes : 0)
+                 : "memory");
+  }
 }
 
 // Copies one plane's slots (sl.ny x sl.nx; an edge tile reads fewer than
 // the plan holds room for) of the slice at channel ch0 into shared memory
-// at dst, `pitch` slots a row, by 16-byte cp.async: thread i of the block
-// takes the chunks i, i + kThreads, ..., so a warp writes 512 contiguous
-// bytes of a row. Chunks past C are not copied (no lane reads them); slots
-// outside the plane are zero-filled.
-template <typename T>
+// at dst, `pitch` slots a row, by kBytes-wide cp.async: thread i of the
+// block takes the chunks i, i + kThreads, ..., so a warp writes 32 * kBytes
+// contiguous bytes of a row. The caller's rows of C channels are whole
+// chunks (C * sizeof(T) % kBytes == 0) and its pointers kBytes-aligned.
+// Chunks past C are not copied (no lane reads them); slots outside the
+// plane are zero-filled.
+template <typename T, int kBytes = 16>
 __device__ __forceinline__ void load_plane(uint32_t dst, const T* plane, int C, const Slots& sl,
                                            int pitch, int ch0) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = kBytes / sizeof(T);
   constexpr int kChunks = kSlice / kVec;
   const int per_row = sl.nx * kChunks;
   const int n = sl.ny * per_row;
@@ -210,8 +230,8 @@ __device__ __forceinline__ void load_plane(uint32_t dst, const T* plane, int C, 
     if (c >= C) continue;
     const int y = sl.ys[jy], x = sl.xs[jx];
     const bool valid = (y | x) >= 0;
-    hopper::cp_async_16(dst + 16 * ((jy * pitch + jx) * kChunks + k),
-                        valid ? plane + (y + x) * C + c : plane, valid);
+    cp_async<kBytes>(dst + kBytes * ((jy * pitch + jx) * kChunks + k),
+                     valid ? plane + (y + x) * C + c : plane, valid);
   }
 }
 

@@ -206,6 +206,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * pointers + [ints, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # The tiled depthwise conv takes the token pool's int array too.
+    fn = lib.pvt_depthwise3x3x3_tiled
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ints, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.pvt_fused_kvpool_ln
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_int64,

@@ -338,8 +338,17 @@ def _tile_walk(plan: PoolTilePlan, B: int, extent_h: int, extent_w: int):
                 yield b, h0, w0, min(plan.tile_h, extent_h - h0), min(plan.tile_w, extent_w - w0)
 
 
-def _slice_channels(C: int, s: int) -> torch.Tensor:
-    return torch.arange(s * POOL_SLICE, min(C, (s + 1) * POOL_SLICE))
+def _slice_channels(C: int, s: int, copy_vec: Optional[int] = None) -> torch.Tensor:
+    """The channels of slice s. With ``copy_vec``, the channels its copies
+    bring in, each copy ``copy_vec`` channels from the slice's start, those
+    that start past C left out (load_plane's chunks): a copy that runs past
+    C fails to index, one short of it leaves the slice short."""
+    if copy_vec is None:
+        return torch.arange(s * POOL_SLICE, min(C, (s + 1) * POOL_SLICE))
+    assert POOL_SLICE % copy_vec == 0 and C % copy_vec == 0, (
+        f"rows of {C} channels are no whole number of {copy_vec}-channel copies")
+    starts = range(s * POOL_SLICE, (s + 1) * POOL_SLICE, copy_vec)
+    return torch.cat([torch.arange(c, c + copy_vec) for c in starts if c < C])
 
 
 def _fwd_slot(plan: PoolTilePlan, st: int, kt: int, t2: int, dt: int) -> int:
@@ -371,11 +380,14 @@ def _load_fwd_planes(ring: _Ring, plan, xb, rows, cols, ch, kernel_size, stride,
 
 
 def token_pool_tiled_torch(x: torch.Tensor, weight: Optional[torch.Tensor], kernel_size, stride,
-                           mode: str, plan: Optional[PoolTilePlan] = None) -> torch.Tensor:
+                           mode: str, plan: Optional[PoolTilePlan] = None,
+                           copy_vec: Optional[int] = None) -> torch.Tensor:
     """Plain replay of the tiled forward (tests only): for each slice and
     tile, :func:`pool_tile_plan`'s slots of each input plane through the
     ring, the taps read from slot o * step + d, max's padded taps left out by
-    their coordinates, in float32; returned in x's dtype."""
+    their coordinates, in float32; returned in x's dtype. ``copy_vec``: the
+    channels of one copy, where the replay checks the copies' chunks
+    (:func:`_slice_channels`)."""
     kernel_size, stride = _triple(kernel_size), _triple(stride)
     T2, H2, W2 = check_geometry(x.shape, kernel_size, stride)
     B, T, H, W, C = x.shape
@@ -384,7 +396,7 @@ def token_pool_tiled_torch(x: torch.Tensor, weight: Optional[torch.Tensor], kern
     xf = x.float()
     out = torch.empty((B, T2, H2, W2, C))
     for s in range(plan.slices):
-        ch = _slice_channels(C, s)
+        ch = _slice_channels(C, s, copy_vec)
         if mode == "conv":
             wt = weight.float().reshape(weight.shape[0], -1)[ch % weight.shape[0]]  # (c, taps)
         for b, h0, w0, nh, nw in _tile_walk(plan, B, H2, W2):

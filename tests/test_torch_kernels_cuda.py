@@ -16,6 +16,7 @@ from pytorchvideo_tpu_torch.accelerate import DepthwiseConv3x3x3BnAct
 from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
 from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
+from pytorchvideo_tpu_torch.ops import depthwise_conv as dc
 from pytorchvideo_tpu_torch.ops.depthwise_conv import (
     depthwise3x3x3_bn_swish,
     depthwise3x3x3_bn_swish_cuda,
@@ -86,6 +87,81 @@ def test_kernel_rejects_mixed_dtypes(cuda):
     x = torch.zeros(1, 2, 3, 3, 4, device=cuda)
     with pytest.raises(ValueError, match="must be torch.float32"):
         depthwise3x3x3_bn_swish(x, torch.zeros(3, 3, 3, 4, device=cuda, dtype=torch.bfloat16))
+
+
+def _depthwise_inputs(cuda, B, T, H, W, C, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, T, H, W, C, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(3, 3, 3, C, device=cuda, generator=g) * 0.2).to(dtype)
+    s = (torch.rand(C, device=cuda, generator=g) + 0.5).to(dtype)
+    b = (torch.randn(C, device=cuda, generator=g) * 0.1).to(dtype)
+    return x, w, s, b
+
+
+def _depthwise_ref(x, w, scale, bias, swish):
+    return depthwise3x3x3_bn_swish_torch(
+        x.float(), w.float(), None if scale is None else scale.float(),
+        None if bias is None else bias.float(), swish)
+
+
+# (T, H, W, C): X3D-S's four stage shapes, and two ragged grids (T = 2
+# under kt = 3; H and W off the tiles with C = 110, a 4-byte bf16 row).
+DEPTHWISE_GRIDS = [(T, S, S, C) for T, S, C in X3D_S_SHAPES] + [(2, 7, 9, 8), (5, 13, 11, 110)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", DEPTHWISE_GRIDS, ids=lambda g: "T%dH%dW%dC%d" % g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_depthwise_route_matches_plain(cuda, grid, dtype):
+    # At B2, swish and the affine each on and off: one launch each, on the
+    # tiled route.
+    T, H, W, C = grid
+    x, w, s, b = _depthwise_inputs(cuda, 2, T, H, W, C, dtype, seed=20)
+    assert dc.depthwise_route(dtype, C, dc._aligned(x)) == "tiled"
+    for swish in (False, True):
+        for scale, bias in ((None, None), (s, b), (None, b)):
+            out = _routed(depthwise3x3x3_bn_swish_cuda,
+                          lambda: depthwise3x3x3_bn_swish(x, w, scale, bias, swish), "tiled")
+            assert out.dtype == dtype and out.shape == x.shape
+            torch.testing.assert_close(out.float(), _depthwise_ref(x, w, scale, bias, swish),
+                                       **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", X3D_S_SHAPES, ids=lambda s: "T%dS%dC%d" % s)
+def test_forced_scalar_depthwise_matches_tiled(cuda, shape):
+    # The first version stays callable on the tiled route's inputs (the
+    # smoke run times it beside the tiled kernel), at B8 bf16.
+    T, S, C = shape
+    x, w, _, b = _depthwise_inputs(cuda, 8, T, S, S, C, torch.bfloat16, seed=21)
+    tiled = _routed(depthwise3x3x3_bn_swish_cuda,
+                    lambda: depthwise3x3x3_bn_swish_cuda(x, w, None, b, True), "tiled")
+    scalar = _routed(depthwise3x3x3_bn_swish_cuda,
+                     lambda: depthwise3x3x3_bn_swish_cuda(x, w, None, b, True, route="scalar"),
+                     "scalar")
+    ref = _depthwise_ref(x, w, None, b, True)
+    for out in (tiled, scalar):
+        torch.testing.assert_close(out.float(), ref, **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_depthwise_calls_off_the_tiled_route_take_scalar(cuda):
+    # A view one bf16 element off the 4-byte copy width of C = 54, an odd C,
+    # and float16 (which no route takes) go to the first version or raise;
+    # asking for tiled there raises.
+    x, w, s, b = _depthwise_inputs(cuda, 2, 4, 9, 9, 54, torch.bfloat16, seed=22)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    off = buf[1:].view(x.shape).copy_(x)
+    odd = _depthwise_inputs(cuda, 2, 4, 9, 9, 5, torch.bfloat16, seed=23)
+    for args in ((off, w, s, b), odd):
+        assert dc.depthwise_route(args[0].dtype, args[0].shape[-1], dc._aligned(args[0])) == "scalar"
+        out = _routed(depthwise3x3x3_bn_swish_cuda,
+                      lambda: depthwise3x3x3_bn_swish_cuda(*args, True), "scalar")
+        torch.testing.assert_close(out.float(), _depthwise_ref(*args, True), **TOL[torch.bfloat16])
+        with pytest.raises(ValueError, match="tiled route takes"):
+            depthwise3x3x3_bn_swish_cuda(*args, True, route="tiled")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        depthwise3x3x3_bn_swish_cuda(x.half(), w.half())
 
 
 # MViT-B 16x4 attention shapes (H*c, heads, Lq, Lk; Lk counts the cls row),
