@@ -41,7 +41,7 @@ PROFILED_BATCHES = (32, 1)
 PROFILED_FORWARDS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
-    ("fused pool-LN kernel", r"kvpool_ln_kernel"),
+    ("fused pool-LN kernel", r"kvpool_ln_(kernel|tiled)"),
     ("attention forward, tensor cores", r"pooled_attention_tc_kernel"),
     ("attention forward, split keys (partials, combine)", r"pooled_attention_(split|combine)_kernel"),
     ("attention forward, CUDA cores", r"pooled_attention_kernel"),

@@ -46,7 +46,7 @@ STEPS = 10
 PROFILED_STEPS = 3
 # Kernel groups by name, first match wins.
 KERNEL_GROUPS = [
-    ("fused pool-LN kernel", r"kvpool_ln_kernel"),
+    ("fused pool-LN kernel", r"kvpool_ln_(kernel|tiled)"),
     ("attention forward, tensor cores", r"pooled_attention_tc_kernel"),
     ("attention forward, split keys (partials, combine)", r"pooled_attention_(split|combine)_kernel"),
     ("attention forward, CUDA cores", r"pooled_attention_kernel"),

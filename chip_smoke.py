@@ -96,24 +96,31 @@ exits nonzero, printing no result, when a check fails or no card is present.
     block geometry, all of which pass ``fusable``, at B2 in f32 and bf16: the
     pooled k and v against the plain version in f32 on the same inputs, each
     attention against the plain attention over the kernel's own k and v (in
-    f32 also the whole op against the plain version). Then at B32 bf16 the
-    op, the unfused kernel path the layer otherwise runs (two conv pools,
-    LayerNorms, concatenations, two attention launches), a library
-    composition (``F.conv3d(groups=C)``, ``F.layer_norm``, SDPA) and the
-    plain version are timed per shape, with the bound.
+    f32 also the whole op against the plain version); every pool-LN launch
+    must take the tiled route. Then at B32 bf16 the op, the unfused kernel
+    path the layer otherwise runs (two conv pools, LayerNorms,
+    concatenations, two attention launches), a library composition
+    (``F.conv3d(groups=C)``, ``F.layer_norm``, SDPA) and the plain version
+    are timed per shape, with the bound; and the pool-LN launch alone on its
+    tiled route and on its scalar route (the first version), beside its
+    plain version, a library composition (``F.conv3d``, ``F.layer_norm``,
+    ``torch.cat``) and its own byte bound, both routes' outputs held against
+    the plain version. The tiled pool-LN time per B32 forward (16 launches)
+    must stay within half of the first version's (``POOL_LN_GATE_SHARE``).
 12. The per-head attention kernel at the four shapes of the benchmark-only
     TPU variant ``_pallas_nopad`` (benchmarks/mvit_micro.py:236-241, B16
     bf16, residual on) against ``pooled_attention_torch``, timed with SDPA
     and the first version.
 13. Fused serving: ``hub.mvit_base_16x4(fused_kvpool=True)`` with seeded
     random weights, deploy bf16, B1/B8/B32; per forward the counts rise by
-    16 (fused pool-LN), 32 (attention), 3 (conv pools: pool_q only) and 3
-    (max). Its logits at B4 (bf16 and f32 deploy) against the plain f32 model
-    and the bf16 ones against the unfused deploy form of the same weights;
-    the unfused form is served after it for clips/s side by side.
+    16 (fused pool-LN, all on its tiled route), 32 (attention), 3 (conv
+    pools: pool_q only) and 3 (max). Its logits at B4 (bf16 and f32 deploy,
+    each forward's pool-LN launches on the tiled route) against the plain
+    f32 model and the bf16 ones against the unfused deploy form of the same
+    weights; the unfused form is served after it for clips/s side by side.
 14. Fused training: the ``classification_mvit_16x4`` recipe with
     ``model.kwargs={"fused_kvpool": True}``: every parameter's gradient
-    through autograd, timed steps at B8 and B2 (per step 16 fused, 64
+    through autograd, timed steps at B8 and B2 (per step 16 fused (tiled), 64
     attention forwards (the backward recomputes), 32 attention backwards (16
     tensor-core, 16 split-key), 35
     conv pools with 35 dx and 35 dw, 3 max pools), and one B2 step's
@@ -291,11 +298,13 @@ MVIT_FUSED = [
 ]
 FUSED_BLOCKS = sum(n for *_, n in MVIT_FUSED)  # 16
 FUSED_EPS = 1e-6  # MViT's LayerNorm eps
-# Per forward with fused_kvpool: one pool-LN launch per block, the attention
-# for the grid and the cls query, the q pools of blocks 1, 3 and 14 (the k
-# and v pools go into the fused kernel), the skip max pools.
+# Per forward with fused_kvpool: one pool-LN launch per block (on the tiled
+# route, f32 and bf16: head width 96), the attention for the grid and the
+# cls query, the q pools of blocks 1, 3 and 14 (the k and v pools go into
+# the fused kernel), the skip max pools.
 FUSED_PER_FORWARD = tiled({
     "fused_kvpool_attention": FUSED_BLOCKS,
+    "fused_kvpool_attention.tiled": FUSED_BLOCKS,
     "pooled_attention_packed": 2 * FUSED_BLOCKS,
     "pooled_attention_packed.tensor_core": FUSED_BLOCKS,
     "pooled_attention_packed.split_key": FUSED_BLOCKS,
@@ -313,6 +322,10 @@ FUSED_PER_STEP = tiled({**FUSED_PER_FORWARD,
                   "pooled_attention_packed_bwd.split_key": FUSED_BLOCKS,
                   "token_pool_conv": CONV_POOLS, "token_pool_dx": CONV_POOLS,
                   "token_pool_dw": CONV_POOLS})
+# The tiled pool-LN launch of the fused op (#8's pool phase) per B32 bf16
+# forward against its first version (the scalar route on the same inputs),
+# both on cuda_time_ms: the run fails above this share.
+POOL_LN_GATE_SHARE = 0.5
 # The benchmark-only TPU variant `_pallas_nopad` (benchmarks/mvit_micro.py
 # :236-241): (label, B, heads, Lq, c, Lk), per-head, bf16, residual on.
 NOPAD_SHAPES = [("d0", 16, 1, 25089, 96, 393), ("d1", 16, 2, 6273, 96, 393),
@@ -1260,6 +1273,7 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     errs = {"float32": 0.0, "bfloat16": 0.0}
     bf16_end_to_end = 0.0
+    before = read_counts()
     for thw, HC, heads, stride, Lq, _ in MVIT_FUSED:
         assert fk.fusable(thw, HC, (3, 3, 3), stride, HC // heads), f"{thw} {stride} not fusable"
         for dtype in (torch.float32, torch.bfloat16):
@@ -1294,12 +1308,18 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
                         bf16_end_to_end = max(bf16_end_to_end,
                                               (got.float() - want).abs().max().item())
                 del outs, ref, k_full, v_full
+    checks = 2 * 2 * len(MVIT_FUSED)  # f32 and bf16, residual on and off
+    expected = {"fused_kvpool_attention": checks, "fused_kvpool_attention.tiled": checks,
+                "fused_kvpool_attention.scalar": 0}
+    moved = {name: read_counts()[name] - before[name] for name in expected}
+    assert moved == expected, f"fused kv-pool checks: launches {moved}, expected {expected}"
     print(f"fused kv-pool vs plain ({len(MVIT_FUSED)} geometries, residual on and off, cls query "
-          f"included): max |err| f32 {errs['float32']!r}, bf16 {errs['bfloat16']!r} (pooled k, v "
-          f"and each attention); bf16 whole op vs plain f32 {bf16_end_to_end!r}")
+          f"included, every pool-LN launch tiled): max |err| f32 {errs['float32']!r}, bf16 "
+          f"{errs['bfloat16']!r} (pooled k, v and each attention); bf16 whole op vs plain f32 "
+          f"{bf16_end_to_end!r}")
 
     B = MVIT_TIMING_BATCH
-    rows, timed_err = [], 0.0
+    rows, pool_ln_rows, timed_err = [], [], 0.0
     for thw, HC, heads, stride, Lq, calls in MVIT_FUSED:
         c = HC // heads
         scale = c**-0.5
@@ -1320,10 +1340,15 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
             ck, cv = norm(t["cls_k"], t["lnk"]), norm(t["cls_v"], t["lnv"])
             return fused_call(fk.fused_kvpool_attention_cuda, t, thw, heads, stride, False, ck, cv)
 
-        def pool_ln():
+        def pool_ln(route=None):
             return fk._pool_ln_cuda(t["k_grid"], t["v_grid"], t["wk"], t["wv"], t["lnk"],
                                     t["lnv"], cls_k, cls_v, thw, heads, (3, 3, 3), stride,
-                                    FUSED_EPS, pooled)
+                                    FUSED_EPS, pooled, route)[:2]
+
+        def pool_ln_plain():
+            return fk.pool_ln_torch(t["k_grid"], t["v_grid"], t["wk"], t["wv"], t["lnk"],
+                                    t["lnv"], cls_k, cls_v, thw, heads, (3, 3, 3), stride,
+                                    FUSED_EPS)
 
         def plain():
             ck, cv = norm(t["cls_k"], t["lnk"]), norm(t["cls_v"], t["lnv"])
@@ -1345,6 +1370,14 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
                     for qq in (t["q"], t["cls_q"])]
 
         w_full = [w.repeat(heads, 1, 1, 1, 1) for w in (w_k, w_v)]
+
+        def pool_ln_library():
+            # The pool-LN launch's function: F.conv3d(groups=C) on the
+            # channels-last grids, F.layer_norm, the normed cls rows in front.
+            return [torch.cat([cls, norm(F.conv3d(
+                t[f"{x}_grid"].view(B, *thw, HC).permute(0, 4, 1, 2, 3), w, stride=stride,
+                padding=1, groups=HC).permute(0, 2, 3, 4, 1).reshape(B, -1, HC), t[f"ln{x}"])],
+                dim=1) for x, w, cls in zip("kv", w_full, (cls_k, cls_v))]
 
         def library():
             # F.conv3d(groups=C) on the channels-last grids, F.layer_norm,
@@ -1368,11 +1401,41 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
         # The k and v buffers the pool-LN launch writes and the attention
         # reads back: their cost had each byte gone through HBM once each way.
         handover_ms = 2 * 2 * (2 * B * (Lk + 1) * HC) / PEAK_BYTES_PER_S * 1e3
-        row = {"shape": f"B{B} {thw} H*c {HC} heads {heads} s{stride} Lq {Lq} Lk {Lk + 1}",
-               "calls": calls, "bound_ms": bound, "bound_by": bound_by,
-               "handover_ms": handover_ms,
-               **time_turns({"plain_ms": plain, "ms": kernel, "pool_ln_ms": pool_ln,
-                             "unfused_ms": unfused, "library_ms": library}, iters=5)}
+        # The pool-LN launch alone: the k and v positions some output reads
+        # and the (1 + Lk) rows of each buffer, once in bf16, beside the taps
+        # and norms; 27 FMAs and ~8 LayerNorm operations per output at the
+        # CUDA cores' f32 peak.
+        ln_bound, ln_bound_by = bound_ms(
+            2 * B * Lk * HC * (2 * 27 + 8),
+            2 * (2 * B * reads * HC + 2 * B * (Lk + 1) * HC + 2 * 29 * c), PEAK_F32_FLOPS)
+        shape = f"B{B} {thw} H*c {HC} heads {heads} s{stride} Lq {Lq} Lk {Lk + 1}"
+        times = time_turns({"plain_ms": plain, "ms": kernel, "pool_ln_ms": pool_ln,
+                            "pool_ln_first_ms": lambda: pool_ln("scalar"),
+                            "pool_ln_plain_ms": pool_ln_plain,
+                            "pool_ln_library_ms": pool_ln_library,
+                            "unfused_ms": unfused, "library_ms": library}, iters=5)
+        row = {"shape": shape, "calls": calls, "bound_ms": bound, "bound_by": bound_by,
+               "handover_ms": handover_ms, **times}
+        # Both routes' buffers at the timed shape against the plain version in f32.
+        ref_ln = fk.pool_ln_torch(*(t[key].float() for key in ("k_grid", "v_grid", "wk", "wv",
+                                                                 "lnk", "lnv")),
+                                  cls_k.float(), cls_v.float(), thw, heads, (3, 3, 3), stride,
+                                  FUSED_EPS)
+        ln_err = 0.0
+        for route in fk.POOL_LN_ROUTES:
+            for got, want in zip(pool_ln(route), ref_ln):
+                torch.testing.assert_close(got.float(), want, **KERNEL_TOL["bfloat16"])
+                ln_err = max(ln_err, (got.float() - want).abs().max().item())
+        del ref_ln
+        pool_ln_rows.append({"shape": shape, "calls": calls, "route": "tiled",
+                             "bound_ms": ln_bound, "bound_by": ln_bound_by, "max_abs_err": ln_err,
+                             "ms": times["pool_ln_ms"], "first_ms": times["pool_ln_first_ms"],
+                             "plain_ms": times["pool_ln_plain_ms"],
+                             "library_ms": times["pool_ln_library_ms"]})
+        print(f"fused kv-pool pool-LN {shape} bf16: tiled {times['pool_ln_ms']!r} ms, first "
+              f"version (scalar) {times['pool_ln_first_ms']!r} ms, plain "
+              f"{times['pool_ln_plain_ms']!r} ms, library {times['pool_ln_library_ms']!r} ms, "
+              f"bound {ln_bound!r} ms ({ln_bound_by}); max |err| both routes {ln_err!r}")
         # The timed shape held against the plain version as above.
         outs = kernel()
         f32 = {key: v.float() for key, v in t.items()}
@@ -1391,8 +1454,16 @@ def check_fused_kvpool(fk, pa, tp) -> dict:
               f"{row['bound_ms']!r} ms ({row['bound_by']}); k/v handover at the HBM rate "
               f"{handover_ms!r} ms")
     torch.cuda.empty_cache()
+    new = sum(r["calls"] * r["ms"] for r in pool_ln_rows)
+    old = sum(r["calls"] * r["first_ms"] for r in pool_ln_rows)
+    ln_bound = sum(r["calls"] * r["bound_ms"] for r in pool_ln_rows)
+    print(f"fused kv-pool pool-LN per B{B} forward ({FUSED_BLOCKS} launches): tiled {new!r} ms "
+          f"against the first version's {old!r} ms, bound {ln_bound!r} ms; gate "
+          f"{POOL_LN_GATE_SHARE} x")
+    assert new <= POOL_LN_GATE_SHARE * old, (
+        f"pool-LN: {new} ms per forward, over {POOL_LN_GATE_SHARE} x the first version's {old} ms")
     return {"errs": errs, "bf16_end_to_end": bf16_end_to_end, "timed_err": timed_err,
-            "rows": rows}
+            "rows": rows, "pool_ln_rows": pool_ln_rows}
 
 
 def check_attention_nopad(pa) -> list:
@@ -1452,8 +1523,15 @@ def mvit_fused_slice(hub, convert_to_deployable_form, batches, seed: int) -> dic
     with torch.no_grad():
         with plain_kernels():
             ref = unfused(x).float()
-        got = {"float32": convert_to_deployable_form(model, dtype=None)(x).float(),
-               "bfloat16": deploy(x.bfloat16()).float()}
+        got = {}
+        # Each form's pool-LN launches on the tiled route, in f32 and bf16.
+        for name, form, xx, per_forward_counts in (
+                ("float32", convert_to_deployable_form(model, dtype=None), x,
+                 f32_routes(FUSED_PER_FORWARD)),
+                ("bfloat16", deploy, x.bfloat16(), FUSED_PER_FORWARD)):
+            reset_counts()
+            got[name] = form(xx).float()
+            check_path_counts(f"{label} deploy {name}", read_counts(), per_forward_counts, 1)
         unfused_bf16 = unfused_deploy(x.bfloat16()).float()
     check_logits(label, got, ref)
     diff = (got["bfloat16"] - unfused_bf16).abs().max().item()
@@ -1979,6 +2057,8 @@ def main() -> None:
         },
     ]
     fused_rows = fused_report["rows"]
+    pool_ln_rows = fused_report["pool_ln_rows"]
+    pool_ln_timing = per_forward(pool_ln_rows, extra=("first_ms",))
     entries += [
         {
             "name": "fused_kvpool_attention",
@@ -2010,6 +2090,27 @@ def main() -> None:
                              "unfused_peak_bytes": trained["rates"][B]["peak_bytes"]}
                          for B, r in fused_trained["rates"].items()},
             "per_shape": fused_rows,
+        },
+        {
+            "name": "fused_kvpool_ln",
+            "route": "cuda",
+            "source": "pytorchvideo_tpu_torch/csrc/fused_kvpool_attention.cu",
+            "replaces": "pytorchvideo_tpu/ops/fused_kvpool_attention.py:133",
+            "launches": fused["counts"]["fused_kvpool_attention.tiled"],
+            "launches_by_route": by_route(fused["counts"], "fused_kvpool_attention"),
+            "launches_train_by_route": by_route(fused_trained["counts"], "fused_kvpool_attention"),
+            "path": "the pool-LN launch of the fused op (#8's pool phase, `_pool_ln_plane`) on "
+                    "mvit_base_16x4(fused_kvpool=True) deploy bf16 16x224x224, B1/8/32",
+            "max_abs_err": max(r["max_abs_err"] for r in pool_ln_rows),
+            **pool_ln_timing,
+            "ms_by_route": by_route_ms(pool_ln_rows),
+            "first_version_ratio": pool_ln_timing["ms"] / pool_ln_timing["first_ms"],
+            "timing": "bf16, " + timing.format(MVIT_TIMING_BATCH) + " (16 blocks; k and v in "
+                      "one launch)" + scalar_first + "; bound: the k and v positions some output "
+                      "reads and the (1 + Lk) rows written, once in bf16 at the HBM rate, FMAs "
+                      "at the CUDA cores' f32 peak",
+            "library": "F.conv3d(groups=C) + F.layer_norm + torch.cat (k and v)",
+            "per_shape": pool_ln_rows,
         },
         {
             "name": "attention_nopad",

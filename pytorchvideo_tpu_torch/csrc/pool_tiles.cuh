@@ -1,7 +1,9 @@
 // Shared-memory tiles of a channels-last (B, T, H, W, C) grid for the
-// `tiled` kernels of the token pool (token_pool.cu, token_pool_bwd.cu) and of
-// the depthwise conv (depthwise_conv.cu), sm_90a (H100): the tile plan that
-// `pool_tile_plan` (ops/token_pool.py) picks, the slot maps of the rows and
+// `tiled` kernels of the token pool (token_pool.cu, token_pool_bwd.cu), of
+// the depthwise conv (depthwise_conv.cu) and of the fused kv-pool's pool-LN
+// (fused_kvpool_attention.cu), sm_90a (H100): the tile plan that
+// `pool_tile_plan` (ops/token_pool.py) or `pool_ln_tile_plan`
+// (ops/fused_kvpool_attention.py) picks, the slot maps of the rows and
 // columns a tile reads, and cp.async copies of one plane's slots, 16 bytes
 // wide unless the caller asks for 8 or 4 (rows of C channels that are no
 // whole number of 16-byte vectors, as X3D-S's 54 and 108). Each source
@@ -12,7 +14,10 @@
 // from shared memory without bank conflicts and stores it to device memory
 // in one 128-byte (bf16) or 256-byte (f32) run. A plane of the tile is
 // `rows x cols` slots of one slice each, slot (j, i) at element
-// (j * cols + i) * kSlice. Slot j of an axis holds input coordinate
+// (j * cols + i) * kSlice. The slot maps and the copy take the slice's
+// width as a template parameter, kSlice unless the caller gives another:
+// the pool-LN's slice is one head (c channels), so a warp holds a whole
+// head for its LayerNorm. Slot j of an axis holds input coordinate
 // base + (j / step) * s + j % step: with step = min(s, k), output o and tap
 // d read slot o * step + d, which is the contiguous range of the tile's
 // windows where they overlap (s < k) and only the k rows of each window,
@@ -71,13 +76,14 @@ inline Call make_call(const int* a) {
                    v[12], v[13]}};
 }
 
-inline bool plan_ok(const Plan& p) {
+// `width`: the channels of a slice (kSlice, or the pool-LN's head width).
+inline bool plan_ok(const Plan& p, int width = kSlice) {
   return p.tile_h > 0 && p.tile_w > 0 && p.tile_h <= kMaxTile && p.tile_w <= kMaxTile &&
          p.tiles_h > 0 && p.tiles_w > 0 && p.slices > 0 && p.rows > 0 && p.cols > 0 &&
          p.rows <= kMaxSlots && p.cols <= kMaxSlots && p.depth >= 1 && p.depth <= kMaxDepth &&
          (p.st == 1 || p.depth == 1) && p.row_step > 0 && p.col_step > 0 && p.ring > 0 &&
          p.blocks > 0 && p.smem_bytes > 0 && p.smem_bytes <= 232448 && p.st > 0 &&
-         p.sh > 0 && p.sw > 0 && p.C % 2 == 0 && (p.C + kSlice - 1) / kSlice == p.slices;
+         p.sh > 0 && p.sw > 0 && p.C % 2 == 0 && width > 0 && (p.C + width - 1) / width == p.slices;
 }
 
 // Raises the kernel's dynamic shared-memory limit to `bytes` where it is
@@ -187,10 +193,11 @@ struct Slots {
   uint32_t magic;  // div_magic(nx * the chunks of a slot)
 };
 
-// kBytes: the width of one copy (load_plane's), 16, 8 or 4.
-template <typename T, int kBytes = 16>
+// kBytes: the width of one copy (load_plane's), 16, 8 or 4; kWidth: the
+// channels of a slice (load_plane's).
+template <typename T, int kBytes = 16, int kWidth = kSlice>
 __device__ __forceinline__ Slots make_slots(const int* ys, int ny, const int* xs, int nx) {
-  return Slots{ys, xs, ny, nx, div_magic(nx * (kSlice * (int)sizeof(T) / kBytes))};
+  return Slots{ys, xs, ny, nx, div_magic(nx * (kWidth * (int)sizeof(T) / kBytes))};
 }
 
 // kBytes global -> shared, asynchronously; a source size of 0 writes zeros.
@@ -208,18 +215,18 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool val
 }
 
 // Copies one plane's slots (sl.ny x sl.nx; an edge tile reads fewer than
-// the plan holds room for) of the slice at channel ch0 into shared memory
-// at dst, `pitch` slots a row, by kBytes-wide cp.async: thread i of the
+// the plan holds room for) of the kWidth-channel slice at channel ch0 into
+// shared memory at dst, `pitch` slots a row, by kBytes-wide cp.async: thread i of the
 // block takes the chunks i, i + kThreads, ..., so a warp writes 32 * kBytes
 // contiguous bytes of a row. The caller's rows of C channels are whole
 // chunks (C * sizeof(T) % kBytes == 0) and its pointers kBytes-aligned.
 // Chunks past C are not copied (no lane reads them); slots outside the
 // plane are zero-filled.
-template <typename T, int kBytes = 16>
+template <typename T, int kBytes = 16, int kWidth = kSlice>
 __device__ __forceinline__ void load_plane(uint32_t dst, const T* plane, int C, const Slots& sl,
                                            int pitch, int ch0) {
   constexpr int kVec = kBytes / sizeof(T);
-  constexpr int kChunks = kSlice / kVec;
+  constexpr int kChunks = kWidth / kVec;
   const int per_row = sl.nx * kChunks;
   const int n = sl.ny * per_row;
   for (int i = threadIdx.x; i < n; i += kThreads) {

@@ -219,4 +219,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    # The tiled pool-LN takes the token pool's int array, its plan from
+    # pool_ln_tile_plan.
+    fn = lib.pvt_fused_kvpool_ln_tiled
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ints, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib

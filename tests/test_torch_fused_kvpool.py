@@ -6,7 +6,13 @@ against ``jax.grad`` through the JAX custom VJP; a ``MultiScaleBlock`` and a
 3-block MViT with ``fused_kvpool=True`` against the JAX ones under
 ``PVT_FUSED_KVPOOL=1``; the card's ``fusable`` gate against the TPU's. The
 same seeded numpy arrays go to both. The CUDA kernel is held against the plain
-version here on the card by tests/test_torch_kernels_cuda.py."""
+version here on the card by tests/test_torch_kernels_cuda.py.
+
+The pool-LN launch's tiled route is held here by its plan and its
+arithmetic: ``pool_ln_route``, ``pool_ln_tile_plan`` at every MViT-B 16x4 kv
+geometry (chip_smoke's MVIT_FUSED) at B1/B8/B32, and ``pool_ln_tiled_torch``,
+the replay of the tiled walk, against the port's plain pooled k and v and the
+JAX package's ``_pool_ln_xla``."""
 
 import numpy as np
 import pytest
@@ -22,7 +28,9 @@ from pytorchvideo_tpu_torch.layers import attention as port_attention
 from pytorchvideo_tpu_torch.layers.attention import MultiScaleBlock
 from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
 from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
+from pytorchvideo_tpu_torch.ops import token_pool as tp
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
+from chip_smoke import MVIT_FUSED, needed_positions
 from torch_port_helpers import (
     SMALL_MVIT,
     TOL,
@@ -266,3 +274,147 @@ def test_fused_kvpool_refuses_pool_first():
     with pytest.raises(ValueError, match="pool_first"):
         port_attention.MultiScaleAttention(32, 32, 2, kernel_kv=(3, 3, 3), stride_kv=(1, 2, 2),
                                            pool_first=True, fused_kvpool=True)
+
+
+# The replay against the plain version: f32 sums of 27 products in another
+# order, then a LayerNorm (tests/test_models_parity.py:24).
+REPLAY_TOL = dict(rtol=5e-3, atol=5e-4)
+# MViT-B 16x4's seven kv geometries (chip_smoke's MVIT_FUSED: H*c, heads and
+# stride as they are), on grids cut to T = 4 (the ring of 3 + 2 planes wraps)
+# and H, W that still give each stride at least two tiles along H2 or W2.
+REPLAY_GRIDS = [(4, 20, 20), (4, 20, 20), (4, 12, 16), (4, 10, 10), (4, 7, 9), (4, 6, 6),
+                (4, 5, 7)]
+REPLAY_CASES = [(grid, HC, heads, stride) for grid, (_, HC, heads, stride, _, _)
+                in zip(REPLAY_GRIDS, MVIT_FUSED)]
+
+
+def _pool_ln_arrays(B, thw, HC, heads, per_head, has_cls, seed):
+    """k and v grids, their taps and LayerNorm parameters (per head, (27, c)
+    and (2, c), or head-tiled, (27, H*c) and (2, H*c)) and cls rows, as numpy."""
+    rng = np.random.default_rng(seed)
+    Cw = HC // heads if per_head else HC
+    L = int(np.prod(thw))
+
+    def normal(*shape, scale=1.0, shift=0.0):
+        return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+
+    grids = [normal(B, L, HC) for _ in range(2)]
+    taps = [normal(27, Cw, scale=0.2) for _ in range(2)]
+    lns = [normal(2, Cw, scale=0.3, shift=1.0) for _ in range(2)]
+    cls = [normal(B, 1, HC) if has_cls else None for _ in range(2)]
+    return grids, taps, lns, cls
+
+
+@pytest.mark.parametrize("per_head", [True, False], ids=["Cw_c", "Cw_HC"])
+@pytest.mark.parametrize("has_cls", [True, False], ids=["cls", "no_cls"])
+@pytest.mark.parametrize("case", REPLAY_CASES, ids=lambda c: "x%s_hc%d_h%d_s%s" % c)
+def test_pool_ln_tiled_walk_matches_plain_and_jax(case, has_cls, per_head):
+    thw, HC, heads, stride = case
+    B = 2 if heads <= 2 else 1
+    grids, taps, lns, cls = _pool_ln_arrays(B, thw, HC, heads, per_head, has_cls, seed=8)
+    plan = fk.pool_ln_tile_plan(B, *thw, HC, heads, stride, torch.float32)
+    assert max(plan.tiles_h, plan.tiles_w) >= 2
+    c = HC // heads
+    q = np.random.default_rng(9).standard_normal((B, 3, HC)).astype(np.float32)
+    _, kp, vp = fk.fused_kvpool_attention_torch(
+        torch.from_numpy(q), *_torch(grids), *_torch(taps), *_torch(lns), *_torch(cls), thw,
+        heads, c**-0.5, True, (3, 3, 3), stride)
+    for grid, w, ln, cl, plain in zip(grids, taps, lns, cls, (kp, vp)):
+        got = fk.pool_ln_tiled_torch(torch.from_numpy(grid), torch.from_numpy(w),
+                                     torch.from_numpy(ln), None if cl is None else
+                                     torch.from_numpy(cl), thw, heads, stride, 1e-6, plan=plan)
+        assert got.shape == (B, has_cls + plain.shape[1], HC) and got.dtype == torch.float32
+        if has_cls:
+            assert torch.equal(got[:, :1], torch.from_numpy(cl))
+        pooled = got[:, has_cls:]
+        torch.testing.assert_close(pooled, plain, **REPLAY_TOL)
+        ref = jax_fk._pool_ln_xla(jnp.asarray(grid.reshape(B, *thw, HC)),
+                                  jnp.asarray(np.tile(w, (1, HC // w.shape[1]))),
+                                  jnp.asarray(np.tile(ln, (1, HC // ln.shape[1]))),
+                                  stride, (3, 3, 3), c, 1e-6)
+        np.testing.assert_allclose(pooled.numpy(), np.asarray(ref), **REPLAY_TOL)
+
+
+def _axis_cover(extent: int, tile: int, tiles: int):
+    """Each position of [0, extent) in exactly one tile of the axis."""
+    seen = [t * tile + i for t in range(tiles) for i in range(min(tile, extent - t * tile))]
+    assert sorted(seen) == list(range(extent))
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("geometry", MVIT_FUSED, ids=lambda g: "x%s_hc%d_h%d_s%s_q%d_n%d" % g)
+def test_pool_ln_tile_plan_at_mvit_geometries(geometry, B):
+    (T, H, W), HC, heads, stride, _, _ = geometry
+    c = HC // heads
+    out = tp.check_geometry((B, T, H, W, HC), (3, 3, 3), stride)
+    for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        plan = fk.pool_ln_tile_plan(B, T, H, W, HC, heads, stride, dtype)
+        assert plan.slices == heads and c in fk.POOL_LN_WIDTHS
+        # A head-wide slice a slot; the ring of 3 + depth planes and the
+        # head's f32 taps fit the budget.
+        assert plan.depth == fk.POOL_LN_DEPTH and plan.ring == 3 + plan.depth
+        assert plan.smem_bytes == plan.ring * plan.rows * plan.cols * c * itemsize + 27 * c * 4
+        assert plan.smem_bytes <= fk.POOL_LN_SMEM_BUDGET
+        assert plan.blocks == B * heads * plan.tiles_h * plan.tiles_w
+        assert max(plan.tile_h, plan.tile_w) <= tp.POOL_MAX_TILE
+        _axis_cover(out[1], plan.tile_h, plan.tiles_h)
+        _axis_cover(out[2], plan.tile_w, plan.tiles_w)
+        # Output o's tap d reads slot o * step + d, which holds its input
+        # coordinate; over all tiles, the slots in the grid are exactly the
+        # positions some output reads.
+        for D, s, n_out, tile, tiles, slots, step in (
+                (H, stride[1], out[1], plan.tile_h, plan.tiles_h, plan.rows, plan.row_step),
+                (W, stride[2], out[2], plan.tile_w, plan.tiles_w, plan.cols, plan.col_step)):
+            assert step == min(s, 3)
+            read = set()
+            for t in range(tiles):
+                n = min(tile, n_out - t * tile)
+                coords = tp.tile_slots(t * tile, n, 3, s, step)
+                assert len(coords) <= slots
+                for o in range(n):
+                    for d in range(3):
+                        assert coords[o * step + d] == (t * tile + o) * s - 1 + d
+                read |= {x for x in coords if 0 <= x < D}
+            assert len(read) == needed_positions(D, 3, s, n_out)
+
+
+def test_pool_ln_tiled_walk_reads_only_planes_its_ring_holds():
+    # One ring slot short, the copies ahead overwrite a plane that an output
+    # plane still reads, and the replay catches it.
+    thw, HC, heads, stride = (6, 5, 5), 64, 2, (1, 2, 2)
+    grids, taps, lns, _ = _pool_ln_arrays(1, thw, HC, heads, True, False, seed=10)
+    args = (torch.from_numpy(grids[0]), torch.from_numpy(taps[0]), torch.from_numpy(lns[0]), None,
+            thw, heads, stride)
+    plan = fk.pool_ln_tile_plan(1, *thw, HC, heads, stride, torch.float32)
+    fk.pool_ln_tiled_torch(*args, plan=plan)
+    with pytest.raises(AssertionError, match="ring slot"):
+        fk.pool_ln_tiled_torch(*args, plan=plan._replace(ring=plan.ring - 1))
+
+
+@pytest.mark.parametrize("dtype, c, aligned, kernel, stride, route", [
+    (torch.bfloat16, 96, True, (3, 3, 3), (1, 8, 8), "tiled"),
+    (torch.float32, 96, True, (3, 3, 3), (1, 1, 1), "tiled"),
+    (torch.bfloat16, 32, True, (3, 3, 3), (1, 2, 2), "tiled"),
+    (torch.bfloat16, 64, True, (3, 3, 3), (1, 4, 4), "tiled"),
+    (torch.float32, 128, True, (3, 3, 3), (1, 3, 2), "tiled"),
+    (torch.bfloat16, 40, True, (3, 3, 3), (1, 4, 4), "scalar"),  # not a kernel width
+    (torch.float32, 16, True, (3, 3, 3), (1, 4, 4), "scalar"),
+    (torch.float16, 96, True, (3, 3, 3), (1, 4, 4), "scalar"),
+    (torch.bfloat16, 96, False, (3, 3, 3), (1, 4, 4), "scalar"),
+    (torch.bfloat16, 96, True, (3, 3, 3), (2, 4, 4), "scalar"),  # T stride
+    (torch.bfloat16, 96, True, (1, 3, 3), (1, 4, 4), "scalar"),
+])
+def test_pool_ln_route(dtype, c, aligned, kernel, stride, route):
+    assert fk.pool_ln_route(dtype, c, aligned, kernel, stride) == route
+
+
+@pytest.mark.parametrize("dtype, c, aligned", [(torch.bfloat16, 40, True),
+                                               (torch.bfloat16, 96, False),
+                                               (torch.float16, 96, True)])
+def test_forcing_the_tiled_pool_ln_off_its_route_raises(dtype, c, aligned):
+    with pytest.raises(ValueError, match="tiled route takes"):
+        fk._choose(dtype, c, aligned, (3, 3, 3), (1, 2, 2), "tiled")
+    assert fk._choose(dtype, c, aligned, (3, 3, 3), (1, 2, 2), "scalar") == "scalar"
+    assert fk._choose(dtype, c, aligned, (3, 3, 3), (1, 2, 2), None) == "scalar"
+    with pytest.raises(ValueError, match="route must be one of"):
+        fk._choose(dtype, c, aligned, (3, 3, 3), (1, 2, 2), "fast")

@@ -807,20 +807,114 @@ def test_fused_kvpool_matches_plain(cuda, geometry, dtype):
 
 @pytest.mark.cuda
 def test_fused_kvpool_autograd_runs_the_kernels(cuda):
-    # Under autograd the forward is the pool-LN and attention kernels; the
-    # backward recomputes through the conv-pool and attention kernels and
-    # runs their backward kernels. Held against autograd of the plain version.
+    # Under autograd the forward is the pool-LN (on its tiled route) and
+    # attention kernels; the backward recomputes through the conv-pool and
+    # attention kernels and runs their backward kernels. Held against
+    # autograd of the plain version.
     inputs, cls_q, kw = _fused_inputs(cuda, FUSED_GEOMETRIES[1], torch.float32, seed=13)
     leaves = [t.requires_grad_() for t in (*inputs, cls_q)]
     wrappers = (fk.fused_kvpool_attention_cuda, pa.pooled_attention_packed_cuda,
                 pa.pooled_attention_packed_bwd_cuda, tp.depthwise_token_pool_cuda,
                 tp.depthwise_token_pool_dx_cuda, tp.depthwise_token_pool_dw_cuda)
     before = [f.launches for f in wrappers]
+    tiled = fk.fused_kvpool_attention_cuda.launches_by_route["tiled"]
     outs = fk.fused_kvpool_attention(*leaves[:9], **kw, cls_q=leaves[9])
     gys = [torch.randn_like(o) for o in outs]
     got = torch.autograd.grad(outs, leaves, gys)
     assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 4, 2, 2, 2, 2]
+    assert fk.fused_kvpool_attention_cuda.launches_by_route["tiled"] == tiled + 1
     ref = torch.autograd.grad(fk.fused_kvpool_attention_torch(*leaves[:9], **kw, cls_q=leaves[9]),
                               leaves, gys)
     for a, b in zip(got, ref):
         _close(a, b, **GRAD_TOL[torch.float32])
+
+
+# MViT-B 16x4's seven kv geometries at full size: (grid T, H, W), H*c, heads,
+# kv stride. B2, with and without the cls rows.
+POOL_LN_GEOMETRIES = [((8, 56, 56), 96, 1, (1, 8, 8)), ((8, 56, 56), 192, 2, (1, 4, 4)),
+                      ((8, 28, 28), 192, 2, (1, 4, 4)), ((8, 28, 28), 384, 4, (1, 2, 2)),
+                      ((8, 14, 14), 384, 4, (1, 2, 2)), ((8, 14, 14), 768, 8, (1, 1, 1)),
+                      ((8, 7, 7), 768, 8, (1, 1, 1))]
+# The tiled kernel's other head widths (32, 64, 128) on ragged grids, each
+# W step (3, 1, 2).
+POOL_LN_WIDTH_CASES = [((3, 10, 13), 64, 2, (1, 3, 3)), ((4, 9, 11), 128, 2, (1, 1, 1)),
+                       ((5, 12, 9), 256, 2, (1, 2, 2))]
+
+
+def _pool_ln_call(inputs, kw, pooled, route=None):
+    """The pool-LN launch alone: (k buffer, v buffer, route taken)."""
+    return fk._pool_ln_cuda(*inputs[1:9], kw["thw"], kw["num_heads"], kw["kernel"], kw["stride"],
+                            kw["eps"], pooled, route)
+
+
+def _pooled(kw):
+    return tuple(fk.pool_out(d, 3, s, 1) for d, s in zip(kw["thw"], kw["stride"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_cls", [True, False], ids=["cls", "no_cls"])
+@pytest.mark.parametrize("geometry", POOL_LN_GEOMETRIES + POOL_LN_WIDTH_CASES,
+                         ids=lambda g: "x%s_hc%d_h%d_s%s" % g)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_pool_ln_matches_plain(cuda, geometry, has_cls, dtype):
+    # The tiled route's k and v buffers (the cls row in front where given)
+    # against the plain version in f32 on the same inputs; the op's launch
+    # counted on the tiled route.
+    inputs, cls_q, kw = _fused_inputs(cuda, (*geometry, has_cls), dtype, seed=19)
+    k_full, v_full, route = _pool_ln_call(inputs, kw, _pooled(kw))
+    assert route == "tiled"
+    f32 = [None if t is None else t.float() for t in inputs]
+    ref = fk.pool_ln_torch(*f32[1:9], kw["thw"], kw["num_heads"], kw["kernel"], kw["stride"],
+                           kw["eps"])
+    for got, want in zip((k_full, v_full), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want, **POOL_TOL[dtype])
+    outs = _routed(fk.fused_kvpool_attention_cuda,
+                   lambda: fk.fused_kvpool_attention_cuda(*inputs, **kw, cls_q=cls_q), "tiled")
+    for got, want in zip(outs[1:3], (k_full, v_full)):
+        torch.testing.assert_close(got, want[:, has_cls:], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", POOL_LN_GEOMETRIES[::3], ids=lambda g: "x%s_hc%d_h%d_s%s" % g)
+def test_forced_scalar_pool_ln_matches_tiled(cuda, geometry):
+    # The first version stays callable on the tiled route's inputs (the
+    # smoke run times it beside the tiled kernel).
+    inputs, cls_q, kw = _fused_inputs(cuda, (*geometry, True), torch.bfloat16, seed=20)
+    tiled = _routed(fk.fused_kvpool_attention_cuda,
+                    lambda: fk.fused_kvpool_attention_cuda(*inputs, **kw, cls_q=cls_q), "tiled")
+    scalar = _routed(fk.fused_kvpool_attention_cuda, lambda: fk.fused_kvpool_attention_cuda(
+        *inputs, **kw, cls_q=cls_q, route="scalar"), "scalar")
+    for a, b in zip(tiled, scalar):
+        torch.testing.assert_close(a.float(), b.float(), **POOL_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_pool_ln_calls_off_the_tiled_route_take_scalar(cuda):
+    # A head width the tiled kernel does not instantiate (40), k and v grids
+    # one element off 16 bytes, and a T stride take the first version, held
+    # against the plain version; asking for tiled there raises.
+    def off_by_one(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        return buf[1:].view(t.shape).copy_(t)
+
+    cases = []
+    inputs, cls_q, kw = _fused_inputs(cuda, ((3, 10, 13), 80, 2, (1, 2, 2), True), torch.bfloat16,
+                                      seed=21)
+    cases.append((inputs, kw))
+    inputs, cls_q, kw = _fused_inputs(cuda, ((4, 9, 9), 128, 2, (1, 2, 2), False), torch.float32,
+                                      seed=22)
+    inputs[1], inputs[2] = off_by_one(inputs[1]), off_by_one(inputs[2])
+    cases.append((inputs, kw))
+    inputs, cls_q, kw = _fused_inputs(cuda, ((5, 9, 9), 192, 2, (2, 2, 2), True), torch.bfloat16,
+                                      seed=23)
+    cases.append((inputs, kw))
+    for inputs, kw in cases:
+        outs = _routed(fk.fused_kvpool_attention_cuda,
+                       lambda: fk.fused_kvpool_attention_cuda(*inputs, **kw), "scalar")
+        f32 = [None if t is None else t.float() for t in inputs]
+        ref = fk.fused_kvpool_attention_torch(*f32, **kw)
+        for got, want in zip(outs[1:3], ref[1:3]):
+            torch.testing.assert_close(got.float(), want, **POOL_TOL[inputs[0].dtype])
+        with pytest.raises(ValueError, match="tiled route takes"):
+            fk.fused_kvpool_attention_cuda(*inputs, **kw, route="tiled")
