@@ -17,6 +17,13 @@ the host clock read when the call returns (host ms: the time the host takes
 to enqueue the forward) and again after the card is synchronised (wall ms:
 the request's latency). Where host ms is close to wall ms, the card waits on
 the host. Prints and writes (``--out``) the median and the mean of each.
+Where the checkout registers the ``pvt::`` custom ops, it also times the
+host's cost of one attention launch at MViT-B's last cls query (B1, Lq 1,
+Lk 50, 8 heads of 96) called through its wrapper, as the eager forward
+calls it, and through ``torch.ops.pvt.pooled_attention_packed``, as a
+traced program calls it: the dispatch an eager forward would pay per
+kernel call if it went through the op; and the host's cost of the tracing
+test (``torch.compiler.is_compiling()``) each dispatcher makes per call.
 
 ``--summarize DIR`` reads the ``<pair>_parent.json`` and ``<pair>_change.json``
 files of alternating runs in DIR (no card needed) and prints, per form,
@@ -60,6 +67,37 @@ def summarize(run_dir: str) -> None:
                   f"change median {statistics.median(change)!r}; the change faster in {wins} "
                   f"pairs; parent {[round(t, 2) for t in parent]}, change "
                   f"{[round(t, 2) for t in change]}")
+
+
+def dispatch_us(calls: int = 500):
+    """Host us per attention launch through the wrapper and through the
+    custom op, and per tracing test (None where the checkout has no
+    ``pvt::`` ops); the faster of two runs each, in turns."""
+    import torch
+    from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+
+    if not hasattr(pa, "_packed_op"):
+        return None
+    q = torch.randn(1, 1, 768, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(1, 50, 768, device="cuda", dtype=torch.bfloat16)
+    scale = 96 ** -0.5
+    fns = {"wrapper": lambda: pa.pooled_attention_packed_cuda(q, k, k, 8, scale),
+           "op": lambda: torch.ops.pvt.pooled_attention_packed(q, k, k, 8, scale, False),
+           "tracing_test": torch.compiler.is_compiling}
+    runs = {name: [] for name in fns}
+    for name in ("wrapper", "op", "tracing_test", "tracing_test", "op", "wrapper"):
+        fns[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        runs[name].append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    out = {name: min(times) for name, times in runs.items()}
+    print(f"one cls-query attention launch, host us per call: through the wrapper "
+          f"{out['wrapper']!r}, through torch.ops.pvt {out['op']!r}; the tracing test "
+          f"{out['tracing_test']!r} us", flush=True)
+    return out
 
 
 def main() -> None:
@@ -115,6 +153,7 @@ def main() -> None:
                       f"{row['host_ms_median']!r} ms (mean {row['host_ms_mean']!r}), wall "
                       f"{row['wall_ms_median']!r} ms (mean {row['wall_ms_mean']!r}) per forward, "
                       f"median of {ITERS} on {card}", flush=True)
+        report["dispatch_us"] = dispatch_us()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -144,6 +144,27 @@ exits nonzero, printing no result, when a check fails or no card is present.
     ``slowfast_16x8_r101_50_50`` ([16, 64] x 224 x 224), in the f32 and the
     bf16 deploy form, are held against the plain f32 eval model (cuDNN, TF32
     off).
+17. Compiled serving and export: each deploy form phases 4-16 serve
+    (``x3d_s`` B1/B8/B128; ``mvit_base_16x4`` unfused and
+    ``fused_kvpool=True`` B1/B8/B32, ``pool_first=True`` B4;
+    ``slowfast_r50`` B1/B8/B64; ``csn_r101`` B1/B8), new seeded weights,
+    bf16: the first batch through ``convert_to_deployable_form(...,
+    example_input=x)``, the others as ``CompiledForward``s of the same
+    module in the same memory pool. Each capture (after its warm-up
+    forwards) launches the eager per-forward counts; replays launch no
+    wrapper; the replayed logits match the eager form's on the same input
+    (max |diff| within the bf16 logit bound, expected 0), and two replays of
+    different inputs return two different, unaliased tensors. Eager against
+    compiled per batch: clips/s (``cuda_time_ms``), host ms per forward (a
+    median of synchronised calls), the busy share (the union of the
+    device's activity in a ``torch.profiler`` trace of back-to-back calls,
+    over its span) and the peak memory above what was allocated before. Then
+    ``export_program`` of ``x3d_s``, both ``mvit_base_16x4`` forms and
+    ``csn_r101`` at B1, loaded back with ``torch.export.load``: one
+    ``pvt::`` node per eager kernel launch, the loaded program's run on
+    the card moving the counters by the eager per-forward counts, its
+    logits against the eager form's. Each model's graphs are freed before
+    the next model is built.
 
 Each phase from 15 on prints its seconds.
 
@@ -388,6 +409,30 @@ NOPAD_SHAPES = [("d0", 16, 1, 25089, 96, 393), ("d1", 16, 2, 6273, 96, 393),
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# Phase 17, compiled serving: (label, hub factory, its kwargs, clip, batches
+# served, kernel launches per forward) of every deploy form phases 4-16
+# serve, at their batches; the first four are also exported at B1.
+COMPILED_SERVED = [
+    ("x3d_s", "x3d_s", {"model_num_class": 400}, (13, 160, 160), BATCHES, X3D_PER_FORWARD),
+    ("mvit_base_16x4", "mvit_base_16x4", {}, MVIT_CLIP, MVIT_BATCHES, MVIT_PER_FORWARD),
+    ("mvit_base_16x4 fused_kvpool", "mvit_base_16x4", {"fused_kvpool": True}, MVIT_CLIP,
+     MVIT_BATCHES, FUSED_PER_FORWARD),
+    ("mvit_base_16x4 pool_first", "mvit_base_16x4", {"pool_first": True}, MVIT_CLIP,
+     (MVIT_CHECK_BATCH,), POOL_FIRST_PER_FORWARD),
+    ("slowfast_r50", "slowfast_r50", {}, RESNET_SERVED["slowfast_r50"][0],
+     RESNET_SERVED["slowfast_r50"][1], {}),
+    ("csn_r101", "csn_r101", {}, RESNET_SERVED["csn_r101"][0], RESNET_SERVED["csn_r101"][1],
+     CSN_PER_FORWARD),
+]
+EXPORTED = ("x3d_s", "mvit_base_16x4", "mvit_base_16x4 fused_kvpool", "csn_r101")
+# The pvt:: op of a counted wrapper, where its name differs: an exported
+# graph's nodes by op name are held against the eager launches by wrapper.
+PVT_OP = {"fused_kvpool_attention": "kvpool_ln"}
+# Host-clock samples of one served forward, each after a synchronise.
+HOST_SAMPLES = 3
+# Forwards the profiler traces for a form's busy share.
+PROFILED_CALLS = 2
 
 
 def nvidia_smi_line() -> str:
@@ -932,6 +977,222 @@ def resnet_slice(hub, convert_to_deployable_form) -> dict:
             convert_to_deployable_form, name, model, clip, 2, gen, {})}
         del model
         torch.cuda.empty_cache()
+    return report
+
+
+def host_ms(fn, samples: int = HOST_SAMPLES) -> float:
+    """Median host ms of ``fn()``: the card synchronised before each call,
+    the host clock read when it returns (the time to enqueue the forward)."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_busy(fn, calls: int = PROFILED_CALLS):
+    """(busy ms per call, busy share) of ``calls`` back-to-back ``fn()``s
+    traced by ``torch.profiler`` (device activity only): the union of the
+    device's kernel, copy and set intervals, per call and over the span
+    from the first one's start to the last one's end. A union, not a sum:
+    cuDNN's grouped convs run kernels side by side, and a graph's
+    independent branches overlap."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name)
+    assert spans, "the profiler saw no device activity"
+    busy, (start, end) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > end:
+            busy += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += end - start
+    return busy / 1000.0 / calls, busy / (max(b for _, b in spans) - spans[0][0])
+
+
+def compiled_model(hub, name: str, kwargs: dict, clip, gen):
+    """``hub.<name>(**kwargs)`` on the card with the seeded random weights
+    of its slice (``randomize_mvit_``, or ``randomize_`` with BN stats from a
+    B2 batch)."""
+    model = getattr(hub, name)(**kwargs)
+    assert all(p.is_cuda for p in model.parameters()), f"{name} built off the card"
+    if name.startswith("mvit"):
+        randomize_mvit_(model, gen)
+    else:
+        randomize_(model, gen, clips(2, clip, gen))
+    return model
+
+
+def serve_compiled(label: str, compiled, batch_index: int, B: int, clip, gen,
+                   per_forward_counts: dict, capture_peak: int) -> dict:
+    """One batch of phase 17: the eager deploy form (``compiled.module``)
+    and its captured graph ``compiled`` on the same inputs. Checks the
+    eager forward's launches, the replayed logits against the eager ones
+    (max |diff| within the bf16 logit bound), that two replays of different
+    inputs return two different, unaliased tensors and that replays launch
+    no wrapper; measures each form's clips/s (``cuda_time_ms``), host ms,
+    busy share (:func:`device_busy`) and peak memory above what was
+    allocated before (eager: one forward; compiled: ``capture_peak``, its
+    construction's, warm-up and capture; a replay allocates only its
+    output's clone)."""
+    import torch
+
+    eager = compiled.module
+    x = clips(B, clip, gen, torch.bfloat16)
+    x2 = clips(B, clip, gen, torch.bfloat16)
+    iters = 10 if batch_index == 0 else 3
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        ref = eager(x)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        check_path_counts(f"{label} B{B} eager", read_counts(), per_forward_counts, 1)
+        eager_ms = cuda_time_ms(lambda: eager(x), iters, warmup=1)
+        eager_host = host_ms(lambda: eager(x))
+        eager_busy = device_busy(lambda: eager(x))
+        ref2 = eager(x2)
+
+        reset_counts()
+        out = compiled(x)
+        keep = out.clone()
+        out2 = compiled(x2)
+        compiled_ms = cuda_time_ms(lambda: compiled(x), iters, warmup=1)
+        compiled_host = host_ms(lambda: compiled(x))
+        compiled_busy = device_busy(lambda: compiled(x))
+        assert not any(read_counts().values()), f"{label} B{B}: a replay launched a wrapper"
+    scale = ref.float().abs().max().item()
+    bound = LOGIT_REL_TOL["bfloat16"] * scale
+    err = max((out.float() - ref.float()).abs().max().item(),
+              (out2.float() - ref2.float()).abs().max().item())
+    assert out.shape == ref.shape and bool(out.float().isfinite().all()), f"{label}: bad logits"
+    assert err <= bound, f"{label} B{B}: replayed logits off the eager ones by {err} > {bound}"
+    assert out.data_ptr() != out2.data_ptr() and torch.equal(out, keep), (
+        f"{label} B{B}: the second replay overwrote the first one's logits")
+    assert not torch.equal(out, out2), f"{label} B{B}: two inputs, one output"
+    row = {
+        "batch": B, "max_abs_diff_vs_eager": err, "bound": bound,
+        "eager": {"ms": eager_ms, "clips_per_s": B * 1000.0 / eager_ms, "host_ms": eager_host,
+                  "busy_ms": eager_busy[0], "busy": eager_busy[1], "peak_bytes": eager_peak},
+        "compiled": {"ms": compiled_ms, "clips_per_s": B * 1000.0 / compiled_ms,
+                     "host_ms": compiled_host, "busy_ms": compiled_busy[0],
+                     "busy": compiled_busy[1], "peak_bytes": capture_peak},
+    }
+    e, c = row["eager"], row["compiled"]
+    print(f"{label} B{B} bf16 eager / compiled: {e['clips_per_s']!r} / {c['clips_per_s']!r} "
+          f"clips/s ({e['ms']!r} / {c['ms']!r} ms/forward), host {e['host_ms']!r} / "
+          f"{c['host_ms']!r} ms/forward, busy {e['busy']!r} / {c['busy']!r} ({e['busy_ms']!r} / "
+          f"{c['busy_ms']!r} ms/forward), peak {e['peak_bytes']} / {c['peak_bytes']} bytes; "
+          f"replayed logits vs eager max |diff| {err!r} (bound {bound!r})")
+    return row
+
+
+def exported_counts(program) -> dict:
+    """The ``pvt::`` nodes of an exported program, by op name."""
+    nodes = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and getattr(node.target, "namespace", None) == "pvt":
+            nodes[node.target._opname] = nodes.get(node.target._opname, 0) + 1
+    return nodes
+
+
+def check_export(label: str, deploy, clip, gen, per_forward_counts: dict) -> dict:
+    """``export_program`` of the bf16 deploy form at B1, loaded back: one
+    ``pvt::`` node per eager kernel launch; running it on the card moves the
+    wrappers' counters by the eager per-forward counts; its logits against
+    the eager form's (the bf16 logit bound)."""
+    import io
+
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import export_program
+
+    x = clips(1, clip, gen, torch.bfloat16)
+    t0 = time.perf_counter()
+    data = export_program(deploy, x)
+    program = torch.export.load(io.BytesIO(data))
+    seconds = time.perf_counter() - t0
+    launches = {name: n for name, n in per_forward_counts.items() if "." not in name}
+    nodes = exported_counts(program)
+    expected_nodes = {PVT_OP.get(name, name): n for name, n in launches.items()}
+    assert nodes == expected_nodes, (
+        f"{label} export: pvt:: nodes {nodes}, expected {expected_nodes}")
+    with torch.no_grad():
+        ref = deploy(x)
+        reset_counts()
+        out = program.module()(x)
+        check_path_counts(f"{label} loaded program", read_counts(), per_forward_counts, 1)
+    bound = LOGIT_REL_TOL["bfloat16"] * ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert out.shape == ref.shape and err <= bound, f"{label} export: logits off by {err} > {bound}"
+    print(f"{label} export_program B1: {len(data)} bytes, export + save + load {seconds:.1f} s; "
+          f"pvt:: nodes {nodes}; loaded program's logits vs eager max |diff| {err!r} "
+          f"(bound {bound!r})")
+    return {"bytes": len(data), "seconds": seconds, "nodes": nodes, "max_abs_diff_vs_eager": err}
+
+
+def compiled_slice(hub, convert_to_deployable_form) -> dict:
+    """Phase 17: every deploy form served compiled (``example_input``: one
+    CUDA graph per batch, the batches of one model in one memory pool)
+    beside its eager form, and four of them exported and loaded back."""
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import CompiledForward
+    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
+
+    gen = torch.Generator().manual_seed(17)
+    report = {}
+    for label, name, kwargs, clip, batches, per_forward_counts in COMPILED_SERVED:
+        model = compiled_model(hub, name, kwargs, clip, gen)
+        rows, compiled, pool_bytes = [], None, 0
+        for i, B in enumerate(batches):
+            x = clips(B, clip, gen, torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reserved, base = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+            reset_counts()
+            if compiled is None:
+                compiled = convert_to_deployable_form(model, dtype=torch.bfloat16,
+                                                      example_input=x)
+                del model
+                graphs = [compiled]
+            else:
+                graphs.append(CompiledForward(compiled.module, x, pool=compiled.pool))
+            torch.cuda.synchronize()
+            capture_peak = torch.cuda.max_memory_allocated() - base
+            pool_bytes += torch.cuda.memory_reserved() - reserved
+            check_path_counts(f"{label} B{B} capture", read_counts(), per_forward_counts,
+                              WARMUP_FORWARDS + 1, unit="forwards (warm-up and capture)")
+            rows.append(serve_compiled(label, graphs[-1], i, B, clip, gen, per_forward_counts,
+                                       capture_peak))
+        entry = {"rows": rows, "reserved_growth_bytes": pool_bytes}
+        print(f"{label}: {len(graphs)} graphs in one pool; the device memory reserved grew by "
+              f"{pool_bytes} bytes while they were built (the deploy copy, warm-up, capture)")
+        deploy = compiled.module
+        del graphs, compiled
+        torch.cuda.empty_cache()
+        if label in EXPORTED:
+            entry["export"] = check_export(label, deploy, clip, gen, per_forward_counts)
+        del deploy
+        torch.cuda.empty_cache()
+        report[label] = entry
     return report
 
 
@@ -2122,6 +2383,10 @@ def main() -> None:
     t_phase = time.perf_counter()
     resnets = resnet_slice(hub, convert_to_deployable_form)
     print(f"phase 16 (the ResNet family at full width): {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    compiled = compiled_slice(hub, convert_to_deployable_form)
+    print(f"phase 17 (compiled serving and export): {time.perf_counter() - t_phase:.1f} s")
+    print("compiled serving report: " + json.dumps(compiled))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

@@ -1,8 +1,9 @@
-"""Deployable form: the port's serving model.
+"""Deployable form: the port's serving model, its compiled serving and its export.
 
 Counterpart of pytorchvideo_tpu/accelerate/deploy.py
 ``convert_to_deployable_form``, which folds BN, casts to bf16 and AOT-compiles
-the JAX forward. Here the conversion rewrites a copy of the module tree:
+the JAX forward, and of its ``export_stablehlo``. Here the conversion
+rewrites a copy of the module tree:
 
 - every conv+BN pair is folded (accelerate/fuse.py);
 - each stride-1 depthwise 3x3x3 ``conv_b`` of a bottleneck whose BN folded
@@ -19,15 +20,27 @@ with weights in ``dtype``; its token pools and attention run on their
 kernels in every form (layers/attention.py). Folding the BatchNorm MViT
 (``fuse_bn_mvit`` of the JAX package) is not ported.
 
-The result runs eagerly; ``torch.compile`` and CUDA graphs are not used.
-It takes NCTHW input of ``dtype`` (SlowFast: a list ``[slow, fast]``, each
-cast by the caller).
+Without ``example_input`` the result is that module, run eagerly: it takes
+NCTHW input of ``dtype`` (SlowFast: a list ``[slow, fast]``, each cast by the
+caller). With ``example_input`` (on the card only) it is a
+:class:`CompiledForward`, the counterpart of the JAX package's AOT-compiled
+executable: the eager deploy module's forward captured once in a CUDA graph
+at that input's shape and dtype, which each call replays.
+
+:func:`export_program`, the counterpart of ``export_stablehlo``, serializes a
+deploy form with ``torch.export``. Every kernel call of the forward is one
+node of the ``pvt`` custom-op namespace in the program (the ops' dispatchers
+call ``torch.ops.pvt.*`` under tracing), so the loaded program launches the
+hand-written kernels on CUDA tensors and their plain versions on CPU tensors.
+Loading needs ``torch.export.load`` and an import of ``pytorchvideo_tpu_torch``,
+which registers the ops.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import io
+from typing import List, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -101,16 +114,133 @@ def _swap_in_kernel(block: BottleneckBlock) -> None:
         block.act_b = None
 
 
+Clip = Union[torch.Tensor, List[torch.Tensor]]
+# Eager forwards on a side stream before a capture: the first builds and
+# loads the kernels' library (nvcc), cuDNN and cuBLAS set up their handles,
+# algorithms and workspaces; none of that may happen inside a capture.
+WARMUP_FORWARDS = 2
+
+
+def _tensors(x: Clip) -> List[torch.Tensor]:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+class CompiledForward:
+    """A deploy module's forward captured in one ``torch.cuda.CUDAGraph`` at
+    one input's shape and dtype: the counterpart of the JAX package's
+    executable compiled for one input shape.
+
+    ``module`` is the eager deploy form (kept as ``.module``); ``example_input``
+    an NCTHW CUDA clip batch, or a list of them for SlowFast's pathways (one
+    static buffer each). The forward runs ``WARMUP_FORWARDS`` times eagerly on
+    a side stream, then is captured under ``torch.no_grad()`` in the memory pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``; default: a new one, kept
+    as ``.pool``). Graphs of one module at several batches share one pool
+    by passing it on: ``CompiledForward(c.module, x8, pool=c.pool)``; they
+    must not be replayed concurrently.
+
+    A call copies the input into the static buffers, replays the graph and
+    returns a clone of the static output, so no returned tensor is
+    overwritten by the next call. An input of another shape, dtype or device
+    (or another number of pathways) raises ValueError: nothing is captured
+    again, as the JAX executable rejects a mismatched argument.
+
+    The graph reads the parameters at their addresses: an in-place edit of
+    ``.module``'s parameters takes effect at the next replay, and rebinding
+    a parameter to a new tensor does not. The JAX package's baked weights,
+    and its guard against a foreign variables tree, have no counterpart.
+    The kernels' launch counters move while the forward is captured (and
+    warmed up), never on a replay, which runs no Python.
+    """
+
+    def __init__(self, module: nn.Module, example_input: Clip, pool=None):
+        inputs = _tensors(example_input)
+        device = inputs[0].device
+        _require_card(module, inputs)
+        self.module = module
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        self._as_list = isinstance(example_input, (list, tuple))
+        # Allocated before the capture, outside the graph's pool.
+        self._static_in = [t.detach().clone() for t in inputs]
+        arg = self._static_in if self._as_list else self._static_in[0]
+        with torch.cuda.device(device), torch.no_grad():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_FORWARDS):
+                    module(arg)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                out = module(arg)
+        if not isinstance(out, torch.Tensor):
+            raise ValueError(f"the deploy form must return one tensor, got {type(out).__name__}")
+        self._static_out = out
+
+    def __call__(self, x: Clip) -> torch.Tensor:
+        inputs = _tensors(x)
+        expected = [(t.shape, t.dtype, t.device) for t in self._static_in]
+        got = [(t.shape, t.dtype, t.device) for t in inputs]
+        if isinstance(x, (list, tuple)) != self._as_list or got != expected:
+            raise ValueError(f"this forward was captured for {_describe(expected)}, got "
+                             f"{_describe(got)}")
+        for static, t in zip(self._static_in, inputs):
+            static.copy_(t)
+        self.graph.replay()
+        return self._static_out.clone()
+
+
+def _describe(specs) -> str:
+    return ", ".join(f"{tuple(shape)} {dtype} on {device}" for shape, dtype, device in specs)
+
+
+def _require_card(module: nn.Module, inputs: List[torch.Tensor]) -> None:
+    """Compiled serving captures a CUDA graph: it needs the model and its
+    input on one CUDA device. There is no eager fallback."""
+    devices = {t.device for t in inputs} | {p.device for p in module.parameters()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"compiled serving (example_input) needs the card: the model and its input on one "
+            f"CUDA device, got {sorted(map(str, devices))}; on the CPU use the eager deploy form "
+            f"(no example_input) or export_program")
+
+
 def convert_to_deployable_form(
-    model: nn.Module, dtype: Optional[torch.dtype] = torch.bfloat16
-) -> nn.Module:
+    model: nn.Module, dtype: Optional[torch.dtype] = torch.bfloat16,
+    example_input: Optional[Clip] = None,
+) -> Union[nn.Module, CompiledForward]:
     """Returns the deploy form of ``model`` (which is left unchanged): BN
     folded, stride-1 depthwise 3x3x3 ``conv_b`` on the fused kernel, weights
     in ``dtype`` (``None`` keeps them), in eval mode. Call it on NCTHW input
-    of that dtype, on the device the model was moved to."""
+    of that dtype, on the device the model was moved to.
+
+    With ``example_input`` (a CUDA clip batch, or SlowFast's list of them,
+    cast to ``dtype``), returns that module's :class:`CompiledForward` at the
+    input's shape; a model or input off the card raises ValueError."""
+    if example_input is not None:
+        _require_card(model, _tensors(example_input))
     model = fold_conv_bn(copy.deepcopy(model).eval())
     for block in list(model.modules()):
         if (isinstance(block, BottleneckBlock) and _is_kernel_conv(block.conv_b)
                 and _folded_norm_b(block)):
             _swap_in_kernel(block)
-    return model if dtype is None else model.to(dtype)
+    if dtype is not None:
+        model = model.to(dtype)
+    if example_input is None:
+        return model
+    example = [t.to(dtype or t.dtype) for t in _tensors(example_input)]
+    return CompiledForward(model, example if isinstance(example_input, (list, tuple))
+                           else example[0])
+
+
+def export_program(model: nn.Module, example_input: Clip) -> bytes:
+    """Serializes ``model`` (a deploy form) for ``example_input``'s shapes:
+    ``torch.export.export`` under ``torch.no_grad()``, then
+    ``torch.export.save``. Each kernel call is one ``pvt::`` node, never its
+    plain version decomposed. Load with ``torch.export.load`` after importing
+    ``pytorchvideo_tpu_torch`` and call ``.module()`` of the result."""
+    with torch.no_grad():
+        program = torch.export.export(model, (example_input,))
+    buffer = io.BytesIO()
+    torch.export.save(program, buffer)
+    return buffer.getvalue()

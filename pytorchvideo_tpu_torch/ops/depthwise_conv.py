@@ -14,7 +14,11 @@ per-channel scale/bias, and the whole chain is one kernel.
   ``depthwise3x3x3_bn_swish_xla``.
 - :func:`depthwise3x3x3_bn_swish` dispatches on the device of ``x``: a CPU
   tensor takes the plain version, a CUDA tensor the kernel (or the kernel's
-  checks raise).
+  checks raise). Under tracing (``torch.export``, ``torch.compile``) it
+  calls the custom op ``torch.ops.pvt.depthwise3x3x3_bn_swish`` instead,
+  one graph node whose CUDA implementation is the kernel's wrapper and whose
+  CPU implementation is the plain version (contiguous, as the kernel's
+  output is).
 
 Every kernel call takes one of two routes, chosen before the launch by
 :func:`depthwise_route`; no route is tried after another fails:
@@ -209,6 +213,25 @@ def depthwise3x3x3_bn_swish(
     per-channel scale/bias epilogue (BN eval affine) and swish. Stride 1,
     'same' (pad 1): the output has x's shape. CPU tensors take the plain
     version; CUDA tensors take the kernel."""
+    if torch.compiler.is_compiling():
+        return torch.ops.pvt.depthwise3x3x3_bn_swish(x, w, scale, bias, apply_swish)
     if x.device.type == "cpu":
         return depthwise3x3x3_bn_swish_torch(x, w, scale, bias, apply_swish)
     return depthwise3x3x3_bn_swish_cuda(x, w, scale, bias, apply_swish)
+
+
+@torch.library.custom_op(
+    "pvt::depthwise3x3x3_bn_swish", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor? scale, Tensor? bias, bool apply_swish) -> Tensor")
+def _depthwise_op(x, w, scale, bias, apply_swish):
+    return depthwise3x3x3_bn_swish_torch(x, w, scale, bias, apply_swish).contiguous()
+
+
+@_depthwise_op.register_kernel("cuda")
+def _(x, w, scale, bias, apply_swish):
+    return depthwise3x3x3_bn_swish_cuda(x, w, scale, bias, apply_swish)
+
+
+@_depthwise_op.register_fake
+def _(x, w, scale, bias, apply_swish):
+    return x.new_empty(x.shape)

@@ -32,7 +32,11 @@ the cls query's output, which the JAX package computes outside the op.
   LayerNorm, the cls concatenation and ``pooled_attention_packed`` under
   autograd. On the card that backward runs the token-pool kernel and its dx
   and dw kernels, the attention kernel and its backward, and PyTorch's own
-  LayerNorm backward.
+  LayerNorm backward. Under tracing (``torch.export``, ``torch.compile``)
+  without autograd it calls one custom op per launch instead: the pool-LN
+  as ``torch.ops.pvt.kvpool_ln`` (the buffers, cls rows in front; CUDA:
+  :func:`kvpool_ln_cuda`, CPU: :func:`pool_ln_torch`), then
+  ``torch.ops.pvt.pooled_attention_packed`` for q and ``cls_q``.
 
 The pool-LN launch takes one of two routes, chosen before the launch by
 :func:`pool_ln_route`; no route is tried after another fails:
@@ -300,14 +304,16 @@ def _check_cuda(q, k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_head
     """The kernels take contiguous CUDA tensors of one dtype (float32 or
     bfloat16) on one device, in the shapes of the module docstring, with
     head_dim <= 128 and odd kernel sizes; raises ValueError on anything else.
-    Returns the pooled grid (T2, H2, W2)."""
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"q dtype must be float32 or bfloat16, got {q.dtype}")
-    if not q.is_cuda:
-        raise ValueError(f"q must be a CUDA tensor, got device {q.device}")
-    if q.dim() != 3:
-        raise ValueError(f"q must be (B, Lq, H*c), got {tuple(q.shape)}")
-    B, _, HC = q.shape
+    ``q`` None (the pool-LN launch alone): k_grid sets the dtype, device, B
+    and H*c. Returns the pooled grid (T2, H2, W2)."""
+    ref_name, ref = ("k_grid", k_grid) if q is None else ("q", q)
+    if ref.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{ref_name} dtype must be float32 or bfloat16, got {ref.dtype}")
+    if not ref.is_cuda:
+        raise ValueError(f"{ref_name} must be a CUDA tensor, got device {ref.device}")
+    if ref.dim() != 3:
+        raise ValueError(f"{ref_name} must be (B, L, H*c), got {tuple(ref.shape)}")
+    B, _, HC = ref.shape
     if HC % num_heads or not 1 <= HC // num_heads <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim = {HC} / {num_heads} heads must be a whole number in "
                          f"[1, {MAX_HEAD_DIM}]")
@@ -318,7 +324,8 @@ def _check_cuda(q, k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_head
         raise ValueError("give both cls_k and cls_v, or neither")
     Cw, L, taps = wk.shape[-1], math.prod(thw), math.prod(kernel)
     for name, t, shape in (
-        ("q", q, tuple(q.shape)), ("k_grid", k_grid, (B, L, HC)), ("v_grid", v_grid, (B, L, HC)),
+        ("q", q, None if q is None else tuple(q.shape)), ("k_grid", k_grid, (B, L, HC)),
+        ("v_grid", v_grid, (B, L, HC)),
         ("wk", wk, (taps, Cw)), ("wv", wv, (taps, Cw)), ("lnk", lnk, (2, Cw)),
         ("lnv", lnv, (2, Cw)), ("cls_k", cls_k, (B, 1, HC)), ("cls_v", cls_v, (B, 1, HC)),
         ("cls_q", cls_q, (B, 1, HC)),
@@ -327,8 +334,9 @@ def _check_cuda(q, k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_head
             continue
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {q.device}, got {t.dtype} on {t.device}")
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(
+                f"{name} must be {ref.dtype} on {ref.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if HC % Cw:
@@ -371,6 +379,23 @@ def _pool_ln_cuda(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads
     return k_full, v_full, route
 
 
+def _attend(attend, q, k_full, v_full, has_cls: bool, num_heads, scale, residual, cls_q):
+    """Head-packed attention (``attend``) of q, and of ``cls_q`` where given,
+    over the pool-LN's k and v buffers: (out, pooled k, pooled v[, cls out]),
+    the pooled grids views of the buffers."""
+    off = int(has_cls)
+    outs = (attend(q, k_full, v_full, num_heads, scale, residual), k_full[:, off:],
+            v_full[:, off:])
+    if cls_q is not None:
+        outs += (attend(cls_q, k_full, v_full, num_heads, scale, residual),)
+    return outs
+
+
+def _count(route: str) -> None:
+    fused_kvpool_attention_cuda.launches += 1
+    fused_kvpool_attention_cuda.launches_by_route[route] += 1
+
+
 def fused_kvpool_attention_cuda(
     q, k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, scale, residual, kernel,
     stride, eps=1e-6, *, cls_q=None, route=None,
@@ -386,14 +411,25 @@ def fused_kvpool_attention_cuda(
                          stride, cls_q)
     k_full, v_full, route = _pool_ln_cuda(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw,
                                           num_heads, kernel, stride, eps, pooled, route)
-    fused_kvpool_attention_cuda.launches += 1
-    fused_kvpool_attention_cuda.launches_by_route[route] += 1
-    off = 0 if cls_k is None else 1
-    outs = (pooled_attention_packed_cuda(q, k_full, v_full, num_heads, scale, residual),
-            k_full[:, off:], v_full[:, off:])
-    if cls_q is not None:
-        outs += (pooled_attention_packed_cuda(cls_q, k_full, v_full, num_heads, scale, residual),)
-    return outs
+    _count(route)
+    return _attend(pooled_attention_packed_cuda, q, k_full, v_full, cls_k is not None, num_heads,
+                   scale, residual, cls_q)
+
+
+def kvpool_ln_cuda(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel, stride,
+                   eps=1e-6):
+    """The pool-LN launch alone, on the route :func:`pool_ln_route` picks:
+    the (B, cls + Lk, H*c) k and v buffers, the cls rows (given or None) in
+    front (the CUDA implementation of ``torch.ops.pvt.kvpool_ln``). Checks
+    and raises as :func:`fused_kvpool_attention_cuda`, and counts its launch
+    there."""
+    thw, kernel, stride = tuple(thw), tuple(kernel), tuple(stride)
+    pooled = _check_cuda(None, k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads,
+                         kernel, stride, None)
+    k_full, v_full, route = _pool_ln_cuda(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw,
+                                          num_heads, kernel, stride, eps, pooled)
+    _count(route)
+    return k_full, v_full
 
 
 fused_kvpool_attention_cuda.launches = 0
@@ -446,5 +482,36 @@ def fused_kvpool_attention(
     args = (tuple(thw), num_heads, scale, residual, tuple(kernel), tuple(stride), eps)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return _FusedKVPoolAttention.apply(*inputs, args)
+    if torch.compiler.is_compiling():
+        k_full, v_full = torch.ops.pvt.kvpool_ln(
+            k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, list(thw), num_heads, list(kernel),
+            list(stride), float(eps))
+        return _attend(torch.ops.pvt.pooled_attention_packed, q, k_full, v_full,
+                       cls_k is not None, num_heads, float(scale), residual, cls_q)
     fn = fused_kvpool_attention_torch if q.device.type == "cpu" else fused_kvpool_attention_cuda
     return fn(*inputs[:9], *args, cls_q=cls_q)
+
+
+@torch.library.custom_op(
+    "pvt::kvpool_ln", mutates_args=(), device_types="cpu",
+    schema="(Tensor k_grid, Tensor v_grid, Tensor wk, Tensor wv, Tensor lnk, Tensor lnv, "
+           "Tensor? cls_k, Tensor? cls_v, int[] thw, int num_heads, int[] kernel, int[] stride, "
+           "float eps) -> (Tensor, Tensor)")
+def _kvpool_ln_op(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel, stride,
+                  eps):
+    return tuple(t.contiguous() for t in pool_ln_torch(
+        k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel, stride, eps))
+
+
+@_kvpool_ln_op.register_kernel("cuda")
+def _(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel, stride, eps):
+    return kvpool_ln_cuda(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel,
+                          stride, eps)
+
+
+@_kvpool_ln_op.register_fake
+def _(k_grid, v_grid, wk, wv, lnk, lnv, cls_k, cls_v, thw, num_heads, kernel, stride, eps):
+    rows = (cls_k is not None) + math.prod(
+        pool_out(d, k, s, k // 2) for d, k, s in zip(thw, kernel, stride))
+    shape = (k_grid.shape[0], rows, k_grid.shape[2])
+    return k_grid.new_empty(shape), k_grid.new_empty(shape)

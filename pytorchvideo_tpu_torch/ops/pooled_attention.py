@@ -38,6 +38,11 @@ the launch; no route is tried after another fails.
   for CUDA tensors (or the kernels' checks raise). Where autograd needs the
   gradient they go through a ``torch.autograd.Function`` whose forward and
   backward follow the same rule, so on the card the backward is the kernel.
+  Under tracing (``torch.export``, ``torch.compile``) without autograd, the
+  forward dispatchers call the custom ops ``torch.ops.pvt.pooled_attention_packed``
+  and ``torch.ops.pvt.pooled_attention`` instead: one graph node each, the
+  kernel's wrapper on CUDA tensors and the plain version (contiguous, as
+  the kernel's output is) on CPU tensors.
 
 Any Lq is taken, Lq = 1 included (MViT's cls query); the kernels take
 head_dim c <= 128.
@@ -567,6 +572,9 @@ def pooled_attention_packed(
     backward included where autograd needs it."""
     if _needs_grad(q, k, v):
         return _PackedAttention.apply(q, k, v, num_heads, scale, residual_pool)
+    if torch.compiler.is_compiling():
+        return torch.ops.pvt.pooled_attention_packed(q, k, v, num_heads, float(scale),
+                                                     residual_pool)
     if q.device.type == "cpu":
         return pooled_attention_packed_torch(q, k, v, num_heads, scale, residual_pool)
     return pooled_attention_packed_cuda(q, k, v, num_heads, scale, residual_pool)
@@ -580,9 +588,46 @@ def pooled_attention(
     backward included where autograd needs it."""
     if _needs_grad(q, k, v):
         return _PerHeadAttention.apply(q, k, v, scale, residual_pool)
+    if torch.compiler.is_compiling():
+        return torch.ops.pvt.pooled_attention(q, k, v, float(scale), residual_pool)
     if q.device.type == "cpu":
         return pooled_attention_torch(q, k, v, scale, residual_pool)
     return pooled_attention_cuda(q, k, v, scale, residual_pool)
+
+
+@torch.library.custom_op(
+    "pvt::pooled_attention_packed", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, int num_heads, float scale, bool residual_pool) "
+           "-> Tensor")
+def _packed_op(q, k, v, num_heads, scale, residual_pool):
+    return pooled_attention_packed_torch(q, k, v, num_heads, scale, residual_pool).contiguous()
+
+
+@_packed_op.register_kernel("cuda")
+def _(q, k, v, num_heads, scale, residual_pool):
+    return pooled_attention_packed_cuda(q, k, v, num_heads, scale, residual_pool)
+
+
+@_packed_op.register_fake
+def _(q, k, v, num_heads, scale, residual_pool):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op(
+    "pvt::pooled_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool residual_pool) -> Tensor")
+def _per_head_op(q, k, v, scale, residual_pool):
+    return pooled_attention_torch(q, k, v, scale, residual_pool).contiguous()
+
+
+@_per_head_op.register_kernel("cuda")
+def _(q, k, v, scale, residual_pool):
+    return pooled_attention_cuda(q, k, v, scale, residual_pool)
+
+
+@_per_head_op.register_fake
+def _(q, k, v, scale, residual_pool):
+    return q.new_empty(q.shape)
 
 
 def pooled_attention_packed_bwd(q, k, v, o, lse, g, num_heads: int, scale: float,

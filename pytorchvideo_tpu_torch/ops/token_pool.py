@@ -17,6 +17,11 @@ pool; all of them go through one kernel with a mode argument.
 - :func:`depthwise_token_pool`, :func:`max_token_pool` and
   :func:`avg_token_pool` dispatch on the device of ``x``: a CPU tensor takes
   the plain version, a CUDA tensor the kernel (or the kernel's checks raise).
+  Under tracing (``torch.export``, ``torch.compile``) without autograd they
+  call the custom ops ``torch.ops.pvt.token_pool_conv``, ``token_pool_max``
+  and ``token_pool_avg`` instead: one graph node each, the kernel's wrapper
+  on CUDA tensors and the plain version (contiguous, as the kernel's output
+  is) on CPU tensors.
 
 The conv pool's backward: :func:`depthwise_token_pool_dx_cuda` and
 :func:`depthwise_token_pool_dw_cuda` launch the hand-written kernels of
@@ -886,6 +891,8 @@ def depthwise_token_pool(x: torch.Tensor, weight: torch.Tensor, stride) -> torch
     kernels, the backward included where autograd needs it."""
     if _needs_grad(x, weight):
         return _ConvPool.apply(x, weight, _triple(stride))
+    if torch.compiler.is_compiling():
+        return torch.ops.pvt.token_pool_conv(x, weight, list(_triple(stride)))
     if x.device.type == "cpu":
         return depthwise_token_pool_torch(x, weight, stride)
     return depthwise_token_pool_cuda(x, weight, stride)
@@ -894,6 +901,8 @@ def depthwise_token_pool(x: torch.Tensor, weight: torch.Tensor, stride) -> torch
 def max_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
     """Max pool of x (B, T, H, W, C), padding k // 2 with -inf (MaxPool3d).
     CPU tensors take the plain version; CUDA tensors the kernel."""
+    if torch.compiler.is_compiling() and not _needs_grad(x):
+        return torch.ops.pvt.token_pool_max(x, list(_triple(kernel_size)), list(_triple(stride)))
     if x.device.type == "cpu":
         return max_token_pool_torch(x, kernel_size, stride)
     if _needs_grad(x):
@@ -904,8 +913,58 @@ def max_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
 def avg_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
     """Average pool of x (B, T, H, W, C), padding k // 2, count_include_pad.
     CPU tensors take the plain version; CUDA tensors the kernel."""
+    if torch.compiler.is_compiling() and not _needs_grad(x):
+        return torch.ops.pvt.token_pool_avg(x, list(_triple(kernel_size)), list(_triple(stride)))
     if x.device.type == "cpu":
         return avg_token_pool_torch(x, kernel_size, stride)
     if _needs_grad(x):
         return _KernelPool.apply(x, _triple(kernel_size), _triple(stride), "avg")
     return avg_token_pool_cuda(x, kernel_size, stride)
+
+
+def _pooled_like(x, kernel_size, stride):
+    """The fake (and the kernel's) output of a pool of x: contiguous."""
+    return x.new_empty(
+        (x.shape[0], *check_geometry(x.shape, tuple(kernel_size), tuple(stride)), x.shape[4]))
+
+
+@torch.library.custom_op("pvt::token_pool_conv", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, Tensor weight, int[] stride) -> Tensor")
+def _conv_pool_op(x, weight, stride):
+    return depthwise_token_pool_torch(x, weight, stride).contiguous()
+
+
+@_conv_pool_op.register_kernel("cuda")
+def _(x, weight, stride):
+    return depthwise_token_pool_cuda(x, weight, stride)
+
+
+@_conv_pool_op.register_fake
+def _(x, weight, stride):
+    return _pooled_like(x, weight.shape[2:], stride)
+
+
+@torch.library.custom_op("pvt::token_pool_max", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, int[] kernel_size, int[] stride) -> Tensor")
+def _max_pool_op(x, kernel_size, stride):
+    return max_token_pool_torch(x, kernel_size, stride).contiguous()
+
+
+@_max_pool_op.register_kernel("cuda")
+def _(x, kernel_size, stride):
+    return max_token_pool_cuda(x, kernel_size, stride)
+
+
+@torch.library.custom_op("pvt::token_pool_avg", mutates_args=(), device_types="cpu",
+                         schema="(Tensor x, int[] kernel_size, int[] stride) -> Tensor")
+def _avg_pool_op(x, kernel_size, stride):
+    return avg_token_pool_torch(x, kernel_size, stride).contiguous()
+
+
+@_avg_pool_op.register_kernel("cuda")
+def _(x, kernel_size, stride):
+    return avg_token_pool_cuda(x, kernel_size, stride)
+
+
+_max_pool_op.register_fake(_pooled_like)
+_avg_pool_op.register_fake(_pooled_like)

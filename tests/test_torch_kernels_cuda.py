@@ -958,3 +958,228 @@ def test_csn_deploy_runs_the_kernel_on_its_stride1_conv_b(cuda):
     assert wrapper.launches == before[0] + 13
     assert wrapper.launches_by_route["tiled"] == before[1]["tiled"] + 13
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# --- the serving kernels as pvt:: custom ops, compiled serving, export -------
+
+def _op_cases(cuda, dtype):
+    """(op, args) of every pvt:: op at MViT-B-like and X3D-S-like shapes the
+    kernels take (c 96, cls queries, ragged planes)."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device=cuda, generator=g) * scale).to(dtype)
+
+    s = 96 ** -0.5
+    ln = torch.stack([1 + r(96, scale=0.1), r(96, scale=0.1)])
+    ops = torch.ops.pvt
+    return {
+        "depthwise3x3x3_bn_swish": (ops.depthwise3x3x3_bn_swish, (
+            r(2, 3, 10, 12, 54), r(3, 3, 3, 54, scale=0.2), r(54), r(54), True)),
+        "depthwise3x3x3_bias_only": (ops.depthwise3x3x3_bn_swish, (
+            r(1, 4, 14, 14, 64), r(3, 3, 3, 64, scale=0.2), None, r(64), False)),
+        "pooled_attention_packed": (ops.pooled_attention_packed, (
+            r(2, 197, 192), r(2, 50, 192), r(2, 50, 192), 2, s, True)),
+        "pooled_attention_packed_cls": (ops.pooled_attention_packed, (
+            r(2, 1, 192), r(2, 50, 192), r(2, 50, 192), 2, s, True)),
+        "pooled_attention": (ops.pooled_attention, (
+            r(2, 2, 197, 96), r(2, 2, 50, 96), r(2, 2, 50, 96), s, True)),
+        "token_pool_conv": (ops.token_pool_conv, (
+            r(2, 4, 14, 14, 192), r(96, 1, 3, 3, 3, scale=0.2), [1, 2, 2])),
+        "token_pool_max": (ops.token_pool_max, (r(2, 4, 14, 14, 96), [1, 3, 3], [1, 2, 2])),
+        "token_pool_avg": (ops.token_pool_avg, (r(2, 4, 14, 14, 96), [3, 3, 3], [1, 2, 2])),
+        "kvpool_ln": (ops.kvpool_ln, (
+            r(2, 4 * 14 * 14, 192), r(2, 4 * 14 * 14, 192), r(27, 96, scale=0.2),
+            r(27, 96, scale=0.2), ln, ln.clone(), r(2, 1, 192), r(2, 1, 192), [4, 14, 14], 2,
+            [3, 3, 3], [1, 2, 2], 1e-6)),
+    }
+
+
+OP_NAMES = ["depthwise3x3x3_bn_swish", "depthwise3x3x3_bias_only", "pooled_attention_packed",
+            "pooled_attention_packed_cls", "pooled_attention", "token_pool_conv",
+            "token_pool_max", "token_pool_avg", "kvpool_ln"]
+
+
+# The wrapper behind each pvt:: op, whose counter its CUDA implementation moves.
+SERVING_WRAPPERS = {"depthwise3x3x3_bn_swish": depthwise3x3x3_bn_swish_cuda,
+                    "pooled_attention_packed": pa.pooled_attention_packed_cuda,
+                    "pooled_attention": pa.pooled_attention_cuda,
+                    "token_pool_conv": tp.depthwise_token_pool_cuda,
+                    "token_pool_max": tp.max_token_pool_cuda,
+                    "token_pool_avg": tp.avg_token_pool_cuda,
+                    "kvpool_ln": fk.fused_kvpool_attention_cuda}
+
+
+def _counts() -> dict:
+    return {name: w.launches for name, w in SERVING_WRAPPERS.items()}
+
+
+def _moved(before: dict) -> dict:
+    return {name: n - before[name] for name, n in _counts().items() if n != before[name]}
+
+
+def _launches() -> int:
+    """The serving wrappers' launches, summed."""
+    return sum(_counts().values())
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_opcheck_on_the_card(cuda, name, dtype):
+    # The fake against the kernel's real shape, dtype and strides; the op
+    # launches its kernel once a call and agrees with the plain version.
+    op, args = _op_cases(cuda, dtype)[name]
+    torch.library.opcheck(op.default, args)
+    before = _launches()
+    out = _outputs(op(*args))
+    assert _launches() == before + 1
+    # The plain version (the op's CPU implementation) on the same inputs in f32.
+    ref = _outputs(op(*[a.float().cpu() if isinstance(a, torch.Tensor) else a for a in args]))
+    tol = (TOL if name.startswith("depthwise") else
+           POOL_TOL if name.startswith(("token", "kvpool")) else ATTN_TOL)[dtype]
+    for got, want in zip(out, ref):
+        assert got.is_contiguous() and got.dtype == dtype
+        torch.testing.assert_close(got.float().cpu(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_op_replays_in_a_cuda_graph(cuda, name, dtype):
+    # Captured alone, replayed on new input values: bit-identical to the
+    # eager call on them; a replay runs no wrapper, so no counter moves.
+    op, args = _op_cases(cuda, dtype)[name]
+    op(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = _outputs(op(*args))
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            a.copy_(a.roll(1, -1))
+    before = _launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _launches() == before
+    for got, want in zip(static, _outputs(op(*args))):
+        assert torch.equal(got, want)
+
+
+def _small_x3d(cuda):
+    from pytorchvideo_tpu_torch.models.x3d import create_x3d
+
+    torch.manual_seed(31)
+    return create_x3d(input_clip_length=4, input_crop_size=64, model_num_class=10,
+                      device=cuda).eval()
+
+
+@pytest.mark.cuda
+def test_compiled_forward_replays_the_eager_deploy_form(cuda):
+    from pytorchvideo_tpu_torch.accelerate import CompiledForward, convert_to_deployable_form
+
+    x = torch.randn(2, 3, 4, 64, 64, device=cuda)
+    compiled = convert_to_deployable_form(_small_x3d(cuda), example_input=x)
+    assert isinstance(compiled, CompiledForward)
+    x1, x2 = x.bfloat16(), torch.randn_like(x).bfloat16()
+    before = depthwise3x3x3_bn_swish_cuda.launches
+    out1 = compiled(x1)
+    keep = out1.clone()
+    out2 = compiled(x2)
+    assert depthwise3x3x3_bn_swish_cuda.launches == before  # replays run no wrapper
+    with torch.no_grad():
+        assert torch.equal(out1, compiled.module(x1)) and torch.equal(out2, compiled.module(x2))
+    # A fresh tensor each call: the second call left the first one as it was.
+    assert out1.data_ptr() != out2.data_ptr() and torch.equal(out1, keep)
+    assert not torch.equal(out1, out2)
+    # A second batch in the same pool, replayed in turns with the first.
+    x4 = torch.randn(4, 3, 4, 64, 64, device=cuda).bfloat16()
+    compiled4 = CompiledForward(compiled.module, x4, pool=compiled.pool)
+    for _ in range(2):
+        with torch.no_grad():
+            assert torch.equal(compiled4(x4), compiled.module(x4))
+            assert torch.equal(compiled(x1), compiled.module(x1))
+
+
+@pytest.mark.cuda
+def test_compiled_forward_refuses_other_inputs(cuda):
+    from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form
+
+    x = torch.randn(2, 3, 4, 64, 64, device=cuda)
+    compiled = convert_to_deployable_form(_small_x3d(cuda), example_input=x)
+    for bad in (x[:1].bfloat16(), x, x.bfloat16().cpu(), [x.bfloat16()]):
+        with pytest.raises(ValueError, match="captured for"):
+            compiled(bad)
+    with pytest.raises(ValueError, match="needs the card"):
+        convert_to_deployable_form(_small_x3d(cuda).cpu(), example_input=x)
+
+
+@pytest.mark.cuda
+def test_compiled_forward_takes_slowfast_pathways(cuda):
+    from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form
+    from pytorchvideo_tpu_torch.models import hub
+
+    torch.manual_seed(32)
+    model = hub.slowfast_r50(stage_depths=(1, 1, 1, 1), model_num_class=7, dropout_rate=0.0,
+                             head_pool_kernel_sizes=((4, 1, 1), (16, 1, 1)), device=cuda).eval()
+    x = [torch.randn(2, 3, 4, 32, 32, device=cuda), torch.randn(2, 3, 16, 32, 32, device=cuda)]
+    compiled = convert_to_deployable_form(model, example_input=x)
+    xb = [p.bfloat16() for p in x]
+    with torch.no_grad():
+        assert torch.equal(compiled(xb), compiled.module(xb))
+    for bad in (xb[0], xb[::-1], xb[:1]):
+        with pytest.raises(ValueError, match="captured for"):
+            compiled(bad)
+
+
+def _small_mvit(cuda, **kwargs):
+    from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
+
+    torch.manual_seed(33)
+    return create_multiscale_vision_transformers(
+        spatial_size=32, temporal_size=4, depth=3, num_heads=2, patch_embed_dim=64,
+        embed_dim_mul=[[1, 2.0]], atten_head_mul=[[1, 2.0]], pool_q_stride_size=[[1, 1, 2, 2]],
+        pool_kv_stride_adaptive=[1, 2, 2], pool_kvq_kernel=[3, 3, 3], head_num_classes=7,
+        device=cuda, **kwargs).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["unfused", "pool_first", "fused_kvpool"])
+def test_small_mvit_compiled_and_exported_on_the_card(cuda, form):
+    # The capture launches what an eager forward does (after the warm-up's
+    # forwards); the exported program holds one pvt:: node per launch, and
+    # running it launches each on the card.
+    import io
+
+    from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form, export_program
+    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
+
+    kwargs = {"unfused": {}, "pool_first": {"pool_first": True},
+              "fused_kvpool": {"fused_kvpool": True}}[form]
+    model = _small_mvit(cuda, **kwargs)
+    deploy = convert_to_deployable_form(model)
+    x = torch.randn(2, 3, 4, 32, 32, device=cuda).bfloat16()
+    before = _counts()
+    with torch.no_grad():
+        eager = deploy(x)
+    per_forward = _moved(before)
+    assert per_forward
+    before = _counts()
+    compiled = convert_to_deployable_form(model, example_input=x)
+    assert _moved(before) == {k: n * (WARMUP_FORWARDS + 1) for k, n in per_forward.items()}
+    assert torch.equal(compiled(x), eager)
+
+    program = torch.export.load(io.BytesIO(export_program(deploy, x)))
+    nodes = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and getattr(node.target, "namespace", None) == "pvt":
+            nodes[node.target._opname] = nodes.get(node.target._opname, 0) + 1
+    assert nodes == per_forward
+    before = _counts()
+    with torch.no_grad():
+        out = program.module()(x)
+    assert _moved(before) == per_forward
+    torch.testing.assert_close(out.float(), eager.float(), atol=1e-2, rtol=2**-7)
