@@ -2,24 +2,61 @@
 
 Counterpart of pytorchvideo_tpu/layers/norms.py. The JAX package wraps flax
 BatchNorm so that every norm is called as ``norm(x, train=...)``; in PyTorch
-the mode rides on the module (``model.eval()``), so ``BatchNorm`` is
-``nn.BatchNorm3d`` itself, with torch's defaults (eps 1e-5, momentum 0.1).
+the mode rides on the module (``model.eval()``). ``BatchNorm`` is an
+``nn.BatchNorm3d`` (the same ``state_dict`` keys and eval path, torch's
+defaults eps 1e-5 and momentum 0.1) whose train mode follows flax's
+``nn.BatchNorm``, which the JAX package wraps.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import torch
 import torch.nn as nn
 
-BatchNorm = nn.BatchNorm3d
 LayerNorm = nn.LayerNorm
+
+
+class BatchNorm(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with flax's train-mode semantics.
+
+    In train mode the batch mean and the biased batch variance are taken in
+    float32 whatever the input's dtype; the input is normalised in float32
+    and returned in its own dtype; the weight and bias may be of another
+    dtype than the float32 running buffers (bf16 copies under a compute
+    dtype); and the running stats move by ``momentum`` towards the batch
+    mean and the *biased* variance (flax's decay is ``1 - momentum``), where
+    ``nn.BatchNorm3d`` takes the unbiased one. ``momentum=None`` averages
+    cumulatively, as in torch. Eval mode is ``nn.BatchNorm3d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        # Affine parameters in float32 at least: for a bf16 input the native
+        # op then keeps the batch stats in float32 (with bf16 ones it rounds
+        # them to bf16).
+        acc = torch.promote_types(x.dtype, torch.float32)
+        weight = None if self.weight is None else self.weight.to(acc)
+        bias = None if self.bias is None else self.bias.to(acc)
+        out, mean, invstd = torch.ops.aten._native_batch_norm_legit(
+            x, weight, bias, True, 0.0, self.eps)
+        if self.running_mean is not None:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                          else self.momentum)
+                self.running_mean.lerp_(mean, factor)
+                self.running_var.lerp_(invstd.pow(-2) - self.eps, factor)
+        return out
 
 
 def make_norm(
     norm: Optional[Callable], num_features: int, eps: float = 1e-5, momentum: float = 0.1
 ) -> Optional[nn.Module]:
-    """Instantiate an injected norm factory (e.g. ``nn.BatchNorm3d``), or None."""
+    """Instantiate an injected norm factory (e.g. ``BatchNorm``), or None."""
     if norm is None:
         return None
     return norm(num_features=num_features, eps=eps, momentum=momentum)

@@ -1,6 +1,6 @@
-"""DropPath (stochastic depth) and Swish (counterpart of
-pytorchvideo_tpu/layers/stochastic.py; upstream layers/drop_path.py and
-layers/swish.py).
+"""DropPath (stochastic depth), the heads' Dropout and Swish (counterpart of
+pytorchvideo_tpu/layers/stochastic.py and of flax's ``nn.Dropout`` in the
+JAX package's heads; upstream layers/drop_path.py and layers/swish.py).
 
 The JAX package draws its masks from a ``jax.random`` key; here they come
 from an explicit ``torch.Generator`` on the tensor's device, or from torch's
@@ -68,6 +68,33 @@ class DropPath(nn.Module):
         if not self.training:
             return x
         return drop_path(x, self.rate, self.generator)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Element-wise dropout as flax's ``nn.Dropout``: each value is kept with
+    probability keep = 1 - rate and then divided by keep, else set to 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, 0.0)
+
+
+class Dropout(nn.Module):
+    """Dropout active only in training mode, its masks from ``generator``
+    (optional) as :class:`DropPath`'s."""
+
+    def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, self.generator)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

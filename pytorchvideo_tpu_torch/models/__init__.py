@@ -39,6 +39,11 @@ from pytorchvideo_tpu_torch.models.vision_transformers import (  # noqa: F401
     MultiscaleVisionTransformers,
     create_multiscale_vision_transformers,
 )
+from pytorchvideo_tpu_torch.models.weight_init import (  # noqa: F401
+    init_net_weights,
+    init_resnet_weights,
+    init_vit_weights,
+)
 from pytorchvideo_tpu_torch.models.x3d import (  # noqa: F401
     ProjectedPool,
     create_x3d,

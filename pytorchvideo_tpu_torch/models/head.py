@@ -13,6 +13,7 @@ import torch.nn as nn
 from pytorchvideo_tpu_torch.layers.common import adaptive_avg_pool3d_to_1
 from pytorchvideo_tpu_torch.layers.norms import make_act
 from pytorchvideo_tpu_torch.layers.pooling import AdaptiveAvgPool3d, AvgPool3d
+from pytorchvideo_tpu_torch.layers.stochastic import Dropout
 
 
 def make_head_act(activation: Optional[Callable]) -> Optional[Callable]:
@@ -37,7 +38,7 @@ class ResNetBasicHead(nn.Module):
     ):
         super().__init__()
         self.pool = pool
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
         self.proj = proj
         self.activation = activation
         self.output_with_global_average = output_with_global_average
@@ -113,7 +114,7 @@ class VisionTransformerBasicHead(nn.Module):
     ):
         super().__init__()
         self.sequence_pool = sequence_pool
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
         self.proj = proj
         self.activation = activation
 

@@ -1,7 +1,11 @@
 """Training of the port (counterpart of pytorchvideo_tpu/train): the train
-step with its mixed-precision policy, optimizer groups, LR schedules,
-configs and presets, and the classification train app. So far it trains
-MViT; see train/app.py for what waits."""
+and eval steps with their mixed-precision policy, optimizer groups, LR
+schedules, precise BN, metrics, configs and presets, and the
+classification train app with its test and predict passes. It trains the
+BatchNorm models (X3D, Slow, SlowFast and the other ResNet builders; the
+recipes ``classification_x3d_xs``, ``classification_slow_8x8_r50`` and
+``classification_slowfast_8x8_r50``) and MViT (``classification_mvit_16x4``);
+see train/app.py for what waits."""
 
 from pytorchvideo_tpu_torch.train.app import VideoClassificationTrainApp  # noqa: F401
 from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
@@ -13,6 +17,12 @@ from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
     save_config,
 )
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger  # noqa: F401
+from pytorchvideo_tpu_torch.train.metrics import (  # noqa: F401
+    average_precision,
+    mean_average_precision,
+    top1_top5,
+    topk_accuracy,
+)
 from pytorchvideo_tpu_torch.train.lr_policy import (  # noqa: F401
     LRSchedulerConfig,
     get_lr_at_epoch,
@@ -23,11 +33,17 @@ from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
     lr_schedule_from_config,
     param_labels,
 )
+from pytorchvideo_tpu_torch.train.precise_batchnorm import PreciseBn, update_bn_stats  # noqa: F401
 from pytorchvideo_tpu_torch.train.presets import PRESETS, get_preset  # noqa: F401
 from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
     TrainState,
+    ensemble_video_level,
     forward_backward,
     make_eval_step,
     make_train_step,
 )
-from pytorchvideo_tpu_torch.train.transforms import MixVideoBatchWrapper  # noqa: F401
+from pytorchvideo_tpu_torch.train.transforms import (  # noqa: F401
+    MixVideoBatchWrapper,
+    SlowFastPackPathway,
+    default_collate,
+)

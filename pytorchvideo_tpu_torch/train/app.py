@@ -8,11 +8,19 @@ caller asks for the CPU), its optimizer groups and LR schedule, and the
 train step of train/train_loop.py, then walks the datamodule's batches.
 Checkpoints are ``torch.save`` files.
 
+It trains the BatchNorm models (X3D, Slow, SlowFast and the other ResNet
+builders) and MViT. With ``trainer.precise_bn_batches > 0`` each epoch ends
+with precise BN over that many fresh training batches
+(train/precise_batchnorm.py). ``test()`` ensembles the clips of each video
+(``trainer.test_ensemble_method``) and ``predict()`` returns per-clip logits.
+
 The data layer is not ported yet: ``datamodule`` is any object whose
-``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3, T, H, W),
-"label": (B,)}`` (tensors or numpy arrays). Not ported yet either: ``test()``
-and ``predict()``, precise BN (MViT has no BatchNorm), ``load_ssl_backbone``
-and activation rematerialisation (``trainer.remat_policy``).
+``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3, T, H, W), or
+the list [slow, fast] of them, "label": (B,)}`` (tensors or numpy arrays),
+and whose ``val_dataloader(None)`` yields such dicts with a
+``"video_index"`` (and optionally a ``"clip_index"``) per clip. Not ported
+yet either: ``load_ssl_backbone`` and activation rematerialisation
+(``trainer.remat_policy``).
 """
 
 from __future__ import annotations
@@ -20,14 +28,21 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger
 from pytorchvideo_tpu_torch.train.optimizer import construct_optimizer, lr_schedule_from_config
-from pytorchvideo_tpu_torch.train.train_loop import TrainState, make_train_step
+from pytorchvideo_tpu_torch.train.precise_batchnorm import update_bn_stats
+from pytorchvideo_tpu_torch.train.train_loop import (
+    TrainState,
+    ensemble_video_level,
+    make_eval_step,
+    make_train_step,
+    map_video,
+)
 from pytorchvideo_tpu_torch.train.transforms import MixVideoBatchWrapper
 
 logger = logging.getLogger(__name__)
@@ -59,6 +74,7 @@ class VideoClassificationTrainApp:
         self.generator = torch.Generator().manual_seed(seed)
         self.state: Optional[TrainState] = None
         self._train_step = None
+        self._eval_step = make_eval_step()
 
     def _build_model(self):
         from pytorchvideo_tpu_torch.models import hub
@@ -79,8 +95,6 @@ class VideoClassificationTrainApp:
 
     def setup(self) -> TrainState:
         trainer = self.cfg.trainer
-        if trainer.precise_bn_batches > 0:
-            raise NotImplementedError("precise BN is not ported yet")
         optimizer = construct_optimizer(self.model, self.cfg.optim)
         schedule = lr_schedule_from_config(self.cfg.lr_scheduler, self.steps_per_epoch)
         self.state = TrainState(self.model, optimizer, schedule)
@@ -104,9 +118,12 @@ class VideoClassificationTrainApp:
         )
         return self.state
 
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {key: torch.as_tensor(batch[key]).to(self.device, non_blocking=True)
-                for key in ("video", "label")}
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's clip (each pathway of a list), labels and, where
+        present, video and clip indices, on the app's device."""
+        return {key: map_video(lambda a: torch.as_tensor(a).to(self.device, non_blocking=True),
+                               batch[key])
+                for key in ("video", "label", "video_index", "clip_index") if key in batch}
 
     def train(self):
         """Runs ``trainer.max_epochs`` epochs of ``steps_per_epoch`` steps;
@@ -131,11 +148,55 @@ class VideoClassificationTrainApp:
                     mlog.log({**metrics, "exact_epoch": epoch + step / self.steps_per_epoch,
                               "lr": lr}, step=global_step, epoch=epoch)
                 global_step += 1
+            if trainer.precise_bn_batches > 0:
+                update_bn_stats(self.state.model,
+                                (self._device_batch(b) for b in
+                                 self.datamodule.train_dataloader(trainer.precise_bn_batches)),
+                                trainer.precise_bn_batches)
             logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
             if trainer.checkpoint_dir:
                 self.save_checkpoint(epoch)
         mlog.close()
         return history
+
+    def _val_batches(self, max_batches: Optional[int] = None):
+        """(device batch, eval logits) over ``datamodule.val_dataloader(None)``."""
+        if self.state is None:
+            raise RuntimeError("call setup() or train() first")
+        for n, batch in enumerate(self.datamodule.val_dataloader(None)):
+            if max_batches is not None and n >= max_batches:
+                return
+            batch = self._device_batch(batch)
+            yield batch, self._eval_step(self.state, batch)
+
+    def test(self, num_videos: Optional[int] = None) -> Dict[str, float]:
+        """Multi-clip test (upstream module/video_classification.py:275-311):
+        each video's clips ensembled by ``trainer.test_ensemble_method``,
+        then the video-level top-1 over the videos seen ({} without any).
+        ``num_videos`` defaults to the largest video index + 1."""
+        logits_list, index_list, labels = [], [], {}
+        for batch, logits in self._val_batches():
+            logits_list.append(logits)
+            index_list.append(batch["video_index"])
+            labels.update(zip(batch["video_index"].tolist(), batch["label"].tolist()))
+        if not logits_list:
+            return {}
+        ensembled = ensemble_video_level(logits_list, index_list, num_videos or max(labels) + 1,
+                                         self.cfg.trainer.test_ensemble_method)
+        seen = sorted(labels)
+        predictions = ensembled[seen].argmax(-1).cpu()
+        truth = torch.tensor([labels[v] for v in seen])
+        return {"video_top1": (predictions == truth).float().mean().item()}
+
+    def predict(self, max_batches: Optional[int] = None) -> List[Dict[str, torch.Tensor]]:
+        """Per-clip predictions over the val set (upstream train_app.py:184-209):
+        a dict of host tensors per batch, "logits", "video_index",
+        "clip_index" (empty where the batch has none) and "label"."""
+        return [{"logits": logits.cpu(),
+                 "video_index": batch["video_index"].cpu(),
+                 "clip_index": batch.get("clip_index", torch.zeros(0, dtype=torch.long)).cpu(),
+                 "label": batch["label"].cpu()}
+                for batch, logits in self._val_batches(max_batches)]
 
     def save_checkpoint(self, step: int) -> str:
         """Writes model, optimizer and update count to

@@ -3,9 +3,10 @@ upstream pytorchvideo_trainer/conf/*.yaml), as data: each preset returns a
 ``VideoClassificationTrainConfig`` with the reference's published
 hyperparameters, and keyword overrides on dotted paths (e.g.
 ``**{"trainer.compute_dtype": "bfloat16"}``) replace any field after
-composition. Of these recipes the port trains ``classification_mvit_16x4``
-so far; the others wait for their models' training (ResNet, SlowFast, X3D)
-and for LARS and the SSL apps.
+composition. The port trains the four classification recipes
+(``classification_slow_8x8_r50``, ``classification_slowfast_8x8_r50``,
+``classification_x3d_xs``, ``classification_mvit_16x4``; X3D-S through a
+``model.name`` override); the SSL recipes wait for LARS and the SSL apps.
 """
 
 from __future__ import annotations

@@ -12,13 +12,20 @@ not ``torch.autocast``: the f32 master parameters and the clip are cast to
 ``torch.func.functional_call`` on the cast copies, so every layer (LayerNorm
 included) computes and returns ``compute_dtype`` and the kernels see one
 dtype throughout; the logits are taken to f32 for the loss, and the
-gradients land on the f32 masters through the casts.
+gradients land on the f32 masters through the casts. Only the parameters
+are cast: the BatchNorm running buffers stay float32 on the module, and the
+train-mode BatchNorm (layers/norms.py) updates them in place from float32
+batch statistics, as flax does.
+
+A clip is a tensor or, for SlowFast, a list of pathway tensors; the step
+casts and splits each pathway, as the JAX step maps over its tree.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -38,6 +45,24 @@ class TrainState:
     step: int = 0
 
 
+Video = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def map_video(fn: Callable, video: Video):
+    """``fn`` of a clip tensor, or the list of ``fn`` of each pathway."""
+    if isinstance(video, (list, tuple)):
+        return [fn(v) for v in video]
+    return fn(video)
+
+
+def split_video(video: Video, chunks: int) -> list:
+    """The clip (each pathway alike) split along the batch into ``chunks``
+    microbatches."""
+    if isinstance(video, (list, tuple)):
+        return [list(parts) for parts in zip(*(v.chunk(chunks) for v in video))]
+    return list(video.chunk(chunks))
+
+
 def cast_parameters(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """{name: the floating-point parameter cast to ``dtype``}: differentiable
     casts, so gradients reach the masters in their own dtype."""
@@ -45,7 +70,7 @@ def cast_parameters(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Ten
             for name, p in model.named_parameters()}
 
 
-def forward_backward(model: nn.Module, video: torch.Tensor, labels: torch.Tensor,
+def forward_backward(model: nn.Module, video: Video, labels: torch.Tensor,
                      loss_fn: Callable = soft_target_cross_entropy,
                      compute_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0):
     """One forward and backward of ``loss_fn(f32 logits, labels)``; the
@@ -55,7 +80,8 @@ def forward_backward(model: nn.Module, video: torch.Tensor, labels: torch.Tensor
         logits = model(video)
     else:
         logits = torch.func.functional_call(
-            model, cast_parameters(model, compute_dtype), (video.to(compute_dtype),))
+            model, cast_parameters(model, compute_dtype),
+            (map_video(lambda v: v.to(compute_dtype), video),))
     loss = loss_fn(logits.float(), labels)
     (loss * grad_scale).backward()
     return loss.detach(), logits.detach()
@@ -92,7 +118,9 @@ def make_train_step(
     labels), MixUp/CutMix on the device, run once on the whole batch.
     ``compute_dtype``: e.g. ``torch.bfloat16``; see the module docstring.
     ``grad_accum_steps``: the batch is split into that many equal
-    microbatches whose gradients are averaged before ONE optimizer update.
+    microbatches whose gradients are averaged before ONE optimizer update;
+    the BatchNorm running stats go through the microbatches in order, as
+    the JAX step's ``lax.scan`` threads them.
     Metrics: "loss" (the microbatches' mean) and, on hard labels, top-1
     "accuracy", both as 0-d tensors on the device (reading them waits for the
     step)."""
@@ -103,8 +131,9 @@ def make_train_step(
 
     def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
         video, labels = batch[input_key], batch[label_key]
-        if video.shape[0] % grad_accum_steps:
-            raise ValueError(f"batch size {video.shape[0]} is not divisible by "
+        batch_size = labels.shape[0]
+        if batch_size % grad_accum_steps:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
                              f"grad_accum_steps={grad_accum_steps}")
         hard_labels = labels.dim() == 1
         if batch_transform is not None:
@@ -116,7 +145,7 @@ def make_train_step(
         for p in params:
             p.grad = None
         loss_sum = accuracy_sum = 0.0
-        for v, y in zip(video.chunk(grad_accum_steps), labels.chunk(grad_accum_steps)):
+        for v, y in zip(split_video(video, grad_accum_steps), labels.chunk(grad_accum_steps)):
             loss, logits = forward_backward(model, v, y, loss_fn, compute_dtype,
                                             1.0 / grad_accum_steps)
             loss_sum = loss_sum + loss
@@ -142,7 +171,8 @@ def make_train_step(
 
 
 def make_eval_step(input_key: str = "video"):
-    """``step(state, batch) -> logits`` in eval mode, without gradients."""
+    """``step(state, batch) -> logits`` in eval mode (running BN stats),
+    without gradients; the clip is a tensor or a list of pathways."""
 
     def step(state: TrainState, batch: Dict[str, Any]) -> torch.Tensor:
         state.model.eval()
@@ -150,3 +180,19 @@ def make_eval_step(input_key: str = "video"):
             return state.model(batch[input_key])
 
     return step
+
+
+def ensemble_video_level(logits_list, video_indices, num_videos: int,
+                         method: str = "sum") -> torch.Tensor:
+    """Multi-clip test ensembling (JAX train_loop.py:204; upstream
+    module/video_classification.py:290-311): the (num_videos, classes) f32
+    sum or max of the clips' logits, each clip keyed by its video index."""
+    logits = torch.cat(list(logits_list)).float()
+    index = torch.cat([torch.as_tensor(i) for i in video_indices]).to(logits.device, torch.long)
+    shape = (num_videos, logits.shape[-1])
+    if method == "sum":
+        return torch.zeros(shape, device=logits.device).index_add_(0, index, logits)
+    if method == "max":
+        return torch.full(shape, -math.inf, device=logits.device).scatter_reduce_(
+            0, index[:, None].expand_as(logits), logits, "amax")
+    raise NotImplementedError(method)

@@ -1,13 +1,16 @@
-"""Trainer-level batch transforms (counterpart of
+"""Trainer-level transforms (counterpart of
 pytorchvideo_tpu/train/transforms.py; upstream
-pytorchvideo_trainer/datamodule/transforms.py). So far only
-``MixVideoBatchWrapper`` (upstream :165); the host-side clip transforms wait
-for the data feed."""
+pytorchvideo_trainer/datamodule/transforms.py and collators.py):
+``SlowFastPackPathway`` (upstream :99-139) and ``default_collate``, which
+make SlowFast's pathway-list batches from clips, and
+``MixVideoBatchWrapper`` (upstream :165). The other host-side clip
+transforms wait for the data feed."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from pytorchvideo_tpu_torch.transforms.mix import MixVideo
@@ -32,3 +35,34 @@ class MixVideoBatchWrapper:
         batch["video"], batch["label"] = self.mix_video_transform(
             batch["video"], batch["label"], generator)
         return batch
+
+
+class SlowFastPackPathway:
+    """A (C, T, H, W) clip -> ``[slow, fast]``: the slow pathway keeps T //
+    alpha frames evenly spaced over the clip (the first and the last among
+    them), the fast one all T."""
+
+    def __init__(self, alpha: int) -> None:
+        self.alpha = alpha
+
+    def __call__(self, frames) -> List[torch.Tensor]:
+        frames = torch.as_tensor(frames)
+        t = frames.shape[1]
+        index = torch.from_numpy(np.linspace(0, t - 1, t // self.alpha).astype(np.int64))
+        return [frames.index_select(1, index.to(frames.device)), frames]
+
+
+def default_collate(samples: List[Any]):
+    """Stacks the samples' leaves into a batch, through dicts, lists and
+    tuples (a list of ``[slow, fast]`` clips becomes ``[slow batch, fast
+    batch]``); numbers become a tensor, strings stay a list."""
+    first = samples[0]
+    if isinstance(first, dict):
+        return {k: default_collate([s[k] for s in samples]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(default_collate([s[i] for s in samples]) for i in range(len(first)))
+    if isinstance(first, str):
+        return list(samples)
+    if isinstance(first, (int, float, np.integer, np.floating)):
+        return torch.as_tensor(np.asarray(samples))
+    return torch.stack([torch.as_tensor(s) for s in samples])

@@ -1183,3 +1183,76 @@ def test_small_mvit_compiled_and_exported_on_the_card(cuda, form):
         out = program.module()(x)
     assert _moved(before) == per_forward
     torch.testing.assert_close(out.float(), eager.float(), atol=1e-2, rtol=2**-7)
+
+
+# X3D-S's stem BN (24 channels at 13x80x80) and its last stage's norm_b (432
+# at 13x5x5), at B4.
+BN_SHAPES = {"stem": (4, 24, 13, 80, 80), "last_stage": (4, 432, 13, 5, 5)}
+# Train-mode BN against f64: f32 the statistics' summation order; bf16 one
+# rounding of the f32 result. Running stats 1e-5 relative (of |ref| plus the
+# batch's std for the mean).
+BN_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5), torch.bfloat16: TOL[torch.bfloat16]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BN_SHAPES.values()), ids=list(BN_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_forward_matches_f64(cuda, shape, dtype):
+    from pytorchvideo_tpu_torch.layers.norms import BatchNorm
+
+    C = shape[1]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(shape, device=cuda, generator=g) * 2.0 + 0.5).to(dtype)
+    bn = BatchNorm(C).to(cuda)
+    with torch.no_grad():
+        bn.weight.copy_(0.5 + torch.rand(C, device=cuda, generator=g))
+        bn.bias.copy_(torch.randn(C, device=cuda, generator=g) * 0.1)
+    weight, bias = bn.weight.to(dtype), bn.bias.to(dtype)
+    out = torch.func.functional_call(bn.train(), {"weight": weight, "bias": bias}, (x,))
+    assert out.dtype == dtype and bn.running_mean.dtype == torch.float32
+    xd, dims, view = x.double(), (0, 2, 3, 4), (1, C, 1, 1, 1)
+    mean, var = xd.mean(dims), xd.var(dims, unbiased=False)
+    ref = ((xd - mean.view(view)) / torch.sqrt(var.view(view) + bn.eps)
+           * weight.double().view(view) + bias.double().view(view))
+    torch.testing.assert_close(out.double(), ref, **BN_TOL[dtype])
+    ref_mean, ref_var = 0.1 * mean, 0.9 + 0.1 * var
+    assert ((bn.running_mean.double() - ref_mean).abs()
+            <= 1e-5 * (ref_mean.abs() + var.sqrt())).all()
+    assert ((bn.running_var.double() - ref_var).abs() <= 1e-5 * ref_var).all()
+
+
+@pytest.mark.cuda
+def test_x3d_bf16_step_grads_near_f32_compute(cuda):
+    # One step of a small X3D (4x64x64, B4, head dropout 0, the ResNet-style
+    # init from a seeded generator) in bf16 and in f32 compute, TF32 off:
+    # the loss within 3e-2 relative, all gradients together within 0.3
+    # relative L2 error and above 0.95 cosine (chip_smoke.py's bf16 step
+    # bounds for X3D-S), the masters and the BN buffers float32.
+    from pytorchvideo_tpu_torch.layers.norms import BatchNorm
+    from pytorchvideo_tpu_torch.models import init_net_weights
+    from pytorchvideo_tpu_torch.models.x3d import create_x3d
+    from pytorchvideo_tpu_torch.train import forward_backward
+
+    model = create_x3d(input_clip_length=4, input_crop_size=64, model_num_class=10,
+                       dropout_rate=0.0, device=cuda)
+    init_net_weights(model, generator=torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(4, 3, 4, 64, 64, device=cuda, generator=g)
+    y = torch.randint(0, 10, (4,), device=cuda, generator=g)
+    grads, losses = {}, {}
+    for dtype in (None, torch.bfloat16):
+        model.zero_grad(set_to_none=True)
+        loss, _ = forward_backward(model.train(), x, y, compute_dtype=dtype)
+        grads[dtype] = [p.grad.double() for p in model.parameters()]
+        losses[dtype] = loss.item()
+    ref, got = grads[None], grads[torch.bfloat16]
+    assert all(torch.isfinite(t).all() for t in got)
+    ref_sq = sum(r.square().sum() for r in ref)
+    rel = (sum((a - r).square().sum() for a, r in zip(got, ref)) / ref_sq).sqrt().item()
+    cosine = (sum((a * r).sum() for a, r in zip(got, ref))
+              / (ref_sq * sum(a.square().sum() for a in got)).sqrt()).item()
+    assert abs(losses[torch.bfloat16] - losses[None]) <= 3e-2 * abs(losses[None])
+    assert rel <= 0.3 and cosine >= 0.95, (rel, cosine)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(m.running_var.dtype == torch.float32 for m in model.modules()
+               if isinstance(m, BatchNorm))

@@ -424,7 +424,9 @@ def test_every_port_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert 'pytorchvideo_tpu_torch.train.train_loop' in names, names\n"
+        "new = ['train.train_loop', 'train.precise_batchnorm', 'train.metrics', "
+        "'train.transforms', 'models.weight_init', 'layers.norms']\n"
+        "assert all('pytorchvideo_tpu_torch.' + n in names for n in new), names\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
