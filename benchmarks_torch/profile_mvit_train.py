@@ -5,9 +5,12 @@
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``.
 It trains ``hub.mvit_base_16x4()`` at full width and depth, 16x224x224, with
 the seeded random weights of ``chip_smoke.py``, through
-``VideoClassificationTrainApp`` on the ``classification_mvit_16x4`` recipe
-(AdamW, clip 1.0, MixUp/CutMix) with ``compute_dtype="bfloat16"``, on
-``chip_smoke.SyntheticClips`` (seeded clips made on the card):
+``VideoClassificationTrainApp.train()`` (the captured step, train/compiled_step.py)
+on the ``classification_mvit_16x4`` recipe (AdamW, clip 1.0, MixUp/CutMix)
+with ``compute_dtype="bfloat16"``, on ``chip_smoke.SyntheticClips`` (seeded
+clips made on the card). The forms below are Python-side switches, which a
+graph freezes at its capture, so each run drops the app's graphs and
+captures its form anew:
 
 1. ms per step and clips/s at B8 and at the preset's B2, in three forms:
    "kernels" (the default path), "fused" (every block's ``fused_kvpool`` on:
@@ -15,7 +18,8 @@ the seeded random weights of ``chip_smoke.py``, through
    and "plain" (every kernel swapped for its plain version,
    ``chip_smoke.plain_kernels``), one model and optimizer throughout, run in
    the order plain, kernels, fused, fused, kernels, plain; each run is
-   ``WARMUP`` steps, then ``STEPS`` steps timed by the host's clock with the
+   ``WARMUP_STEPS`` + 1 steps (the captured step's eager warm-up updates and
+   its capture), then ``STEPS`` replays timed by the host's clock with the
    card synchronised at both ends. ``STEPS`` is the preset's log interval, so
    a timed run reads the loss back to the host once, as a user's run does.
    Both runs are printed; the summary keeps the faster. The peak device
@@ -41,7 +45,6 @@ from profile_x3d import group_table, kernel_table
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCHES = (8, 2)
-WARMUP = 2
 STEPS = 10
 PROFILED_STEPS = 3
 # Kernel groups by name, first match wins.
@@ -80,6 +83,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from chip_smoke import SyntheticClips, nvidia_smi_line, plain_kernels, run_steps, train_app
     from pytorchvideo_tpu_torch import train
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
 
     card = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
@@ -89,9 +93,14 @@ def main() -> None:
 
     @contextlib.contextmanager
     def form_of(name):
+        """The app in form ``name``, its graphs dropped and its step captured
+        anew in that form (not timed)."""
         for block in app.model.blocks:
             block.attn.fused_kvpool = name == "fused"
         with plain_kernels() if name == "plain" else contextlib.nullcontext():
+            app._drop_graphs()
+            torch.cuda.empty_cache()
+            run_steps(app, WARMUP_STEPS + 1)
             yield
         for block in app.model.blocks:
             block.attn.fused_kvpool = False
@@ -101,7 +110,6 @@ def main() -> None:
         runs, peaks = {"plain": [], "kernels": [], "fused": []}, {}
         for form in ("plain", "kernels", "fused", "fused", "kernels", "plain"):
             with form_of(form):
-                run_steps(app, WARMUP)
                 torch.cuda.reset_peak_memory_stats()
                 _, ms = run_steps(app, STEPS)
             runs[form].append(ms)
@@ -117,7 +125,6 @@ def main() -> None:
 
         for form in ("kernels", "fused"):
             with form_of(form):
-                run_steps(app, 1)
                 with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                         torch.profiler.ProfilerActivity.CUDA]) as prof:
                     run_steps(app, PROFILED_STEPS)

@@ -3,18 +3,20 @@
     python3 benchmarks_torch/profile_train_bn.py [--out build/profile_train_bn.json]
 
 Run from the root of a checkout, on a machine with a CUDA card. Two train
-steps, each through ``VideoClassificationTrainApp`` as ``chip_smoke.py``'s
-phase 18 drives them, bf16 compute, f32 masters, weights from
-``init_net_weights`` on a seeded generator:
+steps, each through ``VideoClassificationTrainApp.train()`` (the captured
+step, train/compiled_step.py) set up as ``chip_smoke.py``'s phase 18 sets it
+up, bf16 compute, f32 masters, weights from ``init_net_weights`` on a seeded
+generator:
 
 - ``x3d_s`` at B128 (13x160x160) on bench.py:317's recipe: SGD momentum 0.9
   at LR 0.1, MixUp alpha 1.0 with label smoothing 0.1, soft-target CE;
 - ``slowfast_r50`` at B32 ([8, 32] x 224 x 224 pathway lists) on the
   ``classification_slowfast_8x8_r50`` preset (nesterov SGD).
 
-For each: ``WARMUP`` steps, then ``STEPS`` steps timed on the host clock
-with the card synchronised at both ends (ms per step, clips/s, peak
-memory), then ``torch.profiler`` over ``PROFILED`` more steps on one batch:
+For each: ``WARMUP_STEPS`` + 1 steps (the captured step's eager warm-up
+updates and its capture), then ``STEPS`` replays timed on the host clock
+with the card synchronised at both ends (ms per step, clips/s; the peak
+memory of these runs, the capture's included), then ``torch.profiler`` over ``PROFILED`` more replays on one batch:
 device ms per step by kernel group and the top kernels (sums of kernel
 times, which pass the step's time where cuDNN runs a grouped conv's
 per-group kernels side by side), and the union of the device's intervals
@@ -36,7 +38,6 @@ sys.path.insert(0, REPO)
 
 from profile_x3d import group_table, kernel_table  # noqa: E402
 
-WARMUP = 2
 STEPS = 5
 PROFILED = 3
 # Kernel groups by name, first match wins: cuDNN's depthwise and grouped
@@ -74,6 +75,7 @@ def main() -> None:
         x3d_s_bench_overrides,
     )
     from pytorchvideo_tpu_torch import train
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,18 +94,18 @@ def main() -> None:
     )
     for name, B, make in runs:
         app = make()
-        run_steps(app, WARMUP)
         torch.cuda.reset_peak_memory_stats()
+        run_steps(app, WARMUP_STEPS + 1)
         history, ms = run_steps(app, STEPS)
         peak = torch.cuda.max_memory_allocated()
         batch = app._device_batch(next(app.datamodule.train_dataloader(1)))
-        app._train_step(app.state, batch, app.generator)
+        app._step(batch)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED):
-                app._train_step(app.state, batch, app.generator)
+                app._step(batch)
             torch.cuda.synchronize()
         rows = kernel_table(prof, PROFILED)
         groups = group_table(rows, KERNEL_GROUPS)

@@ -79,18 +79,26 @@ exits nonzero, printing no result, when a check fails or no card is present.
    1.0, MixUp/CutMix with label smoothing 0.1, soft-target cross-entropy)
    with ``compute_dtype="bfloat16"`` trains ``hub.mvit_base_16x4()`` at full
    width and depth, 16x224x224, seeded random weights, on seeded synthetic
-   clips made on the card. Every parameter must receive a finite gradient
-   through autograd in the first step. Timed steps at B8 and at the preset's
-   B2 (clips/s, ms per step, peak memory); per step the counts rise by 32
-   attention forwards and 32 backwards (each 16 on the tensor cores, 16
-   split-key; in f32 compute all on the CUDA cores), 35 conv pools with 35 dx and
-   35 dw, and 3 max pools, every pool launch on the tiled route (dw one
-   launch each). One step's gradients at B2 are held against the same
-   step with every kernel swapped for its plain version (in f32 and in bf16
-   compute), and the loss must fall over 10 steps on one fixed batch.
-10. ``pool_first`` training: one step at B2 of
-    ``hub.mvit_base_16x4(pool_first=True)``; the per-head attention backward
-    (#3) rises by 16, all on the tensor cores.
+   clips made on the card. The app runs the captured step (phase 19): the
+   first batch of each signature captures it, after the captured step's
+   eager warm-up updates, and the replays after run no Python. Every
+   parameter must receive a finite gradient through autograd in the first
+   step. Timed steps at B8 and at the preset's B2 (clips/s, ms per step,
+   peak memory, the capture's included); at each update that launches (a
+   batch signature's first three: the captured step's two eager warm-up
+   updates and its capture) the counts rise by 32 attention forwards and 32
+   backwards (each 16 on the tensor
+   cores, 16 split-key; in f32 compute all on the CUDA cores), 35 conv
+   pools with 35 dx and 35 dw, and 3 max pools, every pool launch on the
+   tiled route (dw one launch each); a replay moves no counter. One eager
+   step's gradients at B2 are held against the same step with every kernel
+   swapped for its plain version (in f32 and in bf16 compute), and the loss
+   must fall over 10 steps on one fixed batch.
+10. ``pool_first`` training: four single steps at B2 of
+    ``hub.mvit_base_16x4(pool_first=True)`` through ``app.train()``, the
+    launches read over each (two warm-up updates, the capture, a replay);
+    the per-head attention backward (#3) rises by 16 an update, all on the
+    tensor cores, and by none at the replay.
 11. Fused kv-pool kernel: the fused op (the pool-LN kernel, then the
     attention kernel for the grid and the cls query) at every MViT-B 16x4
     block geometry, all of which pass ``fusable``, at B2 in f32 and bf16: the
@@ -120,11 +128,12 @@ exits nonzero, printing no result, when a check fails or no card is present.
     weights; the unfused form is served after it for clips/s side by side.
 14. Fused training: the ``classification_mvit_16x4`` recipe with
     ``model.kwargs={"fused_kvpool": True}``: every parameter's gradient
-    through autograd, timed steps at B8 and B2 (per step 16 fused (tiled), 64
-    attention forwards (the backward recomputes), 32 attention backwards (16
-    tensor-core, 16 split-key), 35
-    conv pools with 35 dx and 35 dw, 3 max pools), and one B2 step's
-    gradients against the unfused kernel step of the same weights.
+    through autograd, timed captured steps at B8 and B2 (per update at a
+    capture 16 fused (tiled), 64 attention forwards (the backward
+    recomputes), 32 attention backwards (16 tensor-core, 16 split-key), 35
+    conv pools with 35 dx and 35 dw, 3 max pools; none per replay), and one
+    B2 eager step's gradients against the unfused kernel step of the same
+    weights.
 15. The depthwise kernel (#1) at CSN-R101's four stride-1 ``conv_b`` shapes (T32 S112 C64,
     T16 S56 C128, T8 S28 C256, T4 S14 C512) at B2: f32 and bf16, bias only
     (as CSN's deploy form calls it) and with scale, bias and swish, against
@@ -177,8 +186,8 @@ exits nonzero, printing no result, when a check fails or no card is present.
     0.9 at LR 0.1, MixUp alpha 1.0 with label smoothing 0.1, soft-target
     CE, bf16 compute), weights from ``init_net_weights``: every parameter
     gets a finite gradient in the first step, then B64 and B128 are timed
-    (clips/s, ms per step, peak memory, the busy share as phase 17 takes
-    it). One B8 step's gradients in bf16 compute against f32 compute (TF32
+    through the app, captured (clips/s, ms per step, peak memory, the busy
+    share as phase 17 takes it). One B8 step's gradients in bf16 compute against f32 compute (TF32
     off, dropout 0, ``randomize_`` weights): the loss, the relative L2
     error and cosine of all gradients and each stage's error
     (``BF16_STEP_*``). The loss falls over 10 steps on one fixed B8 batch.
@@ -189,12 +198,50 @@ exits nonzero, printing no result, when a check fails or no card is present.
     batches, whose stats must equal the mean of the per-batch stats taken
     separately (``PRECISE_BN_REL``), then ``test()`` on 16 videos of 2
     clips against the ensembling by hand from ``predict()``.
-    ``classification_slow_8x8_r50``: one step at B4.
+    ``classification_slow_8x8_r50``: one step at B4. ``test()`` and
+    ``predict()`` replay a captured eval forward per clip shape.
+19. The captured training step (train/compiled_step.py) against the eager
+    one. (a) ``classification_mvit_16x4`` in bf16 on full
+    ``mvit_base_16x4`` (head dropout 0; DropPath is 0 in its config) at B8
+    and B2, and with ``fused_kvpool=True`` at B8: five updates from the same
+    weights, batches and MixUp draws through the captured step, the eager
+    step and the eager step again (its own spread: PyTorch's max-pool
+    backward adds with atomics); each update's loss within the bf16 logit
+    bound and its gradients within phase 9's bf16 per-tensor bound of the
+    eager ones, the parameters after within that bound too; the launches
+    read over each update: the eager per-step counts at each of the two
+    warm-up updates and at the capture, none at a replay. (b) Eager against
+    captured at each of those batches, in turns: clips/s, ms per step
+    (``cuda_time_ms``), host ms per step, the busy share (phase 17's) and
+    the peak memory (eager: five steps; captured: its capture). Then two
+    sets of replays on one batch at LR 0 with head dropout 0.5 and DropPath
+    0.2, from torch's default generator and from the modules' own CUDA
+    generators: every update's loss differs (three replays), the parameters
+    stay. (c) ``x3d_s`` at B64 on ``x3d_s_bench_overrides`` and
+    ``slowfast_r50`` at B32 on its preset, dropout 0: five updates through
+    the captured step (three replays) against five eager ones, the parameters and BN buffers (running stats,
+    ``num_batches_tracked`` exactly) within phase 9's bound; timed beside
+    phase 18's figures. (d) ``remat_policy`` ``"full"`` and
+    ``"dots_with_no_batch_dims_saveable"`` on MViT-B B8, eager and captured:
+    one step's gradients against the step without remat within phase 9's
+    bound; every forward kernel launches twice a step (64 attention
+    forwards); ms per step and peak memory beside the step without remat;
+    ``x3d_s`` at B128 under ``"full"``: its capture's peak memory beside
+    phase 18's. (e) The LR on the device, in f32 (TF32 off) with every
+    dropout 0 and an LR that changes at each update: MViT-B's recipe
+    (capturable AdamW, its warm-up) at B2 and ``x3d_s`` on bench.py's recipe
+    (fused SGD, a 10-step warm-up) at B8, six updates through the captured
+    step; each held against ``torch.optim``'s update in float64 at the float
+    LR from the state before it and the gradients it took, per tensor within
+    ``LR_CHECK_REL`` of the change plus one f32 rounding; the whole change
+    over the six, captured against eager, within ``LR_CHECK_WHOLE_REL``
+    (relative L2; the eager step's own spread printed beside it).
 
 Each phase from 15 on prints its seconds.
 
 The line before the last is a JSON object with one entry per kernel, each
-with its launches on its path (the attention forwards also by route), its
+with its launches on its path (the attention forwards also by route; the
+MViT kernels also at a capture of the training step, ``captured_step``), its
 errors, its time per forward or per step beside its plain version's, the
 library call's and its bound (the attention forwards and backwards also
 by route and the first version's; the depthwise kernel's also on
@@ -205,6 +252,7 @@ by route and the first version's; the depthwise kernel's also on
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -337,7 +385,6 @@ ROUTED_WRAPPERS = (*FORWARD_WRAPPERS, "pooled_attention_packed_bwd", "pooled_att
 # Training: the step's batch (timings of phase 8 too) and the preset's own.
 TRAIN_BATCH = 8
 PRESET_BATCH = 2
-TRAIN_WARMUP_STEPS = 2
 # The timed window is the preset's log interval (trainer.log_every_n_steps),
 # so it reads the loss back to the host as often as a user's run does: once.
 TRAIN_TIMED_STEPS = 10
@@ -467,7 +514,6 @@ X3D_S_CLIP = (13, 160, 160)
 BN_X3D_BATCHES = (64, 128)
 SLOWFAST_CLIPS = [(8, 224, 224), (32, 224, 224)]
 BN_SLOWFAST_BATCH = 32
-BN_WARMUP_STEPS = 1
 BN_TIMED_STEPS = 4
 BN_CHECK_BATCH = 8
 X3D_XS_BATCH = 16
@@ -501,6 +547,52 @@ PRECISE_BN_REL = 1e-5
 BF16_STEP_GLOBAL_REL = 0.3
 BF16_STEP_MIN_COS = 0.95
 BF16_STEP_STAGE_REL = 1.0
+
+
+# Phase 19, the captured training step. MViT-B's recipe at B8 and B2
+# (unfused) and B8 (fused_kvpool), every dropout 0 from construction (its
+# config's DropPath is 0; the head's dropout set to 0): CAPTURED_STEPS steps
+# of the eager step and of the captured one from the same weights and
+# batches; then each form timed. The BN models: CAPTURED_BN_STEPS steps at
+# the batches of phase 18.
+CAPTURED_CASES = [("mvit_base_16x4", {}, TRAIN_BATCH, MVIT_PER_STEP),
+                  ("mvit_base_16x4", {}, PRESET_BATCH, MVIT_PER_STEP),
+                  ("mvit_base_16x4 fused_kvpool", {"fused_kvpool": True}, TRAIN_BATCH,
+                   FUSED_PER_STEP)]
+CAPTURED_STEPS = 5
+CAPTURED_TIMED_STEPS = 5
+CAPTURED_BN_STEPS = 5
+# A schedule whose LR is 0 at every step, and no MixUp: parameters that do
+# not move and a batch as it is, so two replays on one batch differ only by
+# their dropout masks.
+ZERO_LR = {"lr_scheduler.lr_policy": "steps_with_relative_lrs", "lr_scheduler.lr": 0.0,
+           "lr_scheduler.steps": [0], "lr_scheduler.lrs": [1.0],
+           "lr_scheduler.warmup_iters": 0, "mix.enabled": False}
+REMAT_CHECKED = (None, "full", "dots_with_no_batch_dims_saveable")
+# Phase 19 (e), the LR on the device: LR_CHECK_STEPS updates in f32 compute
+# (TF32 off, as the whole run), a new LR at each (the MViT recipe's warm-up;
+# X3D-S's SGD with a 10-step warm-up from 0.01), every dropout 0. Each
+# parameter's change over them, captured against eager: |dc - de| <=
+# LR_CHECK_REL x |de| (L2 norms per tensor). A graph that kept one LR, or
+# skipped the update, moves the change by tens of percent (printed).
+# The whole change over the six updates, captured against eager, within
+# LR_CHECK_WHOLE_REL (relative L2): the eager step's own spread, eager
+# against eager, was up to 8.6e-5 (MViT-B; PyTorch's atomic max-pool
+# backward) and 1.6e-5 (X3D-S; cuDNN's algorithms) in two runs.
+LR_CHECK_STEPS = 6
+LR_CHECK_REL = 1e-5
+LR_CHECK_WHOLE_REL = 1e-3
+LR_CHECK_BATCH = {"mvit_base_16x4": PRESET_BATCH, "x3d_s": BN_CHECK_BATCH}
+# The kernels' forwards: under remat the recomputation runs each once more.
+FORWARD_KERNELS = ("pooled_attention_packed", "pooled_attention", "token_pool_conv",
+                        "token_pool_max", "token_pool_avg", "fused_kvpool_attention")
+
+
+def remat_per_step(per_step: dict) -> dict:
+    """Launches per step with the forward checkpointed: each forward kernel
+    twice (the forward, then its recomputation in the backward)."""
+    return {key: n * (2 if key.split(".")[0] in FORWARD_KERNELS else 1)
+            for key, n in per_step.items()}
 
 
 def nvidia_smi_line() -> str:
@@ -541,13 +633,13 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def time_turns(fns: dict, iters: int) -> dict:
+def time_turns(fns: dict, iters: int, warmup: int = 2) -> dict:
     """Each of ``fns`` (key -> call) timed in turns, in order and then in
     reverse; the faster run of each."""
     order = list(fns.items())
     runs = {key: [] for key in fns}
     for key, fn in order + order[::-1]:
-        runs[key].append(cuda_time_ms(fn, iters))
+        runs[key].append(cuda_time_ms(fn, iters, warmup))
     return {key: min(ts) for key, ts in runs.items()}
 
 
@@ -2274,9 +2366,63 @@ def check_step_grads(train, forms, batch, label: str) -> dict:
     return report
 
 
-def first_step_grads(app, label: str) -> None:
-    """The first step: every parameter receives its gradient through autograd
-    (the step's zero fill for parameters the loss misses does not count)."""
+def launching_updates(app) -> int:
+    """The updates of ``app``'s captured steps so far that launch kernels:
+    each batch signature's first ``WARMUP_STEPS`` + 1 (its eager warm-up
+    updates, then the capture); a replay launches none."""
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    return sum(min(step.calls, WARMUP_STEPS + 1) for step in app._captured_steps.values())
+
+
+def captured_run(app, steps: int, per_step: dict, label: str):
+    """``steps`` steps through ``app.train()`` with the kernels' launches of
+    the run, checked: ``per_step`` at each update that launches
+    (``launching_updates``), none at a replay. Returns (losses, ms per step,
+    counts, the run's peak device memory)."""
+    import torch
+
+    before = launching_updates(app)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history, ms = run_steps(app, steps)
+    counts = read_counts()
+    updates = launching_updates(app) - before
+    check_path_counts(f"{label} B{app.datamodule.batch}, {steps} steps through app.train()",
+                      counts, per_step, updates, "warm-up or capture updates (replays: none)")
+    return history, ms, counts, torch.cuda.max_memory_allocated()
+
+
+def counted_update(app, batch, per_step: dict, label: str):
+    """One update of ``app`` on a device batch through its captured step
+    (``app._step``), with the launches read over it and checked as
+    ``captured_run`` checks them. Returns (metrics, counts)."""
+    before = launching_updates(app)
+    reset_counts()
+    app.state, metrics = app._step(batch)
+    counts = read_counts()
+    check_path_counts(label, counts, per_step, launching_updates(app) - before,
+                      "warm-up or capture updates (replays: none)")
+    return metrics, counts
+
+
+def capture_reading(calls: list) -> dict:
+    """The launches read over each update of a new captured step
+    (``calls``, in order): one warm-up update's, the capture's, and each
+    replay's."""
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    assert len(calls) > WARMUP_STEPS + 1, f"{len(calls)} updates: no replay read"
+    return {"warm_up": calls[0], "capture": calls[WARMUP_STEPS],
+            "replays": calls[WARMUP_STEPS + 1:]}
+
+
+def first_step_grads(app, label: str, per_step: dict) -> dict:
+    """The first step, the captured step's first warm-up update at its
+    batch: every parameter receives its gradient through autograd (the
+    step's zero fill for parameters the loss misses does not count); it
+    launches ``per_step`` (``captured_run``). Returns the counts and the
+    run's peak device memory."""
     import torch
 
     named = dict(app.model.named_parameters())
@@ -2284,7 +2430,7 @@ def first_step_grads(app, label: str) -> None:
     reached = set()
     hooks = [p.register_post_accumulate_grad_hook(lambda p, n=n: reached.add(n))
              for n, p in named.items()]
-    history, first_ms = run_steps(app, 1)
+    history, first_ms, counts, peak = captured_run(app, 1, per_step, label)
     for hook in hooks:
         hook.remove()
     missing = sorted(set(named) - reached)
@@ -2293,34 +2439,44 @@ def first_step_grads(app, label: str) -> None:
     assert not bad and all(math.isfinite(h) for h in history), f"non-finite gradients: {bad}"
     print(f"{label} train step 1 (B{app.datamodule.batch}): loss {history[0]!r}, all "
           f"{len(named)} parameter tensors ({n_params} values) got finite gradients through "
-          f"autograd; {first_ms!r} ms")
+          f"autograd; {first_ms!r} ms (an eager warm-up update)")
+    return counts, peak
 
 
-def timed_steps(app, per_step: dict, label: str):
-    """The main path: at B8 and at the preset's B2, warm-up steps, then timed
-    steps with the counts reset; returns (rates by batch, summed counts)."""
+def add_counts(a: dict, b: dict) -> dict:
+    return {name: a.get(name, 0) + n for name, n in b.items()}
+
+
+def timed_steps(app, per_step: dict, label: str, counts: dict, first_peak: int):
+    """The main path: at B8 (whose first step's peak memory is
+    ``first_peak``) and at the preset's B2, ``WARMUP_STEPS`` + 1 steps (the
+    warm-up updates and the capture of a new batch signature; at B8 the
+    first step was one), then timed replays; the launches of
+    every run checked by ``captured_run`` and added to ``counts``; the peak
+    memory of a batch is its capture's or its replays', the larger. Returns
+    (rates by batch, summed counts)."""
     import torch
 
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
     named = dict(app.model.named_parameters())
-    rates, counts = {}, {name: 0 for name in read_counts()}
+    rates = {}
     for B in (TRAIN_BATCH, PRESET_BATCH):
         app.datamodule = SyntheticClips(B, seed=22 + B)
-        run_steps(app, TRAIN_WARMUP_STEPS)
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        history, ms = run_steps(app, TRAIN_TIMED_STEPS)
-        run_counts = read_counts()
+        *_, warm_counts, warm_peak = captured_run(app, WARMUP_STEPS + 1, per_step,
+                                                  f"{label} warm-up")
+        history, ms, run_counts, run_peak = captured_run(app, TRAIN_TIMED_STEPS, per_step,
+                                                         f"{label} timed")
         bad = [n for n, p in named.items() if not torch.isfinite(p).all()]
         assert not bad, f"{label} B{B}: non-finite parameters after the timed steps: {bad}"
-        check_path_counts(f"{label} train B{B}", run_counts, per_step, TRAIN_TIMED_STEPS, "steps")
-        counts = {name: counts[name] + n for name, n in run_counts.items()}
-        peak = torch.cuda.max_memory_allocated()
+        counts = add_counts(add_counts(counts, warm_counts), run_counts)
+        peak = max(warm_peak, run_peak, first_peak if B == TRAIN_BATCH else 0)
         assert all(math.isfinite(h) for h in history), f"{label} B{B}: non-finite loss {history}"
         rates[B] = {"ms_per_step": ms, "clips_per_s": B * 1000.0 / ms, "peak_bytes": peak,
                     "losses": history}
         print(f"{label} train bf16 16x224x224 B{B}: {rates[B]['clips_per_s']!r} clips/s "
-              f"({ms!r} ms/step over {TRAIN_TIMED_STEPS} steps, MixUp/CutMix, AdamW, clip "
-              f"1.0); peak device memory {peak!r} bytes; losses {history}")
+              f"({ms!r} ms/step over {TRAIN_TIMED_STEPS} captured steps, MixUp/CutMix, AdamW, "
+              f"clip 1.0); peak device memory {peak!r} bytes; losses {history}")
     return rates, counts
 
 
@@ -2339,8 +2495,9 @@ def train_slice(train) -> dict:
 
     app = train_app(train, TRAIN_BATCH, seed=21)
     model = app.model
-    first_step_grads(app, "mvit_base_16x4")
-    rates, counts = timed_steps(app, MVIT_PER_STEP, "mvit_base_16x4")
+    counts, peak = first_step_grads(app, "mvit_base_16x4", MVIT_PER_STEP)
+    rates, counts = timed_steps(app, MVIT_PER_STEP, "mvit_base_16x4", counts, peak)
+    app._drop_graphs()
     batch = preset_batch(23)
     grad_report = check_step_grads(
         train, [("kernels", model, contextlib.nullcontext, MVIT_PER_STEP),
@@ -2359,20 +2516,28 @@ def train_slice(train) -> dict:
     del app, fit, model, batch
     torch.cuda.empty_cache()
 
-    # pool_first: one step, through the per-head attention and its backward.
+    # pool_first, through the per-head attention and its backward: single
+    # steps through app.train(), the launches read over each, up to one
+    # replay after the capture.
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
     pf = train_app(train, PRESET_BATCH, seed=25, **{"model.kwargs": {"pool_first": True}})
-    reset_counts()
-    pf_losses, pf_ms = run_steps(pf, 1)
-    pf_counts = read_counts()
-    check_path_counts("mvit_base_16x4 pool_first train B2", pf_counts, POOL_FIRST_PER_STEP, 1,
-                      "steps")
+    pf_losses, pf_calls = [], []
+    for _ in range(WARMUP_STEPS + 2):
+        losses_1, pf_ms, counts_1, _ = captured_run(pf, 1, POOL_FIRST_PER_STEP,
+                                                    "mvit_base_16x4 pool_first train")
+        pf_losses += losses_1
+        pf_calls.append(counts_1)
+    pf_reading = capture_reading(pf_calls)
     bad = [n for n, p in pf.model.named_parameters() if not torch.isfinite(p.grad).all()]
-    assert not bad and math.isfinite(pf_losses[0]), f"pool_first: non-finite {bad} {pf_losses}"
-    print(f"mvit_base_16x4 pool_first train bf16 B{PRESET_BATCH}: loss {pf_losses[0]!r}, "
-          f"{pf_ms!r} ms for its one step")
+    assert not bad and all(map(math.isfinite, pf_losses)), (
+        f"pool_first: non-finite {bad} {pf_losses}")
+    print(f"mvit_base_16x4 pool_first train bf16 B{PRESET_BATCH}: losses {pf_losses}, "
+          f"{pf_ms!r} ms for the last step (a replay)")
     del pf
     torch.cuda.empty_cache()
-    return {"rates": rates, "counts": counts, "pool_first_counts": pf_counts,
+    return {"rates": rates, "counts": counts, "pool_first_counts": functools.reduce(add_counts, pf_calls),
+            "pool_first_reading": pf_reading,
             "grads": grad_report, "fit_losses": losses}
 
 
@@ -2388,8 +2553,9 @@ def train_fused_slice(train, unfused_rates: dict) -> dict:
     app = train_app(train, TRAIN_BATCH, seed=31, **{"model.kwargs": {"fused_kvpool": True}})
     model = app.model
     assert all(block.attn.fused_kvpool for block in model.blocks)
-    first_step_grads(app, label)
-    rates, counts = timed_steps(app, FUSED_PER_STEP, label)
+    counts, peak = first_step_grads(app, label, FUSED_PER_STEP)
+    rates, counts = timed_steps(app, FUSED_PER_STEP, label, counts, peak)
+    app._drop_graphs()
     for B, r in rates.items():
         u = unfused_rates[B]
         print(f"{label} train B{B}: {r['ms_per_step']!r} ms/step, peak {r['peak_bytes']!r} bytes; "
@@ -2548,24 +2714,27 @@ def x3d_s_bench_overrides() -> dict:
             "trainer.compute_dtype": "bfloat16"}
 
 
-def timed_bn_steps(app, label: str, card: str) -> dict:
-    """The main path at the app's batch: warm-up steps, then timed steps
-    through ``app.train()`` (the card synchronised at both ends), the peak
-    memory of those, and the busy share of two more steps on one batch."""
+def timed_bn_steps(app, label: str, card: str, first_peak: int = 0) -> dict:
+    """The main path at the app's batch: ``WARMUP_STEPS`` + 1 steps (a new
+    batch signature's warm-up updates and its capture), then timed replays
+    through ``app.train()`` (the card synchronised at both ends); the peak
+    memory of those runs (and ``first_peak``, an earlier step's at this
+    batch), the largest; and the busy share of two more steps on one batch."""
     import torch
 
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
     B = app.datamodule.batch
-    run_steps(app, BN_WARMUP_STEPS)
-    torch.cuda.reset_peak_memory_stats()
-    history, ms = run_steps(app, BN_TIMED_STEPS)
-    peak = torch.cuda.max_memory_allocated()
+    *_, warm_peak = captured_run(app, WARMUP_STEPS + 1, {}, f"{label} warm-up")
+    history, ms, _, run_peak = captured_run(app, BN_TIMED_STEPS, {}, f"{label} timed")
+    peak = max(first_peak, warm_peak, run_peak)
     assert all(math.isfinite(h) for h in history), f"{label} B{B}: non-finite loss {history}"
     bad = [n for n, p in app.model.named_parameters() if not torch.isfinite(p).all()]
     assert not bad, f"{label} B{B}: non-finite parameters after the timed steps: {bad}"
     batch = app._device_batch(next(app.datamodule.train_dataloader(1)))
-    busy_ms, busy = device_busy(lambda: app._train_step(app.state, batch, app.generator))
+    busy_ms, busy = device_busy(lambda: app._step(batch))
     print(f"{label} train bf16 B{B}: {B * 1000.0 / ms!r} clips/s ({ms!r} ms/step over "
-          f"{BN_TIMED_STEPS} steps); peak device memory {peak!r} bytes; busy share {busy!r} "
+          f"{BN_TIMED_STEPS} captured steps); peak device memory {peak!r} bytes; busy share {busy!r} "
           f"({busy_ms!r} device ms/step); losses {history}; on {card}")
     return {"ms_per_step": ms, "clips_per_s": B * 1000.0 / ms, "peak_bytes": peak,
             "busy_share": busy, "busy_ms_per_step": busy_ms, "losses": history}
@@ -2591,11 +2760,12 @@ def bn_train_slice(train, card: str) -> dict:
     app = bn_app(train, "classification_x3d_xs",
                  SyntheticClips(BN_X3D_BATCHES[0], seed=41, clip=X3D_S_CLIP), seed=41, **overrides)
     model = app.model
-    first_step_grads(app, "x3d_s")
+    _, first_peak = first_step_grads(app, "x3d_s", {})
     report["x3d_s"] = {}
     for B in BN_X3D_BATCHES:
         app.datamodule = SyntheticClips(B, seed=42 + B, clip=X3D_S_CLIP)
-        report["x3d_s"][B] = timed_bn_steps(app, "x3d_s", card)
+        report["x3d_s"][B] = timed_bn_steps(app, "x3d_s", card,
+                                            first_peak if B == BN_X3D_BATCHES[0] else 0)
     del app
     torch.cuda.empty_cache()
 
@@ -2624,8 +2794,9 @@ def bn_train_slice(train, card: str) -> dict:
     app = bn_app(train, "classification_slowfast_8x8_r50",
                  SyntheticClips(BN_SLOWFAST_BATCH, seed=45, clip=SLOWFAST_CLIPS[1], alpha=4),
                  seed=45, **{"trainer.compute_dtype": "bfloat16"})
-    first_step_grads(app, "slowfast_r50")
-    report["slowfast_r50"] = {BN_SLOWFAST_BATCH: timed_bn_steps(app, "slowfast_r50", card)}
+    _, first_peak = first_step_grads(app, "slowfast_r50", {})
+    report["slowfast_r50"] = {BN_SLOWFAST_BATCH: timed_bn_steps(app, "slowfast_r50", card,
+                                                                first_peak)}
     del app
     torch.cuda.empty_cache()
 
@@ -2676,9 +2847,482 @@ def bn_train_slice(train, card: str) -> dict:
     # Slow-R50 on its preset: one step at B4.
     app = bn_app(train, "classification_slow_8x8_r50",
                  SyntheticClips(4, seed=47, clip=(8, 224, 224)), seed=47)
-    first_step_grads(app, "slow_r50")
+    first_step_grads(app, "slow_r50", {})
     del app
     torch.cuda.empty_cache()
+    return report
+
+
+def eager_run(app, steps: int):
+    """``steps`` eager steps (``app._train_step``, the step a CPU app runs)
+    over the app's datamodule, as ``app.train()`` walks it (the same MixUp
+    draws from the app's generator, the loss read back at the same log
+    interval); returns the losses read and ms per step."""
+    import torch
+
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step, batch in enumerate(app.datamodule.train_dataloader(steps)):
+        app.state, metrics = app._train_step(app.state, app._device_batch(batch), app.generator)
+        if step % app.cfg.trainer.log_every_n_steps == 0:
+            losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) * 1000.0 / steps
+
+
+def tensors_close(label: str, got: dict, ref: dict) -> float:
+    """Each tensor of ``got`` against ``ref`` within phase 9's bf16 bound
+    (STEP_GRAD_TOL: rel x its max |ref| + floor x its module's); integer
+    buffers exactly. Returns the max |diff|."""
+    import torch
+
+    rel, floor = STEP_GRAD_TOL["bfloat16"]
+    module_max = {}
+    for n, r in ref.items():
+        if r.is_floating_point():
+            module_max[_module_of(n)] = max(module_max.get(_module_of(n), 0.0),
+                                            r.abs().max().item() if r.numel() else 0.0)
+    worst = 0.0
+    for n, r in ref.items():
+        g = got[n]
+        assert torch.isfinite(g.float()).all(), f"{label}: {n} not finite"
+        if not r.is_floating_point():
+            assert torch.equal(g, r), f"{label}: {n} {g} != {r}"
+            continue
+        err = (g.double() - r.double()).abs().max().item() if r.numel() else 0.0
+        bound = rel * r.abs().max().item() + floor * module_max[_module_of(n)]
+        assert err <= bound, f"{label}: {n} off by {err} > {bound}"
+        worst = max(worst, err)
+    return worst
+
+
+def step_timings(fns: dict, B: int, iters: int) -> dict:
+    """Each form's step (``fns``: form -> call, each run before) timed in
+    turns by ``cuda_time_ms``, then its host ms and busy share (phase 17's)."""
+    ms = time_turns(fns, iters, warmup=1)
+    out = {}
+    for form, fn in fns.items():
+        busy_ms, busy = device_busy(fn)
+        out[form] = {"ms_per_step": ms[form], "clips_per_s": B * 1000.0 / ms[form],
+                     "host_ms": host_ms(fn), "busy": busy, "busy_ms_per_step": busy_ms}
+    return out
+
+
+def mvit_weights(hub, seed: int, **kwargs):
+    import torch
+
+    model = hub.mvit_base_16x4(**kwargs)
+    randomize_mvit_(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def captured_mvit_case(train, hub, label: str, kwargs: dict, B: int, per_step: dict,
+                       seed: int) -> dict:
+    """Phase 19 (a, b) for one MViT case: the eager and the captured step
+    from the same weights and batches (and a second eager run, the eager
+    step's own spread: PyTorch's max-pool backward adds with atomics), then
+    both timed."""
+    import copy
+
+    import torch
+
+    model = mvit_weights(hub, seed, head_dropout_rate=0.0, **kwargs)
+    apps = {form: train_app(train, B, seed, model=copy.deepcopy(model) if form != "captured"
+                            else model) for form in ("eager", "eager again", "captured")}
+    batches = list(apps["captured"].datamodule.train_dataloader(CAPTURED_STEPS))
+    runs, peaks = {}, {}
+    for form, app in apps.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, grads, calls = [], [], []
+        for i, batch in enumerate(batches):
+            batch = app._device_batch(batch)
+            if form == "captured":
+                metrics, counts = counted_update(app, batch, per_step,
+                                                 f"{label} B{B} captured update {i + 1}")
+                calls.append(counts)
+            else:
+                app.state, metrics = app._train_step(app.state, batch, app.generator)
+            losses.append(metrics["loss"].item())
+            grads.append({n: p.grad.clone() for n, p in app.model.named_parameters()})
+        if form == "captured":
+            reading = capture_reading(calls)
+        else:
+            check_path_counts(f"{label} B{B} {form}", read_counts(), per_step, CAPTURED_STEPS,
+                              "steps")
+        peaks[form] = torch.cuda.max_memory_allocated() - base
+        runs[form] = (losses, grads)
+    errs = {}
+    for form in ("captured", "eager again"):
+        losses, grads = runs[form]
+        eager_losses, eager_grads = runs["eager"]
+        rel = LOGIT_REL_TOL["bfloat16"]
+        assert all(abs(a - b) <= rel * abs(b) for a, b in zip(losses, eager_losses)), (
+            f"{label} B{B}: {form} losses {losses} against eager {eager_losses}")
+        errs[form] = {
+            "loss": max(abs(a - b) for a, b in zip(losses, eager_losses)),
+            "grads": max(tensors_close(f"{label} B{B} {form} step {i + 1} gradients", g, e)
+                         for i, (g, e) in enumerate(zip(grads, eager_grads))),
+            "params": tensors_close(f"{label} B{B} {form} parameters after {CAPTURED_STEPS} "
+                                    f"steps", dict(apps[form].model.named_parameters()),
+                                    dict(apps["eager"].model.named_parameters()))}
+    print(f"{label} B{B}: {CAPTURED_STEPS} steps from the same weights and batches, captured "
+          f"against eager: losses {runs['captured'][0]} / {runs['eager'][0]}; max |diff| of "
+          f"the loss {errs['captured']['loss']!r}, of each step's gradients "
+          f"{errs['captured']['grads']!r}, of the parameters after {errs['captured']['params']!r} "
+          f"(bounds: phase 9's bf16 per-tensor one); eager against eager again (its own "
+          f"spread): {errs['eager again']['loss']!r}, {errs['eager again']['grads']!r}, "
+          f"{errs['eager again']['params']!r}")
+    eager, captured = apps["eager"], apps["captured"]
+    del apps["eager again"], runs
+    batch = captured._device_batch(batches[0])
+    timings = step_timings({
+        "eager": lambda: eager._train_step(eager.state, batch, eager.generator),
+        "captured": lambda: captured._step(batch)}, B, CAPTURED_TIMED_STEPS)
+    reset_counts()
+    captured._step(batch)
+    assert not any(read_counts().values()), f"{label} B{B}: a replay launched a wrapper"
+    timings["eager"]["peak_bytes"] = peaks["eager"]
+    timings["captured"]["peak_bytes"] = peaks["captured"]
+    e, c = timings["eager"], timings["captured"]
+    print(f"{label} train bf16 B{B} eager / captured: {e['clips_per_s']!r} / "
+          f"{c['clips_per_s']!r} clips/s ({e['ms_per_step']!r} / {c['ms_per_step']!r} ms/step), "
+          f"host {e['host_ms']!r} / {c['host_ms']!r} ms/step, busy {e['busy']!r} / "
+          f"{c['busy']!r} ({e['busy_ms_per_step']!r} / {c['busy_ms_per_step']!r} device "
+          f"ms/step), peak {peaks['eager']} / {peaks['captured']} bytes above the resident "
+          f"state (captured: its capture's, warm-up updates included)")
+    del eager, captured, apps, model, batch, batches
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": errs, "capture_reading": reading, **timings}
+
+
+def dropout_replays(train, hub, seed: int, explicit: bool) -> list:
+    """Updates of the captured step on one batch with the recipe's head
+    dropout (0.5) and DropPath 0.2, at LR 0, up to three replays: their
+    losses must differ (new masks each replay), the parameters stay. ``explicit``: the blocks and
+    the head draw from their own CUDA generators (registered with the
+    graph), else from torch's default one."""
+    import torch
+
+    model = mvit_weights(hub, seed, droppath_rate_block=0.2)
+    if explicit:
+        for i, module in enumerate([*model.blocks, model.head.dropout]):
+            module.generator = torch.Generator(device="cuda").manual_seed(seed + i)
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    app = train_app(train, PRESET_BATCH, seed, model=model, **ZERO_LR)
+    batch = app._device_batch(next(app.datamodule.train_dataloader(1)))
+    # The warm-up updates, the capture's replay and one more replay.
+    losses = [app._step(batch)[1]["loss"].item() for _ in range(WARMUP_STEPS + 2)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses.append(app._step(batch)[1]["loss"].item())
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters()), "LR 0 moved"
+    assert len(set(losses)) == len(losses), f"replays drew one mask: losses {losses}"
+    print(f"dropout on ({'explicit CUDA generators' if explicit else 'default generator'}), LR 0, "
+          f"one B{PRESET_BATCH} batch: replay losses {losses}, all different")
+    del app, model
+    torch.cuda.empty_cache()
+    return losses
+
+
+def captured_bn_case(train, label: str, preset: str, data, overrides: dict, phase18: dict,
+                     seed: int) -> dict:
+    """Phase 19 (c): a BN model's eager and captured steps from the same
+    weights and batches (dropout 0), then both timed."""
+    import copy
+
+    import torch
+
+    captured = bn_app(train, preset, data(), seed=seed, **overrides)
+    eager = bn_app(train, preset, data(), model=copy.deepcopy(captured.model), seed=seed,
+                   **overrides)
+    B = captured.datamodule.batch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses, _ = eager_run(eager, CAPTURED_BN_STEPS)
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    base = torch.cuda.memory_allocated()
+    losses, _, _, peak = captured_run(captured, CAPTURED_BN_STEPS, {}, f"{label} captured")
+    capture_peak = peak - base
+    err = tensors_close(f"{label} B{B} parameters and BN buffers after {CAPTURED_BN_STEPS} steps",
+                        captured.model.state_dict(), eager.model.state_dict())
+    print(f"{label} B{B}: {CAPTURED_BN_STEPS} captured steps against eager: losses {losses} / "
+          f"{eager_losses}; parameters, running stats and num_batches_tracked max |diff| {err!r}")
+    batch = captured._device_batch(next(captured.datamodule.train_dataloader(1)))
+    timings = step_timings({
+        "eager": lambda: eager._train_step(eager.state, batch, eager.generator),
+        "captured": lambda: captured._step(batch)}, B, 2)
+    timings["eager"]["peak_bytes"], timings["captured"]["peak_bytes"] = eager_peak, capture_peak
+    e, c = timings["eager"], timings["captured"]
+    print(f"{label} train bf16 B{B} eager / captured: {e['clips_per_s']!r} / "
+          f"{c['clips_per_s']!r} clips/s, busy {e['busy']!r} / {c['busy']!r}, host "
+          f"{e['host_ms']!r} / {c['host_ms']!r} ms/step, peak {eager_peak} / {capture_peak} "
+          f"bytes; phase 18 through app.train(): {phase18['clips_per_s']!r} clips/s, busy "
+          f"{phase18['busy_share']!r}, peak {phase18['peak_bytes']} bytes")
+    del captured, eager, batch
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": err, "losses": losses, "eager_losses": eager_losses, **timings}
+
+
+def remat_case(train, hub, model, policy, batch, seed: int) -> dict:
+    """Phase 19 (d) for one policy on MViT-B B8: one eager step's gradients
+    (``forward_backward``), and the captured step's gradients at its first
+    replay (the capture's) after its warm-up updates, with its launches,
+    timings and peak memory."""
+    import copy
+
+    import torch
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    per_step = MVIT_PER_STEP if policy is None else remat_per_step(MVIT_PER_STEP)
+    label = f"mvit_base_16x4 remat {policy}"
+    ours = copy.deepcopy(model)
+    reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train.forward_backward(ours.train(), batch["video"], batch["label"],
+                           compute_dtype=torch.bfloat16, remat_policy=policy)
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() - base
+    check_path_counts(f"{label} B{TRAIN_BATCH} eager", read_counts(), per_step, 1, "steps")
+    eager_grads = {n: p.grad.clone() for n, p in ours.named_parameters()}
+    del ours
+    app = train_app(train, TRAIN_BATCH, seed, model=copy.deepcopy(model),
+                    **{"trainer.remat_policy": policy})
+    base = torch.cuda.memory_allocated()
+    _, _, _, peak = captured_run(app, WARMUP_STEPS + 1, per_step, label)
+    capture_peak = peak - base
+    captured_grads = {n: p.grad.clone() for n, p in app.model.named_parameters()}
+    device_batch = app._device_batch(next(app.datamodule.train_dataloader(1)))
+    timings = step_timings({
+        "eager": lambda: app._train_step(app.state, device_batch, app.generator),
+        "captured": lambda: app._step(device_batch)}, TRAIN_BATCH, 3)
+    timings["captured"]["peak_bytes"] = capture_peak
+    timings["eager"]["peak_bytes"] = fb_peak
+    e, c = timings["eager"], timings["captured"]
+    print(f"{label} B{TRAIN_BATCH}: eager / captured {e['ms_per_step']!r} / "
+          f"{c['ms_per_step']!r} ms/step, busy {e['busy']!r} / {c['busy']!r} "
+          f"({e['busy_ms_per_step']!r} / {c['busy_ms_per_step']!r} device ms/step), peak "
+          f"{fb_peak} (one forward and backward) / {capture_peak} (the capture) bytes")
+    del app, device_batch
+    torch.cuda.empty_cache()
+    return {"eager_grads": eager_grads, "captured_grads": captured_grads, **timings}
+
+
+def reference_update(optimizer, names: dict, before: dict, state: dict, grads: dict,
+                     lr: float) -> dict:
+    """torch.optim's update of ``optimizer``'s kind, groups and
+    hyperparameters, in float64 one tensor at a time at the float LR ``lr``,
+    from the parameters ``before`` and the optimizer state ``state`` at the
+    gradients ``grads`` (each by name; ``names``: parameter -> name).
+    Returns {name: the parameter after}."""
+    import torch
+
+    ref, groups = {}, []
+    for group in optimizer.param_groups:
+        members = []
+        for p in group["params"]:
+            q = before[names[p]].double().clone()
+            q.grad = grads[names[p]].double()
+            ref[names[p]] = q
+            members.append(q)
+        hyper = {k: v for k, v in group.items()
+                 if k not in ("params", "lr", "foreach", "fused", "capturable")}
+        groups.append({**hyper, "params": members, "lr": lr})
+    reference = type(optimizer)(groups, lr=lr, foreach=False)
+    for n, q in ref.items():
+        if state.get(n):
+            reference.state[q] = {k: v.detach().cpu().float() if k == "step" else v.double()
+                                  for k, v in state[n].items()}
+    reference.step()
+    return {n: q.detach() for n, q in ref.items()}
+
+
+def update_share(model, ref: dict, before: dict) -> tuple:
+    """The worst tensor's |p - ref| / (LR_CHECK_REL x |ref - before| +
+    2^-23 x |ref|), L2 norms over each tensor (the second term: one f32
+    rounding of the result either way); returns (share, its name)."""
+    import torch
+
+    norm = torch.linalg.vector_norm
+    shares = []
+    for n, p in model.named_parameters():
+        bound = LR_CHECK_REL * norm(ref[n] - before[n].double()) + 2.0**-23 * norm(ref[n])
+        shares.append(((norm(p.detach().double() - ref[n]) / bound).item(), n))
+    return max(shares)
+
+
+def lr_check_case(label: str, apps: dict) -> dict:
+    """Phase 19 (e) for one model: ``apps`` (eager, eager again, captured:
+    the same weights and seeds) each make LR_CHECK_STEPS updates on the same
+    batches. Each update of the captured step (its warm-up updates, the
+    capture's replay, replays) is held against torch.optim's update from
+    the state before it at the gradients it took (``reference_update``);
+    each run's change of the parameters over all updates against the eager
+    run's is printed."""
+    import torch
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    eager = apps["eager"]
+    start = {n: p.detach().clone() for n, p in eager.model.named_parameters()}
+    batches = list(eager.datamodule.train_dataloader(LR_CHECK_STEPS))
+    lrs = [eager.state.lr_schedule(k) for k in range(LR_CHECK_STEPS)]
+    assert len(set(lrs)) == len(lrs), f"{label}: the LR repeats: {lrs}"
+    changes, shares = {}, []
+    for form, app in apps.items():
+        model, optimizer = app.model, app.state.optimizer
+        assert all(torch.equal(p, start[n]) for n, p in model.named_parameters())
+        names = {p: n for n, p in model.named_parameters()}
+        for k, batch in enumerate(batches):
+            batch = app._device_batch(batch)
+            if form != "captured":
+                app.state, _ = app._train_step(app.state, batch, app.generator)
+                continue
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            state = {names[p]: {key: v.clone() for key, v in s.items()}
+                     for p, s in optimizer.state.items()}
+            app.state, _ = app._step(batch)
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            ref = reference_update(optimizer, names, before, state, grads, lrs[k])
+            shares.append(update_share(model, ref, before))
+        changes[form] = {n: (p.detach() - start[n]).double()
+                         for n, p in model.named_parameters()}
+    (step,) = apps["captured"]._captured_steps.values()
+    assert step.graph is not None and step.calls == LR_CHECK_STEPS
+    norm = torch.linalg.vector_norm
+    whole = norm(torch.cat([d.flatten() for d in changes["eager"].values()]))
+    spread = {form: (norm(torch.cat([(changes[form][n] - d).flatten()
+                                     for n, d in changes["eager"].items()])) / whole).item()
+              for form in ("captured", "eager again")}
+    kept = sum(lrs[:WARMUP_STEPS + 1]) + lrs[WARMUP_STEPS] * (LR_CHECK_STEPS - WARMUP_STEPS - 1)
+    report = {"lrs": lrs, "update_shares": [share for share, _ in shares],
+              "change_rel_diff": spread,
+              "kept_lr_share": abs(kept - sum(lrs)) / sum(lrs)}
+    print(f"{label} f32, LRs {lrs}: each update of the captured step against torch.optim's "
+          f"(float64, float LR) from the same state at its gradients, the worst tensor's share "
+          f"of its bound ({LR_CHECK_REL} x its change + one f32 rounding): "
+          f"{[(round(share, 6), n) for share, n in shares]}; a graph that kept the capture's "
+          f"LR would move the summed LR by {report['kept_lr_share']!r}. The whole change over "
+          f"{LR_CHECK_STEPS} updates against eager's, relative L2: captured "
+          f"{spread['captured']!r}, eager again {spread['eager again']!r}")
+    worst, name = max(shares)
+    assert worst <= 1.0, f"{label}: an update off torch.optim's by {worst} of its bound in {name}"
+    assert spread["captured"] <= LR_CHECK_WHOLE_REL, (
+        f"{label}: the captured run's change off eager's by {spread['captured']}")
+    return report
+
+
+def captured_lr_checks(train, hub, seed: int) -> dict:
+    """Phase 19 (e): the LR tensor read at each replay, by AdamW (MViT-B's
+    recipe, B2) and by SGD (X3D-S on bench.py's recipe, B8), in f32."""
+    import copy
+
+    import torch
+
+    report = {}
+    model = mvit_weights(hub, seed, head_dropout_rate=0.0)
+    report["mvit_base_16x4"] = lr_check_case("mvit_base_16x4 AdamW", {
+        form: train_app(train, LR_CHECK_BATCH["mvit_base_16x4"], seed, model=copy.deepcopy(model),
+                        **{"trainer.compute_dtype": "float32"})
+        for form in ("eager", "eager again", "captured")})
+    del model
+    torch.cuda.empty_cache()
+    overrides = {**x3d_s_bench_overrides(), "trainer.compute_dtype": "float32",
+                 "model.kwargs": {"dropout_rate": 0.0}, "lr_scheduler.warmup_iters": 10,
+                 "lr_scheduler.warmup_start_lr": 0.01}
+    data = SyntheticClips(LR_CHECK_BATCH["x3d_s"], seed=seed + 1, clip=X3D_S_CLIP)
+    first = bn_app(train, "classification_x3d_xs", data, seed=seed + 1, **overrides)
+    apps = {form: bn_app(train, "classification_x3d_xs", data, seed=seed + 1,
+                         model=copy.deepcopy(first.model), **overrides)
+            for form in ("eager", "eager again")}
+    report["x3d_s"] = lr_check_case("x3d_s SGD", {**apps, "captured": first})
+    del first, apps
+    torch.cuda.empty_cache()
+    return report
+
+
+def captured_step_slice(train, hub, bn_report: dict) -> dict:
+    """Phase 19: the training step captured in CUDA graphs, against the
+    eager step: MViT-B (a, b), dropout masks across replays, the BN models
+    (c), activation rematerialisation (d), the LR on the device (e); each
+    part's seconds printed."""
+    import torch
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    t_part = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 19 {part}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    report = {"mvit": {}, "bn": {}, "remat": {}}
+    for i, (label, kwargs, B, per_step) in enumerate(CAPTURED_CASES):
+        report["mvit"][f"{label} B{B}"] = captured_mvit_case(train, hub, label, kwargs, B,
+                                                             per_step, seed=50 + i)
+    report["dropout_replays"] = {"default": dropout_replays(train, hub, 55, explicit=False),
+                                 "explicit": dropout_replays(train, hub, 56, explicit=True)}
+    lap("(a, b) and the dropout replays")
+    x3d = dict(x3d_s_bench_overrides(), **{"model.kwargs": {"dropout_rate": 0.0}})
+    report["bn"]["x3d_s"] = captured_bn_case(
+        train, "x3d_s", "classification_x3d_xs",
+        lambda: SyntheticClips(BN_X3D_BATCHES[0], seed=57, clip=X3D_S_CLIP), x3d,
+        bn_report["x3d_s"][BN_X3D_BATCHES[0]], seed=57)
+    report["bn"]["slowfast_r50"] = captured_bn_case(
+        train, "slowfast_r50", "classification_slowfast_8x8_r50",
+        lambda: SyntheticClips(BN_SLOWFAST_BATCH, seed=58, clip=SLOWFAST_CLIPS[1], alpha=4),
+        {"trainer.compute_dtype": "bfloat16", "model.kwargs": {"dropout_rate": 0.0}},
+        bn_report["slowfast_r50"][BN_SLOWFAST_BATCH], seed=58)
+    lap("(c)")
+
+    model = mvit_weights(hub, 59, head_dropout_rate=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    batch = {"video": torch.randn(TRAIN_BATCH, 3, *MVIT_CLIP, device="cuda", generator=gen),
+             "label": torch.randint(0, 400, (TRAIN_BATCH,), device="cuda", generator=gen)}
+    cases = {policy: remat_case(train, hub, model, policy, batch, seed=59)
+             for policy in REMAT_CHECKED}
+    for policy in REMAT_CHECKED[1:]:
+        row = {}
+        for form in ("eager", "captured"):
+            row[f"{form}_grad_max_abs_diff"] = tensors_close(
+                f"remat {policy} {form} gradients", cases[policy][f"{form}_grads"],
+                cases[None][f"{form}_grads"])
+            row[form] = {k: cases[policy][form][k] for k in ("ms_per_step", "busy",
+                                                             "busy_ms_per_step", "peak_bytes")}
+            row[f"{form}_without_remat"] = {k: cases[None][form][k] for k in
+                                            ("ms_per_step", "busy", "busy_ms_per_step",
+                                             "peak_bytes")}
+        print(f"remat {policy} B{TRAIN_BATCH}: gradients against the step without remat, max "
+              f"|diff| eager {row['eager_grad_max_abs_diff']!r}, captured "
+              f"{row['captured_grad_max_abs_diff']!r}")
+        report["remat"][policy] = row
+    del cases, model, batch
+    torch.cuda.empty_cache()
+
+    app = bn_app(train, "classification_x3d_xs",
+                 SyntheticClips(BN_X3D_BATCHES[1], seed=60, clip=X3D_S_CLIP), seed=60,
+                 **{**x3d_s_bench_overrides(), "trainer.remat_policy": "full"})
+    base = torch.cuda.memory_allocated()
+    losses, ms, _, peak = captured_run(app, WARMUP_STEPS + 1, {}, "x3d_s remat full")
+    report["remat"]["x3d_s B128 full"] = {"capture_peak_bytes": peak - base,
+                                          "peak_bytes_with_state": peak, "losses": losses}
+    print(f"x3d_s remat full B{BN_X3D_BATCHES[1]}: peak {peak!r} bytes with the resident state "
+          f"({peak - base!r} above it) at the capture; phase 18 without remat "
+          f"{bn_report['x3d_s'][BN_X3D_BATCHES[1]]['peak_bytes']!r} bytes; losses {losses}")
+    del app
+    torch.cuda.empty_cache()
+    lap("(d)")
+
+    report["lr"] = captured_lr_checks(train, hub, seed=61)
+    lap("(e)")
     return report
 
 
@@ -2775,6 +3419,10 @@ def main() -> None:
     bn_trained = bn_train_slice(train, card)
     print(f"phase 18 (BatchNorm-family training): {time.perf_counter() - t_phase:.1f} s")
     print("bn training report: " + json.dumps(bn_trained))
+    t_phase = time.perf_counter()
+    captured = captured_step_slice(train, hub, bn_trained)
+    print(f"phase 19 (the captured training step): {time.perf_counter() - t_phase:.1f} s")
+    print("captured step report: " + json.dumps(captured, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -2931,8 +3579,9 @@ def main() -> None:
             "replaces": "pytorchvideo_tpu/ops/pooled_attention.py:411",
             "launches": trained["pool_first_counts"]["pooled_attention_bwd"],
             "launches_by_route": by_route(trained["pool_first_counts"], "pooled_attention_bwd"),
-            "path": f"mvit_base_16x4(pool_first=True) train bf16 16x224x224, one step at "
-                    f"B{PRESET_BATCH}",
+            "path": f"mvit_base_16x4(pool_first=True) train bf16 16x224x224 through "
+                    f"app.train() at B{PRESET_BATCH}: the captured step's warm-up updates, "
+                    f"capture and one replay",
             **attention_bwd_common,
             **per_forward(attention_bwd["per_head"], extra=("first_ms", "library_bwd_ms")),
             "ms_by_route": route_sums(attention_bwd["per_head"]),
@@ -3036,6 +3685,39 @@ def main() -> None:
             "per_shape": nopad_rows,
         },
     ]
+    # The launches of the captured step, read over single updates of a new
+    # one: a warm-up update, the capture and each replay after it.
+    capture_paths = {
+        "unfused": (captured["mvit"][f"mvit_base_16x4 B{TRAIN_BATCH}"]["capture_reading"],
+                    f"phase 19: mvit_base_16x4 train bf16 B{TRAIN_BATCH}"),
+        "fused": (captured["mvit"][f"mvit_base_16x4 fused_kvpool B{TRAIN_BATCH}"]
+                  ["capture_reading"],
+                  f"phase 19: mvit_base_16x4(fused_kvpool=True) train bf16 B{TRAIN_BATCH}"),
+        "pool_first": (trained["pool_first_reading"],
+                       f"phase 10: mvit_base_16x4(pool_first=True) train bf16 B{PRESET_BATCH}, "
+                       f"through app.train()"),
+    }
+    captured_wrappers = {
+        "pooled_attention_packed": ("unfused", ("pooled_attention_packed",)),
+        "pooled_attention": ("pool_first", ("pooled_attention",)),
+        "token_pool": ("unfused", ("token_pool_conv", "token_pool_max")),
+        "pooled_attention_packed_bwd": ("unfused", ("pooled_attention_packed_bwd",)),
+        "pooled_attention_bwd": ("pool_first", ("pooled_attention_bwd",)),
+        "token_pool_dw": ("unfused", ("token_pool_dw",)),
+        "token_pool_dx": ("unfused", ("token_pool_dx",)),
+        "fused_kvpool_attention": ("fused", ("fused_kvpool_attention",)),
+        "fused_kvpool_ln": ("fused", ("fused_kvpool_attention.tiled",)),
+        "attention_nopad": ("pool_first", ("pooled_attention",)),
+    }
+    for entry in entries:
+        if entry["name"] in captured_wrappers:
+            path, names = captured_wrappers[entry["name"]]
+            reading, where = capture_paths[path]
+            entry["captured_step"] = {
+                "launches_per_warmup_update": sum(reading["warm_up"][n] for n in names),
+                "launches_at_capture": sum(reading["capture"][n] for n in names),
+                "launches_per_replay": [sum(r[n] for n in names) for r in reading["replays"]],
+                "path": where}
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

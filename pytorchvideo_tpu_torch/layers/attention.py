@@ -357,8 +357,10 @@ class MultiScaleBlock(nn.Module):
     on the residual path where the queries are strided (kernel s + 1 where
     s > 1, stride s, padding k // 2; the cls token passes through) and a
     linear projection where the width changes. In training mode each branch
-    goes through DropPath at ``droppath_rate``, its masks drawn from torch's
-    default generator of the device."""
+    goes through DropPath at ``droppath_rate``, its masks drawn from
+    ``self.generator`` where one is set (None: torch's default generator of
+    the device), as :class:`~pytorchvideo_tpu_torch.layers.stochastic.DropPath`
+    draws them."""
 
     def __init__(
         self,
@@ -390,6 +392,7 @@ class MultiScaleBlock(nn.Module):
         att_dim = dim_out if dim_mul_in_att else dim
         self.dim_mul_in_att = dim_mul_in_att
         self.droppath_rate = droppath_rate
+        self.generator: Optional[torch.Generator] = None
         self.norm1 = norm_layer(dim)
         self.attn = MultiScaleAttention(
             dim,
@@ -423,7 +426,7 @@ class MultiScaleBlock(nn.Module):
     def _drop_path(self, x: Pair) -> Pair:
         if not self.training:
             return x
-        return drop_path_pair(x, self.droppath_rate)
+        return drop_path_pair(x, self.droppath_rate, self.generator)
 
     def forward(self, x: Pair, thw: Size3) -> Tuple[Pair, Size3]:
         x_norm = _pair_map(self.norm1, x)

@@ -10,12 +10,35 @@ defaults eps 1e-5 and momentum 0.1) whose train mode follows flax's
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 
 LayerNorm = nn.LayerNorm
+
+
+class _Recompute(threading.local):
+    active = False
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While active (in this thread), a train-mode :class:`BatchNorm` leaves
+    its running stats and ``num_batches_tracked`` as they are: an activation
+    checkpoint's recomputation of a forward whose update already happened
+    (train/train_loop.py), as ``jax.checkpoint`` returns the mutated
+    collection once."""
+    previous, _RECOMPUTE.active = _RECOMPUTE.active, True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = previous
 
 
 class BatchNorm(nn.BatchNorm3d):
@@ -28,7 +51,10 @@ class BatchNorm(nn.BatchNorm3d):
     dtype); and the running stats move by ``momentum`` towards the batch
     mean and the *biased* variance (flax's decay is ``1 - momentum``), where
     ``nn.BatchNorm3d`` takes the unbiased one. ``momentum=None`` averages
-    cumulatively, as in torch. Eval mode is ``nn.BatchNorm3d``'s.
+    cumulatively, as in torch, with its factor 1 / ``num_batches_tracked``
+    taken on the buffers' device (no host read, so a CUDA graph can hold
+    it). Inside :func:`recomputing` the stats are not updated. Eval mode is
+    ``nn.BatchNorm3d``'s.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -43,11 +69,11 @@ class BatchNorm(nn.BatchNorm3d):
         bias = None if self.bias is None else self.bias.to(acc)
         out, mean, invstd = torch.ops.aten._native_batch_norm_legit(
             x, weight, bias, True, 0.0, self.eps)
-        if self.running_mean is not None:
+        if self.running_mean is not None and not _RECOMPUTE.active:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
-                factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
-                          else self.momentum)
+                factor = (1.0 / self.num_batches_tracked.to(self.running_mean.dtype)
+                          if self.momentum is None else self.momentum)
                 self.running_mean.lerp_(mean, factor)
                 self.running_var.lerp_(invstd.pow(-2) - self.eps, factor)
         return out

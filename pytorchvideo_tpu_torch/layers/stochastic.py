@@ -6,6 +6,11 @@ The JAX package draws its masks from a ``jax.random`` key; here they come
 from an explicit ``torch.Generator`` on the tensor's device, or from torch's
 default generator for that device when none is given. The two give different
 bits from one seed, so the tests compare distributions and fixed masks.
+
+A mask is drawn out of place (``torch.rand`` below ``keep``): activation
+checkpointing (train/train_loop.py) keeps the draw of the forward for the
+recomputation, and it can keep only an op's fresh output, not a tensor that an
+in-place draw has written.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ def drop_path_scale(
     is kept (probability keep = 1 - rate), else 0, in ``like``'s dtype and
     device."""
     keep = 1.0 - rate
-    mask = torch.empty((batch, 1, 1), device=like.device).bernoulli_(keep, generator=generator)
+    mask = torch.rand((batch, 1, 1), device=like.device, generator=generator) < keep
     return (mask / keep).to(like.dtype)
 
 
@@ -78,8 +83,8 @@ def dropout(
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
-    return torch.where(mask.bool(), x / keep, 0.0)
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 class Dropout(nn.Module):

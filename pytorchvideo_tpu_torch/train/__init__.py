@@ -1,13 +1,16 @@
 """Training of the port (counterpart of pytorchvideo_tpu/train): the train
-and eval steps with their mixed-precision policy, optimizer groups, LR
-schedules, precise BN, metrics, configs and presets, and the
-classification train app with its test and predict passes. It trains the
+and eval steps with their mixed-precision policy and activation
+rematerialisation, the step captured in a CUDA graph, optimizer groups
+with the LR on the device, LR schedules, precise BN, metrics, the trainer
+losses, configs and presets, and the classification train app with its
+test and predict passes and the SSL backbone graft. It trains the
 BatchNorm models (X3D, Slow, SlowFast and the other ResNet builders; the
 recipes ``classification_x3d_xs``, ``classification_slow_8x8_r50`` and
 ``classification_slowfast_8x8_r50``) and MViT (``classification_mvit_16x4``);
 see train/app.py for what waits."""
 
 from pytorchvideo_tpu_torch.train.app import VideoClassificationTrainApp  # noqa: F401
+from pytorchvideo_tpu_torch.train.compiled_step import CompiledTrainStep  # noqa: F401
 from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
     DataConfig,
     MixConfig,
@@ -17,6 +20,11 @@ from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
     save_config,
 )
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger  # noqa: F401
+from pytorchvideo_tpu_torch.train.losses import (  # noqa: F401
+    contrastive_loss,
+    ntxent_loss,
+    similarity_loss,
+)
 from pytorchvideo_tpu_torch.train.metrics import (  # noqa: F401
     average_precision,
     mean_average_precision,
@@ -30,13 +38,17 @@ from pytorchvideo_tpu_torch.train.lr_policy import (  # noqa: F401
 from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
     OptimizerConfig,
     construct_optimizer,
+    load_optimizer_state,
     lr_schedule_from_config,
     param_labels,
+    set_lr,
 )
 from pytorchvideo_tpu_torch.train.precise_batchnorm import PreciseBn, update_bn_stats  # noqa: F401
 from pytorchvideo_tpu_torch.train.presets import PRESETS, get_preset  # noqa: F401
 from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
+    REMAT_POLICIES,
     TrainState,
+    TrainStep,
     ensemble_video_level,
     forward_backward,
     make_eval_step,

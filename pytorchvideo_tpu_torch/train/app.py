@@ -8,33 +8,49 @@ caller asks for the CPU), its optimizer groups and LR schedule, and the
 train step of train/train_loop.py, then walks the datamodule's batches.
 Checkpoints are ``torch.save`` files.
 
+On the card every step runs captured, as the JAX app always runs its jitted
+step: one :class:`~pytorchvideo_tpu_torch.train.compiled_step.CompiledTrainStep`
+per batch signature, whose first ``WARMUP_STEPS`` batches are eager
+updates and whose next batch captures the update, all graphs in one memory
+pool; and the eval pass replays one ``CompiledForward`` (accelerate/deploy.py)
+of the eval-mode model per clip shape, in the same pool. A capture that fails raises. On the CPU the steps run eagerly (the
+eager step stays public through ``make_train_step``). ``load_checkpoint``
+drops the graphs, since loading rebinds the optimizer's state, and the next
+batches capture anew.
+
 It trains the BatchNorm models (X3D, Slow, SlowFast and the other ResNet
 builders) and MViT. With ``trainer.precise_bn_batches > 0`` each epoch ends
 with precise BN over that many fresh training batches
 (train/precise_batchnorm.py). ``test()`` ensembles the clips of each video
 (``trainer.test_ensemble_method``) and ``predict()`` returns per-clip logits.
+``load_ssl_backbone`` grafts a self-supervised backbone onto the model.
 
 The data layer is not ported yet: ``datamodule`` is any object whose
 ``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3, T, H, W), or
 the list [slow, fast] of them, "label": (B,)}`` (tensors or numpy arrays),
 and whose ``val_dataloader(None)`` yields such dicts with a
-``"video_index"`` (and optionally a ``"clip_index"``) per clip. Not ported
-yet either: ``load_ssl_backbone`` and activation rematerialisation
-(``trainer.remat_policy``).
+``"video_index"`` (and optionally a ``"clip_index"``) per clip.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
+from pytorchvideo_tpu_torch.accelerate.deploy import CompiledForward
+from pytorchvideo_tpu_torch.train.compiled_step import CompiledTrainStep, batch_signature
 from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger
-from pytorchvideo_tpu_torch.train.optimizer import construct_optimizer, lr_schedule_from_config
+from pytorchvideo_tpu_torch.train.optimizer import (
+    construct_optimizer,
+    load_optimizer_state,
+    lr_schedule_from_config,
+)
 from pytorchvideo_tpu_torch.train.precise_batchnorm import update_bn_stats
 from pytorchvideo_tpu_torch.train.train_loop import (
     TrainState,
@@ -75,6 +91,45 @@ class VideoClassificationTrainApp:
         self.state: Optional[TrainState] = None
         self._train_step = None
         self._eval_step = make_eval_step()
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Forget every captured graph (the card's train steps by batch
+        signature, eval forwards by clip shape) and their memory pool."""
+        self._pool = None
+        self._captured_steps: Dict[tuple, CompiledTrainStep] = {}
+        self._captured_evals: Dict[tuple, CompiledForward] = {}
+
+    def _graph_pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _step(self, batch: Dict[str, Any]):
+        """One update on a device batch: captured on the card, eager on the CPU."""
+        if self.device.type != "cuda":
+            return self._train_step(self.state, batch, self.generator)
+        key = batch_signature(self._train_step, batch)
+        step = self._captured_steps.get(key)
+        if step is None:
+            step = CompiledTrainStep(self._train_step, self.state, pool=self._graph_pool())
+            self._captured_steps[key] = step
+        return step(self.state, batch, self.generator)
+
+    def _evaluate(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Eval-mode logits of a device batch: a replayed ``CompiledForward``
+        on the card, the eager eval step on the CPU."""
+        if self.device.type != "cuda":
+            return self._eval_step(self.state, batch)
+        video = batch["video"]
+        key = tuple((tuple(t.shape), t.dtype) for t in
+                    (video if isinstance(video, (list, tuple)) else [video]))
+        self.state.model.eval()
+        forward = self._captured_evals.get(key)
+        if forward is None:
+            forward = CompiledForward(self.state.model, video, pool=self._graph_pool())
+            self._captured_evals[key] = forward
+        return forward(video)
 
     def _build_model(self):
         from pytorchvideo_tpu_torch.models import hub
@@ -138,8 +193,7 @@ class VideoClassificationTrainApp:
         for epoch in range(trainer.max_epochs):
             t0 = time.time()
             for step, batch in enumerate(self.datamodule.train_dataloader(self.steps_per_epoch)):
-                self.state, metrics = self._train_step(
-                    self.state, self._device_batch(batch), self.generator)
+                self.state, metrics = self._step(self._device_batch(batch))
                 if step % trainer.log_every_n_steps == 0:
                     history.append(float(metrics["loss"]))
                     # The LR of the update just made (the schedule's index
@@ -167,7 +221,7 @@ class VideoClassificationTrainApp:
             if max_batches is not None and n >= max_batches:
                 return
             batch = self._device_batch(batch)
-            yield batch, self._eval_step(self.state, batch)
+            yield batch, self._evaluate(batch)
 
     def test(self, num_videos: Optional[int] = None) -> Dict[str, float]:
         """Multi-clip test (upstream module/video_classification.py:275-311):
@@ -212,11 +266,43 @@ class VideoClassificationTrainApp:
         return path
 
     def load_checkpoint(self, path: str) -> TrainState:
-        """Restores model, optimizer and update count from ``path``."""
+        """Restores model, optimizer and update count from ``path``; the
+        captured graphs are dropped (the optimizer's state tensors are new)."""
         if self.state is None:
             self.setup()
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        self._drop_graphs()
         self.state.model.load_state_dict(ckpt["model"])
-        self.state.optimizer.load_state_dict(ckpt["optimizer"])
+        load_optimizer_state(self.state.optimizer, ckpt["optimizer"])
         self.state.step = int(ckpt["step"])
         return self.state
+
+    def load_ssl_backbone(self, state_dict: Mapping[str, torch.Tensor]) -> int:
+        """SSL -> classification surgery (JAX train/app.py ``load_ssl_backbone``;
+        upstream module/ssl_helper.py:67): copies in place every tensor of a
+        pretrained backbone's ``state_dict`` whose key and shape match this
+        model's, parameters and BatchNorm running stats alike, and keeps the
+        freshly initialised classifier. The head's final projection
+        (``head.proj`` for MViT, the last block's ``proj`` for the ResNet
+        family and X3D) is excluded by name, so an SSL feature width that
+        equals ``num_classes`` cannot overwrite the classifier;
+        ``num_batches_tracked`` stays this model's own count (the JAX
+        package keeps none). Call after ``setup()``; returns the number of
+        tensors grafted."""
+        if self.state is None:
+            raise RuntimeError("call setup() first")
+        ours = self.state.model.state_dict()
+        blocks = [int(m.group(1)) for m in map(re.compile(r"blocks\.(\d+)\.").match, ours) if m]
+        head = "head" if any(k.startswith("head.") for k in ours) else (
+            f"blocks.{max(blocks)}" if blocks else None)
+        grafted = 0
+        with torch.no_grad():
+            for key, theirs in state_dict.items():
+                target = ours.get(key)
+                if (target is None or key.endswith("num_batches_tracked")
+                        or (head is not None and key.startswith(f"{head}.proj."))
+                        or tuple(target.shape) != tuple(theirs.shape)):
+                    continue
+                target.copy_(torch.as_tensor(theirs))
+                grafted += 1
+        return grafted

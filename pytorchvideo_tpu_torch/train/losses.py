@@ -1,0 +1,50 @@
+"""Trainer-level losses (counterpart of pytorchvideo_tpu/train/losses.py;
+upstream pytorchvideo_trainer/module/losses.py:12-134): NT-Xent,
+similarity (BYOL) and contrastive (MoCo) losses, single-device, and the
+soft-target cross entropy re-exported.
+
+The JAX package's ``axis_name`` (NT-Xent's negatives all-gathered across
+the devices of a ``shard_map``) maps to a ``torch.distributed`` process
+group, which waits for the parallel slice of the port (ROADMAP queue 1
+item 10): passing one raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from pytorchvideo_tpu_torch.losses import soft_target_cross_entropy  # noqa: F401
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.sqrt((x * x).sum(-1, keepdim=True) + eps)
+
+
+def ntxent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.07,
+                group: Optional[object] = None) -> torch.Tensor:
+    """NT-Xent: each row of ``z1`` against every row of ``z2``, its positive
+    on the diagonal, over the batch of this device. ``group`` (the JAX
+    package's ``axis_name``) is not ported yet."""
+    if group is not None:
+        raise NotImplementedError("NT-Xent over a torch.distributed group (all-gathered "
+                                  "negatives) waits for the parallel slice, ROADMAP queue 1 "
+                                  "item 10")
+    z1, z2 = _l2_normalize(z1), _l2_normalize(z2)
+    logits = (z1 @ z2.T) / temperature
+    return F.cross_entropy(logits, torch.arange(z1.shape[0], device=z1.device))
+
+
+def similarity_loss(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Negative mean cosine similarity of the normalised embeddings (BYOL)."""
+    return -(_l2_normalize(q) * _l2_normalize(k)).sum(-1).mean()
+
+
+def contrastive_loss(q: torch.Tensor, pos_and_neg: torch.Tensor,
+                     temperature: float = 0.07) -> torch.Tensor:
+    """InfoNCE with the positive in column 0 of ``pos_and_neg`` (B, K+1, C)
+    (MoCo); ``q`` (B, C) is normalised, the keys are taken as given."""
+    logits = torch.einsum("nc,nkc->nk", _l2_normalize(q), pos_and_neg) / temperature
+    return -F.log_softmax(logits, dim=-1)[:, 0].mean()

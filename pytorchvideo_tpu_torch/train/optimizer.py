@@ -23,6 +23,18 @@ LARS waits for the SSL slice.
 (upstream's manual_update_lr); the train step sets it on every group before
 each update, indexed by the number of updates made so far, from 0, as
 ``optax.scale_by_schedule`` counts.
+
+The LR lives on the device: one 0-d tensor per optimizer, on the
+parameters' device, is every group's ``lr``, and the step writes the
+schedule's value into it (:func:`set_lr`) before each update. A CUDA graph
+of the step (train/compiled_step.py) then reads the LR of each replay,
+where a float LR would be baked into the graph. On the card the optimizers
+are the forms that read it there: ``AdamW(capturable=True)`` and
+``SGD(fused=True)`` (the foreach SGD takes a tensor LR as a host scalar, a
+read that a capture cannot hold). The tensor is float32 on the card (the
+kernels' type, and the JAX package's f32 schedule) and float64 on the CPU,
+where it holds the Python float exactly, so a CPU update equals the
+float-LR one.
 """
 
 from __future__ import annotations
@@ -72,9 +84,32 @@ def lr_schedule_from_config(cfg: LRSchedulerConfig, steps_per_epoch: int) -> Cal
     return lambda step: get_lr_at_epoch(cfg, step / steps_per_epoch)
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Writes ``lr`` into every group: in place into a tensor LR (one
+    ``fill_``, which the device runs in stream order), as a float otherwise."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict`` that keeps the optimizer's own LR tensor
+    (its dtype and device) as every group's ``lr``, with the loaded value."""
+    lr = optimizer.param_groups[0]["lr"]
+    optimizer.load_state_dict(state_dict)
+    if isinstance(lr, torch.Tensor):
+        with torch.no_grad():
+            lr.copy_(torch.as_tensor(optimizer.param_groups[0]["lr"]))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+
+
 def construct_optimizer(model: nn.Module, cfg: OptimizerConfig) -> torch.optim.Optimizer:
     """The optimizer over ``model``'s trainable parameters in the JAX
-    package's groups; each group carries its ``label``."""
+    package's groups; each group carries its ``label``, and all share one
+    0-d LR tensor on the parameters' device (see the module docstring)."""
     if cfg.lars_on:
         raise NotImplementedError("LARS is not ported yet")
     labels = param_labels(model, cfg.zero_weight_decay_1d_param)
@@ -86,8 +121,12 @@ def construct_optimizer(model: nn.Module, cfg: OptimizerConfig) -> torch.optim.O
                    if lab == label and params[n].requires_grad]
         if members:
             groups.append({"params": members, "weight_decay": wd[label], "label": label})
+    if cfg.method not in ("sgd", "adam", "adamw"):
+        raise NotImplementedError(f"optimizer {cfg.method}")
+    device = next(iter(params.values())).device
+    on_card = device.type == "cuda"
+    lr = torch.tensor(cfg.lr, dtype=torch.float32 if on_card else torch.float64, device=device)
     if cfg.method == "sgd":
-        return torch.optim.SGD(groups, lr=cfg.lr, momentum=cfg.momentum, nesterov=cfg.nesterov)
-    if cfg.method in ("adam", "adamw"):
-        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-    raise NotImplementedError(f"optimizer {cfg.method}")
+        return torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum, nesterov=cfg.nesterov,
+                               fused=True if on_card else None)
+    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card)

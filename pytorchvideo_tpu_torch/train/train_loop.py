@@ -19,18 +19,104 @@ batch statistics, as flax does.
 
 A clip is a tensor or, for SlowFast, a list of pathway tensors; the step
 casts and splits each pathway, as the JAX step maps over its tree.
+
+Activation rematerialisation (``remat_policy``, JAX train_loop.py:99-105)
+checkpoints the whole forward, as the JAX step wraps the whole
+``model.apply`` in ``jax.checkpoint``: ``torch.utils.checkpoint`` without
+reentrance, each policy a selective-checkpoint function over the aten ops
+(:data:`REMAT_POLICIES`). Convolutions and the kernels' forwards are
+recomputed under every policy but ``everything_saveable``, as JAX recomputes
+``conv_general_dilated`` and ``pallas_call`` outputs under the dots
+policies; so under ``"full"`` each kernel's forward launches twice a step.
+The random draws of DropPath and dropout are saved under every policy,
+whatever generator made them, so the recomputation applies the forward's
+masks, as ``jax.checkpoint`` replays the same key; and the train-mode
+BatchNorm leaves its running stats alone while recomputing
+(``layers/norms.py`` ``recomputing``), so they move once a forward, as the
+mutated collection ``jax.checkpoint`` returns.
+
+The step's device work (:meth:`TrainStep.update`) reads nothing back to the
+host, so train/compiled_step.py can capture it in a CUDA graph; the host's
+part (the batch transform, the LR written into the optimizer's LR tensor,
+the update count) stays outside.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from pytorchvideo_tpu_torch.layers.norms import recomputing
 from pytorchvideo_tpu_torch.losses import soft_target_cross_entropy
+from pytorchvideo_tpu_torch.train.optimizer import set_lr
+
+_aten = torch.ops.aten
+# A flax Dense is a dot_general without batch dims: aten mm / addmm (a
+# Linear on a (B, L, C) activation folds to one addmm). MViT's attention
+# einsums carry batch dims: bmm / baddbmm.
+_DOTS_NO_BATCH = frozenset({_aten.mm, _aten.addmm})
+_DOTS = _DOTS_NO_BATCH | {_aten.bmm, _aten.baddbmm}
+# Policy name (the JAX package's: "full" or a jax.checkpoint_policies
+# member) -> the aten ops whose outputs the forward saves, or None where
+# every output is saved, which is the step without rematerialisation.
+REMAT_POLICIES = {
+    "full": frozenset(),
+    "nothing_saveable": frozenset(),
+    "everything_saveable": None,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+}
+
+
+def checkpoint_policy(remat_policy: Optional[str]) -> Optional[Callable]:
+    """The selective-checkpoint function of a policy name (None where the
+    forward runs unchecked: no policy, or ``everything_saveable``). It saves
+    the outputs of the policy's ops and of every random op
+    (``nondeterministic_seeded``), and recomputes the rest. Raises
+    ValueError on another name, the JAX factory policies
+    (``save_only_these_names`` ...) included: a bare name cannot configure
+    them."""
+    if remat_policy is None:
+        return None
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} is not one of {sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[remat_policy]
+    if saved is None:
+        return None
+
+    def policy(ctx, op, *args, **kwargs):
+        if (getattr(op, "overloadpacket", None) in saved
+                or torch.Tag.nondeterministic_seeded in getattr(op, "tags", ())):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+@contextlib.contextmanager
+def _recompute_context(cached_mode):
+    with cached_mode, recomputing():
+        yield
+
+
+def _remat_contexts(policy: Callable):
+    """``context_fn`` of the checkpoint: the selective-checkpoint modes, the
+    recomputation's also under BatchNorm's ``recomputing``."""
+    forward, recompute = create_selective_checkpoint_contexts(policy)
+    return forward, _recompute_context(recompute)
 
 
 @dataclass
@@ -72,16 +158,29 @@ def cast_parameters(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Ten
 
 def forward_backward(model: nn.Module, video: Video, labels: torch.Tensor,
                      loss_fn: Callable = soft_target_cross_entropy,
-                     compute_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0):
+                     compute_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0,
+                     remat_policy: Optional[str] = None):
     """One forward and backward of ``loss_fn(f32 logits, labels)``; the
     gradients (times ``grad_scale``) accumulate into the parameters' ``.grad``.
+    ``remat_policy`` checkpoints the forward (see the module docstring).
     Returns the detached loss and logits."""
-    if compute_dtype is None:
-        logits = model(video)
+    policy = checkpoint_policy(remat_policy)
+    params = None
+    if compute_dtype is not None:
+        params = cast_parameters(model, compute_dtype)
+        video = map_video(lambda v: v.to(compute_dtype), video)
+
+    def forward(params, video):
+        if params is None:
+            return model(video)
+        return torch.func.functional_call(model, params, (video,))
+
+    if policy is None:
+        logits = forward(params, video)
     else:
-        logits = torch.func.functional_call(
-            model, cast_parameters(model, compute_dtype),
-            (map_video(lambda v: v.to(compute_dtype), video),))
+        logits = checkpoint(forward, params, video, use_reentrant=False,
+                            preserve_rng_state=False,
+                            context_fn=functools.partial(_remat_contexts, policy))
     loss = loss_fn(logits.float(), labels)
     (loss * grad_scale).backward()
     return loss.detach(), logits.detach()
@@ -102,6 +201,77 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+class TrainStep:
+    """``step(state, batch, generator=None) -> (state, metrics)``, built by
+    :func:`make_train_step`: :meth:`prepare` (the host's part: checks, the
+    batch transform), the LR of update ``state.step`` written into the
+    optimizer (:func:`~pytorchvideo_tpu_torch.train.optimizer.set_lr`),
+    :meth:`update` (the device's part), then the update count."""
+
+    def __init__(self, loss_fn: Callable, batch_transform: Optional[Callable],
+                 clip_grad_norm: Optional[float], input_key: str, label_key: str,
+                 compute_dtype: Optional[torch.dtype], remat_policy: Optional[str],
+                 grad_accum_steps: int):
+        checkpoint_policy(remat_policy)  # refuses an unknown name here
+        if grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+        self.loss_fn, self.batch_transform = loss_fn, batch_transform
+        self.clip_grad_norm = clip_grad_norm
+        self.input_key, self.label_key = input_key, label_key
+        self.compute_dtype, self.remat_policy = compute_dtype, remat_policy
+        self.grad_accum_steps = grad_accum_steps
+
+    def prepare(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
+        """(video, labels) of ``batch`` after the batch transform, which
+        draws its random scalars from ``generator``."""
+        video, labels = batch[self.input_key], batch[self.label_key]
+        if labels.shape[0] % self.grad_accum_steps:
+            raise ValueError(f"batch size {labels.shape[0]} is not divisible by "
+                             f"grad_accum_steps={self.grad_accum_steps}")
+        if self.batch_transform is not None:
+            video, labels = self.batch_transform(video, labels, generator)
+        return video, labels
+
+    def update(self, state: TrainState, video: Video, labels: torch.Tensor) -> Dict[str, Any]:
+        """The forward and backward of every microbatch, the zero gradients
+        of parameters the loss does not reach, the clip and the optimizer's
+        update at the LR it holds; returns the metrics as 0-d device
+        tensors. No value is read back to the host."""
+        model = state.model
+        model.train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        hard_labels = labels.dim() == 1
+        chunks = self.grad_accum_steps
+        loss_sum = accuracy_sum = 0.0
+        for v, y in zip(split_video(video, chunks), labels.chunk(chunks)):
+            loss, logits = forward_backward(model, v, y, self.loss_fn, self.compute_dtype,
+                                            1.0 / chunks, self.remat_policy)
+            loss_sum = loss_sum + loss
+            if hard_labels:
+                accuracy_sum = accuracy_sum + (logits.argmax(-1) == y).float().mean()
+        for p in params:
+            if p.grad is None:  # a parameter the loss does not reach: zero, as in JAX
+                p.grad = torch.zeros_like(p)
+        if self.clip_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
+        state.optimizer.step()
+        metrics = {"loss": loss_sum / chunks}
+        if hard_labels:
+            metrics["accuracy"] = accuracy_sum / chunks
+        return metrics
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any],
+                 generator: Optional[torch.Generator] = None):
+        video, labels = self.prepare(batch, generator)
+        if state.lr_schedule is not None:
+            set_lr(state.optimizer, state.lr_schedule(state.step))
+        metrics = self.update(state, video, labels)
+        state.step += 1
+        return state, metrics
+
+
 def make_train_step(
     loss_fn: Callable = soft_target_cross_entropy,
     batch_transform: Optional[Callable] = None,
@@ -111,12 +281,15 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat_policy: Optional[str] = None,
     grad_accum_steps: int = 1,
-):
-    """Build ``step(state, batch, generator=None) -> (state, metrics)``.
+) -> TrainStep:
+    """Build the eager step ``step(state, batch, generator=None) -> (state,
+    metrics)`` (a :class:`TrainStep`).
 
     ``batch_transform``: optional (video, labels, generator) -> (video,
     labels), MixUp/CutMix on the device, run once on the whole batch.
     ``compute_dtype``: e.g. ``torch.bfloat16``; see the module docstring.
+    ``remat_policy``: None, or one of :data:`REMAT_POLICIES` (ValueError
+    otherwise); see the module docstring.
     ``grad_accum_steps``: the batch is split into that many equal
     microbatches whose gradients are averaged before ONE optimizer update;
     the BatchNorm running stats go through the microbatches in order, as
@@ -124,50 +297,8 @@ def make_train_step(
     Metrics: "loss" (the microbatches' mean) and, on hard labels, top-1
     "accuracy", both as 0-d tensors on the device (reading them waits for the
     step)."""
-    if remat_policy is not None:
-        raise NotImplementedError("remat_policy (activation checkpointing) is not ported yet")
-    if grad_accum_steps < 1:
-        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
-
-    def step(state: TrainState, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
-        video, labels = batch[input_key], batch[label_key]
-        batch_size = labels.shape[0]
-        if batch_size % grad_accum_steps:
-            raise ValueError(f"batch size {batch_size} is not divisible by "
-                             f"grad_accum_steps={grad_accum_steps}")
-        hard_labels = labels.dim() == 1
-        if batch_transform is not None:
-            video, labels = batch_transform(video, labels, generator)
-            hard_labels = False
-        model = state.model
-        model.train()
-        params = [p for p in model.parameters() if p.requires_grad]
-        for p in params:
-            p.grad = None
-        loss_sum = accuracy_sum = 0.0
-        for v, y in zip(split_video(video, grad_accum_steps), labels.chunk(grad_accum_steps)):
-            loss, logits = forward_backward(model, v, y, loss_fn, compute_dtype,
-                                            1.0 / grad_accum_steps)
-            loss_sum = loss_sum + loss
-            if hard_labels:
-                accuracy_sum = accuracy_sum + (logits.argmax(-1) == y).float().mean()
-        for p in params:
-            if p.grad is None:  # a parameter the loss does not reach: zero, as in JAX
-                p.grad = torch.zeros_like(p)
-        if clip_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in params], clip_grad_norm)
-        if state.lr_schedule is not None:
-            lr = state.lr_schedule(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        metrics = {"loss": loss_sum / grad_accum_steps}
-        if hard_labels:
-            metrics["accuracy"] = accuracy_sum / grad_accum_steps
-        return state, metrics
-
-    return step
+    return TrainStep(loss_fn, batch_transform, clip_grad_norm, input_key, label_key,
+                     compute_dtype, remat_policy, grad_accum_steps)
 
 
 def make_eval_step(input_key: str = "video"):

@@ -1256,3 +1256,332 @@ def test_x3d_bf16_step_grads_near_f32_compute(cuda):
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(m.running_var.dtype == torch.float32 for m in model.modules()
                if isinstance(m, BatchNorm))
+
+
+# --- the captured training step ---------------------------------------------
+
+class _CardClips:
+    """A datamodule of seeded clips on the card: ``train_dataloader(n)``
+    yields n batches (the same n on every call; ``fixed``: one batch n
+    times); ``val_dataloader(None)`` two batches of two videos' clips."""
+
+    def __init__(self, clip, batch=2, classes=7, fixed=False):
+        self.clip, self.batch, self.classes, self.fixed = clip, batch, classes, fixed
+
+    def _batch(self, g, **extra):
+        return {"video": torch.randn(self.batch, 3, *self.clip, device="cuda", generator=g),
+                "label": torch.randint(0, self.classes, (self.batch,), device="cuda",
+                                       generator=g), **extra}
+
+    def train_dataloader(self, n):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(n):
+            if self.fixed:
+                g.manual_seed(0)
+            yield self._batch(g)
+
+    def val_dataloader(self, _):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for first in (0, 2):
+            videos = torch.tensor([first, first, first + 1, first + 1], device="cuda")
+            yield {**self._batch(g), "video_index": videos,
+                   "clip_index": torch.tensor([0, 1, 0, 1], device="cuda")}
+
+
+def _train_app(model, data, steps=3, **overrides):
+    from pytorchvideo_tpu_torch.train import VideoClassificationTrainApp, get_preset
+
+    cfg = get_preset("classification_mvit_16x4", **{
+        "model.num_classes": 7, "trainer.max_epochs": 1, "trainer.log_every_n_steps": 1,
+        "trainer.compute_dtype": "bfloat16", **overrides})
+    app = VideoClassificationTrainApp(cfg, model=model, datamodule=data, steps_per_epoch=steps)
+    app.setup()
+    return app
+
+
+def _assert_grads_close(got: dict, ref: dict):
+    """Gradients within phase 9's bf16 bound (chip_smoke.py STEP_GRAD_TOL:
+    0.1 x the tensor's largest + 0.01 x its module's). The eager step is not
+    bitwise repeatable itself (PyTorch's max-pool backward adds with
+    atomics), so neither is a replay against it."""
+    module_max = {}
+    for n, r in ref.items():
+        module = n.split(".")[0]
+        module_max[module] = max(module_max.get(module, 0.0), r.abs().max().item())
+    for n, r in ref.items():
+        bound = 0.1 * r.abs().max().item() + 0.01 * module_max[n.split(".")[0]]
+        assert (got[n] - r).abs().max().item() <= bound, n
+
+
+def _steps(app, batches, captured):
+    """One update per batch (``app._step``: captured on the card; else the
+    eager step); the losses and each update's gradients."""
+    losses, grads = [], []
+    for batch in batches:
+        batch = app._device_batch(batch)
+        if captured:
+            app.state, metrics = app._step(batch)
+        else:
+            app.state, metrics = app._train_step(app.state, batch, app.generator)
+        losses.append(metrics["loss"].item())
+        grads.append({n: p.grad.clone() for n, p in app.model.named_parameters()})
+    return losses, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [None, "full"])
+def test_captured_step_equals_the_eager_step(cuda, remat):
+    # A small MViT in bf16 on the recipe (MixUp, AdamW, clip), dropout 0:
+    # five updates through the captured step (two eager warm-up updates, the
+    # capture's replay, two replays) and five eager ones of a copy, from the
+    # same weights, batches and MixUp draws: the losses within 1e-2, each
+    # update's gradients within phase 9's bound.
+    import copy
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    model = _small_mvit(cuda, head_dropout_rate=0.0)
+    data = _CardClips((4, 32, 32))
+    overrides = {"trainer.remat_policy": remat}
+    captured = _train_app(model, data, **overrides)
+    eager = _train_app(copy.deepcopy(model), data, **overrides)
+    batches = list(data.train_dataloader(5))
+    before = pa.pooled_attention_packed_cuda.launches
+    losses, grads = _steps(captured, batches, captured=True)
+    launched = pa.pooled_attention_packed_cuda.launches - before
+    (step,) = captured._captured_steps.values()
+    assert step.graph is not None and step.calls == 5 and captured.state.step == 5
+    before = pa.pooled_attention_packed_cuda.launches
+    eager_losses, eager_grads = _steps(eager, batches, captured=False)
+    per_step = (pa.pooled_attention_packed_cuda.launches - before) // 5
+    # The warm-up updates and the capture launch; replays none.
+    assert launched == (WARMUP_STEPS + 1) * per_step > 0
+    assert per_step == (12 if remat == "full" else 6)  # 3 blocks, grid + cls, x2 recomputed
+    for a, b in zip(losses, eager_losses):
+        assert abs(a - b) <= 1e-2 * abs(b), (losses, eager_losses)
+    for got, ref in zip(grads, eager_grads):
+        _assert_grads_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_captured_step_refuses_another_batch_signature(cuda):
+    from pytorchvideo_tpu_torch.train import CompiledTrainStep, TrainState
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    app = _train_app(_small_mvit(cuda, head_dropout_rate=0.0), _CardClips((4, 32, 32)))
+    batch = next(app.datamodule.train_dataloader(1))
+    step = CompiledTrainStep(app._train_step, app.state)
+    step(app.state, batch)  # the first call fixes the signature
+    with pytest.raises(ValueError, match="captured for the batch signature"):
+        step(app.state, {**batch, "video": batch["video"][:1], "label": batch["label"][:1]})
+    for _ in range(WARMUP_STEPS):
+        step(app.state, batch)
+    assert step.graph is not None
+    for bad in ({**batch, "video": batch["video"][:1], "label": batch["label"][:1]},
+                {**batch, "video": batch["video"].double()},
+                {**batch, "video": [batch["video"]]}):
+        with pytest.raises(ValueError, match="captured for the batch signature"):
+            step(app.state, bad)
+    with pytest.raises(ValueError, match="another train state"):
+        step(TrainState(app.model, app.state.optimizer), batch)
+    # The app keeps one graph per signature instead.
+    app.datamodule = _CardClips((4, 32, 32), batch=4)
+    app.train()
+    app.datamodule = _CardClips((4, 32, 32), batch=2)
+    app.train()
+    assert [s.graph is not None for s in app._captured_steps.values()] == [True, True]
+
+
+def _small_x3d(cuda):
+    from pytorchvideo_tpu_torch.models.x3d import create_x3d
+
+    torch.manual_seed(34)
+    return create_x3d(input_clip_length=4, input_crop_size=32, model_num_class=7,
+                      dropout_rate=0.0, device=cuda)
+
+
+@pytest.mark.cuda
+def test_captured_bn_step_is_the_eager_step_bitwise(cuda):
+    # With cuDNN's deterministic algorithms the small X3D's f32 step repeats
+    # itself bit for bit, so six updates through the captured step (two
+    # warm-up updates, the capture's replay, three replays) equal six eager
+    # updates of a copy exactly: parameters, running stats, counts and the
+    # optimizer's momentum, at an LR that changes at every update.
+    import copy
+
+    from pytorchvideo_tpu_torch.train import VideoClassificationTrainApp, get_preset
+
+    data = _CardClips((4, 32, 32), batch=4)
+    model = _small_x3d(cuda)
+    apps = []
+    for m in (model, copy.deepcopy(model)):
+        cfg = get_preset("classification_x3d_xs", **{
+            "model.num_classes": 7, "trainer.max_epochs": 1, "lr_scheduler.warmup_iters": 10,
+            "lr_scheduler.warmup_start_lr": 0.01})
+        app = VideoClassificationTrainApp(cfg, model=m, datamodule=data, steps_per_epoch=6)
+        app.setup()
+        apps.append(app)
+    captured, eager = apps
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        losses, _ = _steps(captured, list(data.train_dataloader(6)), captured=True)
+        eager_losses, _ = _steps(eager, list(data.train_dataloader(6)), captured=False)
+    (step,) = captured._captured_steps.values()
+    assert step.graph is not None and step.calls == 6
+    assert losses == eager_losses
+    ref = eager.model.state_dict()
+    for n, t in captured.model.state_dict().items():
+        assert torch.equal(t, ref[n]), n
+    ours = [s["momentum_buffer"] for s in captured.state.optimizer.state.values()]
+    theirs = [s["momentum_buffer"] for s in eager.state.optimizer.state.values()]
+    assert len(ours) == len(theirs) > 0
+    assert all(torch.equal(a, b) for a, b in zip(ours, theirs))
+
+
+def _reference_update(optimizer, names, before, state, grads, lr):
+    """torch.optim's update of ``optimizer``'s kind, groups and
+    hyperparameters in float64, one tensor at a time at the float LR
+    ``lr``, from the parameters ``before`` and the optimizer ``state`` at the
+    gradients ``grads`` (each by name): {name: the parameter after}."""
+    ref, groups = {}, []
+    for group in optimizer.param_groups:
+        members = []
+        for p in group["params"]:
+            q = before[names[p]].double().clone()
+            q.grad = grads[names[p]].double()
+            ref[names[p]] = q
+            members.append(q)
+        hyper = {k: v for k, v in group.items()
+                 if k not in ("params", "lr", "foreach", "fused", "capturable")}
+        groups.append({**hyper, "params": members, "lr": lr})
+    reference = type(optimizer)(groups, lr=lr, foreach=False)
+    for n, q in ref.items():
+        if state.get(n):
+            reference.state[q] = {k: v.cpu().float() if k == "step" else v.double()
+                                  for k, v in state[n].items()}
+    reference.step()
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mvit_adamw", "x3d_sgd"])
+def test_captured_step_reads_the_scheduled_lr(cuda, kind):
+    # f32 compute, dropout 0, an LR that changes at every update (the MViT
+    # recipe's warm-up; X3D-XS's SGD with a 10-epoch warm-up): six updates
+    # through the captured step (two warm-up updates, the capture's replay,
+    # three replays), each held against torch.optim's update in float64 at
+    # the float LR from the state before it and the gradients it took: per
+    # tensor within 1e-5 of the change plus one f32 rounding of the result.
+    # A graph that kept the capture's LR (30% off here) or skipped the
+    # update misses by thousands of times the bound.
+    from pytorchvideo_tpu_torch.train import VideoClassificationTrainApp, get_preset
+
+    data = _CardClips((4, 32, 32), batch=4)
+    if kind == "mvit_adamw":
+        app = _train_app(_small_mvit(cuda, head_dropout_rate=0.0), data, steps=6,
+                         **{"trainer.compute_dtype": "float32"})
+    else:
+        cfg = get_preset("classification_x3d_xs", **{
+            "model.num_classes": 7, "trainer.max_epochs": 1, "lr_scheduler.warmup_iters": 10,
+            "lr_scheduler.warmup_start_lr": 0.01})
+        app = VideoClassificationTrainApp(cfg, model=_small_x3d(cuda), datamodule=data,
+                                          steps_per_epoch=6)
+        app.setup()
+    model, optimizer = app.model, app.state.optimizer
+    names = {p: n for n, p in model.named_parameters()}
+    lrs = [app.state.lr_schedule(k) for k in range(6)]
+    assert len(set(lrs)) == 6, lrs
+    for k, batch in enumerate(data.train_dataloader(6)):
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = {names[p]: {key: v.clone() for key, v in s.items()}
+                 for p, s in optimizer.state.items()}
+        app.state, _ = app._step(app._device_batch(batch))
+        ref = _reference_update(optimizer, names, before, state,
+                                {n: p.grad for n, p in model.named_parameters()}, lrs[k])
+        for n, p in model.named_parameters():
+            change = torch.linalg.vector_norm(ref[n] - before[n].double())
+            bound = 1e-5 * change + 2.0**-23 * torch.linalg.vector_norm(ref[n])
+            assert change > 0 and torch.linalg.vector_norm(p.double() - ref[n]) <= bound, (k, n)
+    (step,) = app._captured_steps.values()
+    assert step.graph is not None and step.calls == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explicit", [False, True], ids=["default_generator", "own_generator"])
+def test_replays_draw_new_dropout_masks(cuda, explicit):
+    # Head dropout 0.5 and DropPath 0.3, LR 0, one fixed batch: the
+    # parameters stay, and every update's loss differs (new masks at each
+    # replay).
+    model = _small_mvit(cuda, head_dropout_rate=0.5, droppath_rate_block=0.3)
+    if explicit:
+        for i, module in enumerate([*model.blocks, model.head.dropout]):
+            module.generator = torch.Generator(device=cuda).manual_seed(40 + i)
+    app = _train_app(model, _CardClips((4, 32, 32), fixed=True), steps=5, **{
+        "lr_scheduler.lr_policy": "steps_with_relative_lrs", "lr_scheduler.lr": 0.0,
+        "lr_scheduler.steps": [0], "lr_scheduler.lrs": [1.0], "lr_scheduler.warmup_iters": 0,
+        "mix.enabled": False})
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = app.train()  # two warm-up updates, then three replays
+    assert len(set(losses)) == 5, losses
+    for n, p in model.named_parameters():
+        assert torch.equal(p, before[n]), n
+
+
+@pytest.mark.cuda
+def test_load_checkpoint_then_step_equals_the_eager_step(cuda, tmp_path):
+    # Train (captured), save, load into a fresh app that holds a graph
+    # (which it drops), then three updates through the captured step (two
+    # warm-up updates, the capture's replay): the same as eager updates from
+    # the same checkpoint.
+    model = _small_mvit(cuda, head_dropout_rate=0.0)
+    data = _CardClips((4, 32, 32))
+    app = _train_app(model, data, steps=4, **{"trainer.checkpoint_dir": str(tmp_path)})
+    app.train()
+    path = str(tmp_path / "ckpt_0.pt")
+    grads = {}
+    for form in ("captured", "eager"):
+        other = _train_app(_small_mvit(cuda, head_dropout_rate=0.0), data, steps=3)
+        other.train()
+        assert all(s.graph is not None for s in other._captured_steps.values())
+        other.load_checkpoint(path)
+        assert not other._captured_steps and other.state.step == 4
+        lr = other.state.optimizer.param_groups[0]["lr"]
+        assert lr.device.type == "cuda" and lr.dtype == torch.float32
+        assert all(g["lr"] is lr for g in other.state.optimizer.param_groups)
+        other.generator.manual_seed(7)
+        _, grads[form] = _steps(other, list(data.train_dataloader(3)), form == "captured")
+        assert other.state.step == 7
+        assert [s.graph is not None for s in other._captured_steps.values()] == (
+            [True] if form == "captured" else [])
+    for got, ref in zip(grads["captured"], grads["eager"]):
+        _assert_grads_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_app_on_the_card_captures_and_tests_through_graphs(cuda):
+    # A small X3D on the X3D-XS preset (SGD, BN): train() captures, test()
+    # and predict() replay one eval graph per clip shape, and test()'s
+    # ensembling equals the one by hand from predict().
+    from pytorchvideo_tpu_torch.train import VideoClassificationTrainApp, get_preset
+
+    model = _small_x3d(cuda)
+    cfg = get_preset("classification_x3d_xs", **{
+        "model.num_classes": 7, "trainer.max_epochs": 1, "trainer.precise_bn_batches": 2})
+    app = VideoClassificationTrainApp(cfg, model=model, datamodule=_CardClips((4, 32, 32), 4),
+                                      steps_per_epoch=3)
+    app.train()
+    (step,) = app._captured_steps.values()
+    assert step.graph is not None and app.state.step == 3
+    assert all(m.num_batches_tracked.item() == 3 for m in model.modules()
+               if isinstance(m, torch.nn.modules.batchnorm._BatchNorm))
+    result = app.test()
+    predictions = app.predict()
+    assert len(app._captured_evals) == 1
+    logits = torch.cat([p["logits"] for p in predictions])
+    index = torch.cat([p["video_index"] for p in predictions])
+    labels = torch.cat([p["label"] for p in predictions])
+    summed = torch.zeros(4, 7).index_add_(0, index, logits.float())
+    truth = torch.zeros(4, dtype=torch.long).index_copy_(0, index, labels)
+    assert result == {"video_top1": (summed.argmax(-1) == truth).float().mean().item()}
+    with torch.no_grad():
+        eager = model.eval()(app._device_batch(next(app.datamodule.val_dataloader(None)))["video"])
+    torch.testing.assert_close(predictions[0]["logits"], eager.cpu(), rtol=1e-5, atol=1e-5)
