@@ -236,6 +236,43 @@ exits nonzero, printing no result, when a check fails or no card is present.
     ``LR_CHECK_REL`` of the change plus one f32 rounding; the whole change
     over the six, captured against eager, within ``LR_CHECK_WHOLE_REL``
     (relative L2; the eager step's own spread printed beside it).
+20. The data feed (data/, transforms/, train/datamodule.py; no kernel of
+    the port: the JAX package's data path reaches no Pallas kernel). (a)
+    Every functional op and transform class (fixed seeds), the 14
+    RandAugment ops at magnitudes that exercise each, RandAugment, AugMix
+    and ``create_video_transform``'s chains on a CUDA tensor against the
+    same call on a CPU tensor, on a seeded uint8 clip at MViT's decode
+    geometry (16x256x340) and its float32 / 255: index ops and the uint8
+    ops (equalize, posterize, solarize, invert) equal, every other result
+    within ``FEED_TOL`` of its value range; the worst error per op printed.
+    (b) A ``ClipStore`` of ``FEED_STORE_CLIPS`` seeded uint8 clips at
+    13x240x320 (``prepare_clip_store``, under build/), then
+    ``ClipStore.batches`` -> ``device_prefetch`` to the card at B128, and
+    ``ClipStore.prefetch`` (each batch gathered into the pinned ring): each
+    batch equal byte for byte to ``store.gather`` of its indices; the host
+    gather's GB/s (into a new buffer and into a pinned one) and the pinned
+    ring's copy GB/s; the pinned allocations equal to the ring's size per
+    leaf, not the batch count; the overlap (a consumer that spends the
+    producer's time per batch should take max(produce, consume), not their
+    sum, as the JAX package's ``--no-device`` probe takes it); ``close()``
+    in mid-epoch stops the producer. (c) ``hub.x3d_s`` deploy bf16 as a
+    ``CompiledForward`` at B128 fed from that store by ``ClipStore.prefetch``
+    through the val chain run on the card in the prefetch's stream
+    (``Div255``, ``Normalize``, ``ShortSideScale(182)``,
+    ``CenterCropVideo(160)``, THWC -> CTHW): clips/s beside the same graph
+    on one resident batch (steady windows, in turns), the busy share, host
+    ms of the chain; one fed batch's logits
+    within the bf16 logit bound of the same clips transformed on the CPU.
+    (d) ``classification_mvit_16x4`` (RandAugment, MixUp/CutMix, bf16) at
+    B8 through ``app.train()`` fed from a store of ``TRAIN_STORE_CLIPS``
+    clips at 16x256x340 by an adapter that runs
+    ``create_video_transform("train", aug_type="randaug")`` per clip on the
+    card, in the prefetch's stream and, for comparison, in the step's:
+    steady clips/s beside the captured step on one resident batch, the busy
+    share, host ms of the chain, finite losses, and the launches per update
+    phase 19 reads. (e) The app
+    built without a datamodule builds ``VideoClassificationDataModule`` on
+    the card (not iterated: the card's machine has no video decoder).
 
 Each phase from 15 on prints its seconds.
 
@@ -3326,6 +3363,560 @@ def captured_step_slice(train, hub, bn_report: dict) -> dict:
     return report
 
 
+# Phase 20, the data feed. (a) the transforms at MViT's decode geometry; (b)
+# and (c) a store of X3D-S clips before their resize; (d) a store at MViT's
+# decode geometry.
+FEED_CLIP = (16, 256, 340)
+FEED_TOL = 1e-5  # float results, CUDA against CPU, relative to the value range
+FEED_EXACT_OPS = ("Equalize", "Posterize", "Solarize", "Invert")
+FEED_OP_FACTORS = {
+    "AutoContrast": [None], "Equalize": [None], "Invert": [None],
+    "AdjustBrightness": [0.3, 1.6], "AdjustContrast": [0.2, 1.8],
+    "AdjustSaturation": [0.1, 1.9], "AdjustSharpness": [0.1, 1.9],
+    "Posterize": [0, 2, 4], "Solarize": [0.1, 0.5, 0.9], "Rotate": [-27.0, 13.5],
+    "ShearX": [-0.3, 0.17], "ShearY": [0.3, -0.11], "TranslateX": [-0.45, 0.2],
+    "TranslateY": [0.45, -0.13],
+}
+FEED_STORE_CLIPS = 256
+FEED_STORE_CLIP = (13, 240, 320)
+FEED_BATCH = 128
+FEED_BATCHES = 12
+FEED_MEAN, FEED_STD = (0.45, 0.45, 0.45), (0.225, 0.225, 0.225)
+TRAIN_STORE_CLIPS = 64
+FEED_TRAIN_STEPS = 10
+FEED_PROFILED_BATCHES = 6
+
+
+def feed_compare(rows: dict, name: str, make, x, exact: bool) -> None:
+    """``make()(x)`` on the card against ``make()(x)`` on the CPU (a new
+    transform each, so seeded ones draw alike): equal where ``exact``, else
+    within ``FEED_TOL`` of the CPU result's value range. Records the worst
+    error relative to the range in ``rows[name]``."""
+    import torch
+
+    def leaves(out):
+        if isinstance(out, dict):
+            out = out["video"]
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    want = leaves(make()(x.clone()))
+    got = leaves(make()(x.cuda()))
+    assert len(want) == len(got), name
+    worst = 0.0
+    for w, g in zip(want, got):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, (
+            f"{name}: {g.device} {tuple(g.shape)} {g.dtype} against {tuple(w.shape)} {w.dtype}")
+        g = g.cpu()
+        if exact:
+            assert torch.equal(g, w), f"{name}: the card's result differs from the CPU's"
+            continue
+        span = float(w.double().max() - w.double().min()) or 1.0
+        err = float((g.double() - w.double()).abs().max()) / span
+        assert err <= FEED_TOL, f"{name}: {err!r} of the value range > {FEED_TOL}"
+        worst = max(worst, err)
+    rows[name] = worst
+
+
+def transforms_on_card(card: str) -> dict:
+    """Phase 20 (a): each transform on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from pytorchvideo_tpu_torch.transforms import augmentations as A
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms import transforms as T
+    from pytorchvideo_tpu_torch.transforms.augmix import AugMix
+    from pytorchvideo_tpu_torch.transforms.rand_augment import RandAugment
+    from pytorchvideo_tpu_torch.transforms.transforms_factory import create_video_transform
+
+    u8 = torch.from_numpy(np.random.default_rng(20).integers(0, 256, size=(*FEED_CLIP, 3),
+                                                             dtype=np.uint8))
+    f32 = u8.float() / 255.0
+    rows = {}
+
+    def fn(f):
+        return lambda: f
+
+    seeded = torch.Generator
+    exact = [
+        ("uniform_temporal_subsample", fn(lambda x: F.uniform_temporal_subsample(x, 8))),
+        ("uniform_temporal_subsample_repeated",
+         fn(lambda x: F.uniform_temporal_subsample_repeated(x, (1, 4)))),
+        ("crop", fn(lambda x: F.crop(x, 17, 33, 224))),
+        *[(f"uniform_crop {i}", fn(lambda x, i=i: F.uniform_crop(x, 224, i))) for i in range(3)],
+        ("center_crop", fn(lambda x: F.center_crop(x, 224))),
+        ("horizontal_flip", fn(F.horizontal_flip)),
+        ("random_crop", fn(lambda x: F.random_crop(x, 224, seeded().manual_seed(5)))),
+        ("thwc_to_cthw", fn(lambda x: F.thwc_to_cthw(x).contiguous())),
+        ("UniformTemporalSubsample", lambda: T.UniformTemporalSubsample(8)),
+        ("UniformTemporalSubsampleRepeated", lambda: T.UniformTemporalSubsampleRepeated((1, 4))),
+        ("RandomCropVideo", lambda: T.RandomCropVideo(224, seed=2)),
+        ("CenterCropVideo", lambda: T.CenterCropVideo(224)),
+        ("RandomHorizontalFlipVideo", lambda: T.RandomHorizontalFlipVideo(0.5, seed=1)),
+        ("UniformCropVideo", lambda: (lambda x: T.UniformCropVideo(224)(
+            {"video": x, "aug_index": 2}))),
+        ("Permute", lambda: T.Permute((3, 0, 1, 2))),
+        ("MoveChannelFront", lambda: T.MoveChannelFront()),
+        ("OpSampler", lambda: T.OpSampler([F.horizontal_flip, A._invert,
+                                           lambda x: F.crop(x, 3, 4, 200)],
+                                          num_sample_op=2, seed=3)),
+    ]
+    for name, make in exact:
+        feed_compare(rows, name, make, u8, exact=True)
+    feed_compare(rows, "MoveChannelRear", lambda: T.MoveChannelRear(),
+                 F.thwc_to_cthw(u8).contiguous(), exact=True)
+    feed_compare(rows, "ConvertFloatToUint8", lambda: T.ConvertFloatToUint8(), f32, exact=True)
+    floats = [
+        ("resize down", fn(lambda x: F.resize(x, (224, 298))), f32),
+        ("resize up", fn(lambda x: F.resize(x, (320, 425))), f32),
+        ("short_side_scale", fn(lambda x: F.short_side_scale(x, 224)), f32),
+        ("crop_and_resize", fn(lambda x: F.crop_and_resize(x, 10.0, 20.0, 150.0, 170.0, 224,
+                                                           224)), f32),
+        ("crop_and_resize up", fn(lambda x: F.crop_and_resize(x, 0.0, 0.0, 100.0, 120.0, 224,
+                                                              224)), f32),
+        ("div_255", fn(F.div_255), u8),
+        ("normalize", fn(lambda x: F.normalize(x, (0.45, 0.4, 0.35), (0.225, 0.2, 0.25))), f32),
+        ("random_resized_crop", fn(lambda x: F.random_resized_crop(
+            x, 224, 224, (0.08, 1.0), (3 / 4, 4 / 3), generator=seeded().manual_seed(6))), f32),
+        ("random_resized_crop shift", fn(lambda x: F.random_resized_crop(
+            x, 224, 224, (0.08, 1.0), (3 / 4, 4 / 3), generator=seeded().manual_seed(7),
+            shift=True)), f32),
+        ("ShortSideScale", lambda: T.ShortSideScale(224), f32),
+        ("RandomShortSideScale", lambda: T.RandomShortSideScale(256, 320, seed=4), f32),
+        ("Normalize", lambda: T.Normalize(FEED_MEAN, FEED_STD), f32),
+        ("ConvertUint8ToFloat", lambda: T.ConvertUint8ToFloat(), u8),
+        ("Div255", lambda: T.Div255(), u8),
+        ("RandomResizedCrop", lambda: T.RandomResizedCrop(224, 224, (0.08, 1.0),
+                                                          (3 / 4, 4 / 3), seed=8), f32),
+        ("affine nearest", fn(lambda x: A.affine(x, [1, 0.1, 2.5, -0.2, 1, -3.0],
+                                                 interpolation="nearest")), u8),
+    ]
+    for name, make, x in floats:
+        feed_compare(rows, name, make, x, exact=False)
+    for name, factors in FEED_OP_FACTORS.items():
+        op = A._NAME_TO_TRANSFORM_FUNC[name]
+        for factor in factors:
+            args = () if factor is None else (factor,)
+            for kind, x in (("uint8", u8), ("float32", f32)):
+                feed_compare(rows, f"{name} {factor} {kind}",
+                             fn(lambda v, op=op, args=args: op(v, *args, fill=(0.5, 0.5, 0.5))),
+                             x, exact=kind == "uint8" and name in FEED_EXACT_OPS)
+    for kind, x in (("uint8", u8), ("float32", f32)):
+        feed_compare(rows, f"RandAugment {kind}", lambda: RandAugment(prob=1.0, seed=9), x,
+                     exact=False)
+        feed_compare(rows, f"AugMix {kind}", lambda: AugMix(seed=10), x, exact=False)
+    chains = {"train default": dict(), "train randaug": dict(aug_type="randaug"),
+              "train augmix": dict(aug_type="augmix"),
+              "train rrc": dict(random_resized_crop_paras={}), "val": dict()}
+    for name, kw in chains.items():
+        mode = name.split()[0]
+        feed_compare(rows, f"create_video_transform {name}",
+                     lambda mode=mode, kw=kw: (lambda v, t=create_video_transform(
+                         mode, video_key="video", num_samples=16, min_size=256, max_size=320,
+                         crop_size=224, seed=11, **kw): t({"video": v})),
+                     u8, exact=False)
+    worst = max(rows.values())
+    print(f"phase 20 (a): {len(rows)} transforms on the card against the CPU at "
+          f"{FEED_CLIP[0]}x{FEED_CLIP[1]}x{FEED_CLIP[2]}: the index and uint8 ops equal, the "
+          f"worst float error {worst!r} of the value range (bound {FEED_TOL}); on {card}")
+    print("phase 20 (a) worst error per op: " + json.dumps(rows))
+    return {"ops": len(rows), "worst": worst, "per_op": rows}
+
+
+def make_store(directory: str, count: int, clip, seed: int):
+    """``prepare_clip_store`` of ``count`` seeded uint8 clips of (T, H, W)
+    ``clip`` (labels of 400 classes); returns the opened ClipStore."""
+    import numpy as np
+
+    from pytorchvideo_tpu_torch.data import ClipStore, prepare_clip_store
+
+    rng = np.random.default_rng(seed)
+
+    def samples():
+        for i in range(count):
+            yield {"video": rng.integers(0, 256, size=(*clip, 3), dtype=np.uint8),
+                   "label": int(rng.integers(0, 400)), "video_index": i}
+
+    prepare_clip_store(samples(), directory, clips_per_shard=64, num_workers=2)
+    return ClipStore(directory)
+
+
+def store_order(store, seed: int, epoch: int):
+    """The clip order of ``store.batches(shuffle=True, seed=seed)``'s epoch."""
+    import numpy as np
+
+    order = np.arange(len(store))
+    np.random.default_rng(seed + epoch).shuffle(order)
+    return order
+
+
+def streamed_ms(open_stream, batches: int, consume_s: float) -> float:
+    """Wall ms per batch of the prefetch ``open_stream()`` returns, each
+    batch waited for on the card and then held ``consume_s`` by the
+    consumer (after four batches: the ring's pinned buffers allocated)."""
+    import torch
+
+    with open_stream() as stream:
+        for _ in range(4):
+            next(stream)
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(stream)
+            torch.cuda.current_stream().synchronize()
+            if consume_s:
+                time.sleep(consume_s)
+        return (time.perf_counter() - t0) * 1e3 / batches
+
+
+def check_prefetched(label: str, store, stream, seed: int, batches: int) -> int:
+    """Each of ``batches`` batches of ``stream`` (over ``store`` shuffled
+    from ``seed``) equal byte for byte to ``store.gather`` of its indices
+    on the card; its pinned allocations the ring's per leaf; ``close()``
+    in mid-epoch stops its producer. Returns the pinned allocations."""
+    import torch
+
+    per_epoch = len(store) // FEED_BATCH
+    for i in range(batches):
+        batch = next(stream)
+        epoch, j = divmod(i, per_epoch)
+        ref = store.gather(store_order(store, seed, epoch)[j * FEED_BATCH:(j + 1) * FEED_BATCH])
+        for key in ("video", "label", "video_index"):
+            assert batch[key].is_cuda and torch.equal(batch[key], ref[key].cuda()), (
+                f"phase 20 (b) {label}: batch {i}'s {key} differs from store.gather")
+    allocations = stream.pinned_allocations
+    assert allocations == stream.ring_size * 3, (
+        f"phase 20 (b) {label}: {allocations} pinned allocations over {batches} batches, "
+        f"expected the ring's {stream.ring_size} per leaf (3 leaves)")
+    stream.close()
+    assert not stream.alive, f"phase 20 (b) {label}: close() left the producer running"
+    return allocations
+
+
+def feed_alone(store, card: str) -> dict:
+    """Phase 20 (b): the store -> prefetch path at B128, as
+    ``ClipStore.batches`` -> ``device_prefetch`` and as
+    ``ClipStore.prefetch`` (the gather into the pinned ring)."""
+    import torch
+
+    from pytorchvideo_tpu_torch.data import device_prefetch
+
+    batch_bytes = FEED_BATCH * math.prod(store.clip_shape) * 3
+    per_epoch = len(store) // FEED_BATCH
+    order = store_order(store, 0, 0)
+    pinned = {}
+
+    def into_pinned(name, shape, dtype):
+        if name not in pinned:
+            pinned[name] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return pinned[name]
+
+    gather_gbs = {}
+    for label, out in (("new buffer", None), ("pinned buffer", into_pinned)):
+        store.gather(order[:FEED_BATCH], out)
+        t0 = time.perf_counter()
+        for i in range(2 * per_epoch):
+            j = i % per_epoch
+            store.gather(order[j * FEED_BATCH:(j + 1) * FEED_BATCH], out)
+        gather_gbs[label] = 2 * per_epoch * batch_bytes / (time.perf_counter() - t0) / 1e9
+    target = torch.empty(pinned["video"].shape, dtype=torch.uint8, device="cuda")
+    copy_ms = cuda_time_ms(lambda: target.copy_(pinned["video"], non_blocking=True), 5)
+    copy_gbs = batch_bytes / copy_ms / 1e6
+    del pinned, target
+
+    checked = 2 * per_epoch
+    allocations = {
+        "batches": check_prefetched("batches -> device_prefetch", store, device_prefetch(
+            store.batches(FEED_BATCH, seed=5, epochs=None), "cuda"), 5, checked),
+        "prefetch": check_prefetched("ClipStore.prefetch", store, store.prefetch(
+            FEED_BATCH, "cuda", seed=6, epochs=None), 6, checked)}
+    streams = {"batches": lambda: device_prefetch(store.batches(FEED_BATCH, seed=1, epochs=None),
+                                                  "cuda"),
+               "prefetch": lambda: store.prefetch(FEED_BATCH, "cuda", seed=1, epochs=None)}
+    overlap = {}
+    for label, open_stream in streams.items():
+        produce = streamed_ms(open_stream, FEED_BATCHES, 0.0)
+        paced = streamed_ms(open_stream, FEED_BATCHES, produce / 1e3)
+        overlap[label] = {"produce_ms": produce, "paced_ms": paced, "overlap": produce / paced}
+    report = {"batch_bytes": batch_bytes, "gather_gb_per_s": gather_gbs,
+              "copy_gb_per_s": copy_gbs, "copy_ms": copy_ms, "checked_batches": checked,
+              "pinned_allocations": allocations, "ring_size": 3, "streams": overlap}
+    print(f"phase 20 (b): store {len(store)} clips {store.clip_shape} uint8, B{FEED_BATCH} "
+          f"({batch_bytes} bytes a batch): host gather {gather_gbs!r} GB/s, the pinned "
+          f"ring's copy to the card {copy_gbs!r} GB/s ({copy_ms!r} ms a batch); {checked} "
+          f"batches of each path equal store.gather byte for byte; pinned allocations "
+          f"{allocations} (3 leaves x ring 3) whatever the batch count; close() stopped each "
+          f"producer; on {card}")
+    for label, o in overlap.items():
+        print(f"phase 20 (b) {label}: the producer alone {o['produce_ms']!r} ms a batch; with "
+              f"a consumer holding each batch as long, {o['paced_ms']!r} ms (max "
+              f"{o['produce_ms']!r}, sum {2 * o['produce_ms']!r}): overlap {o['overlap']!r} "
+              f"(1 overlapped, 0.5 serial); on {card}")
+    return report
+
+
+def profiled_busy(fn) -> tuple:
+    """(busy ms, busy share) of ``fn()`` traced by ``torch.profiler``
+    (device activity only; phase 17's union over the span)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, span = device_union_ms(prof)
+    return busy, busy / span
+
+
+def window_ms(step, batches: int = FEED_BATCHES) -> float:
+    """Wall ms per call of ``batches`` calls of ``step()``, the card
+    synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / batches
+
+
+def serve_from_store(store, hub, convert_to_deployable_form, card: str) -> dict:
+    """Phase 20 (c): X3D-S deploy bf16 captured at B128, fed from the store
+    (``ClipStore.prefetch``) through the val chain, run on the card in the
+    prefetch's stream."""
+    import torch
+
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms import transforms as T
+
+    clip = (13, 160, 160)
+    gen = torch.Generator().manual_seed(20)
+    model = compiled_model(hub, "x3d_s", {}, clip, gen)
+    compiled = convert_to_deployable_form(model, dtype=torch.bfloat16,
+                                          example_input=clips(FEED_BATCH, clip, gen,
+                                                              torch.bfloat16))
+    del model
+    chain = T.Compose([T.Div255(), T.Normalize(FEED_MEAN, FEED_STD), T.ShortSideScale(182),
+                       T.CenterCropVideo(160), F.thwc_to_cthw])
+
+    def fed_input(batch):
+        return {**batch, "video": chain(batch["video"]).to(torch.bfloat16)}
+
+    def open_stream(seed=3):
+        return store.prefetch(FEED_BATCH, "cuda", seed=seed, epochs=None, transform=fed_input)
+
+    with open_stream() as stream:
+        first = next(stream)["video"]
+    fed_logits = compiled(first)
+    host_batch = store.gather(store_order(store, 3, 0)[:FEED_BATCH])
+    host_in = fed_input(host_batch)["video"]
+    in_err = float((first.float().cpu() - host_in.float()).abs().max())
+    ref_logits = compiled(host_in.cuda())
+    scale = ref_logits.float().abs().max().item()
+    bound = LOGIT_REL_TOL["bfloat16"] * scale
+    err = (fed_logits.float() - ref_logits.float()).abs().max().item()
+    assert fed_logits.shape == (FEED_BATCH, 400) and bool(fed_logits.isfinite().all())
+    assert err <= bound, f"phase 20 (c): fed logits off the CPU-fed ones by {err} > {bound}"
+    device_batch = {k: v.cuda() for k, v in host_batch.items()}
+    chain_host_ms = host_ms(lambda: fed_input(device_batch))
+    chain_ms = cuda_time_ms(lambda: fed_input(device_batch), 3)
+
+    def fed():
+        # The window starts once the prefetch's ring is allocated (pinning
+        # 383 MB takes a while) and its queue full: the steady rate.
+        with open_stream() as stream:
+            for _ in range(4):
+                compiled(next(stream)["video"])
+            return window_ms(lambda: compiled(next(stream)["video"]))
+
+    # In turns: resident, fed, fed, resident; the mean of each.
+    runs = {"resident": [], "fed": []}
+    for label in ("resident", "fed", "fed", "resident"):
+        runs[label].append(window_ms(lambda: compiled(first)) if label == "resident" else fed())
+    resident_ms, fed_ms = (sum(runs[k]) / 2 for k in ("resident", "fed"))
+
+    with open_stream(seed=4) as stream:
+        for _ in range(4):
+            compiled(next(stream)["video"])
+        busy_ms, busy = profiled_busy(lambda: [compiled(next(stream)["video"])
+                                               for _ in range(FEED_PROFILED_BATCHES)])
+    report = {"clips_per_s": FEED_BATCH * 1e3 / fed_ms, "ms": fed_ms,
+              "resident_clips_per_s": FEED_BATCH * 1e3 / resident_ms,
+              "resident_ms": resident_ms, "ratio": resident_ms / fed_ms, "busy": busy,
+              "runs_ms": runs, "chain_host_ms": chain_host_ms, "chain_device_ms": chain_ms,
+              "logits_err": err,
+              "bound": bound, "input_err_vs_cpu_chain": in_err}
+    print(f"phase 20 (c): x3d_s deploy bf16 compiled B{FEED_BATCH} fed from the store (val chain "
+          f"on the card, in the prefetch's stream): {report['clips_per_s']!r} clips/s "
+          f"({fed_ms!r} ms a batch) against {report['resident_clips_per_s']!r} on one resident "
+          f"batch ({resident_ms!r} ms; windows of {FEED_BATCHES} in turns {runs}): ratio "
+          f"{report['ratio']!r}; busy "
+          f"{busy!r} ({FEED_PROFILED_BATCHES} batches, after four); the chain "
+          f"{chain_host_ms!r} host ms, "
+          f"{chain_ms!r} ms on the card a batch; fed logits vs the CPU chain's max |diff| "
+          f"{err!r} (bound {bound!r}; inputs {in_err!r} apart in bf16); on {card}")
+    return report
+
+
+class StoreFeed:
+    """A datamodule over a ClipStore: ``train_dataloader(n)`` prefetches n
+    batches of ``batch`` uint8 clips to the card (``ClipStore.prefetch``)
+    and runs ``transform`` (a per-clip THWC chain) on each clip there, then
+    collates the CTHW views: in the prefetch's stream (``in_prefetch``) or
+    in the consumer's, after the handover. ``chain_host_ms`` collects the
+    host ms of each batch's chain."""
+
+    def __init__(self, store, batch: int, transform, seed: int, in_prefetch: bool):
+        self.store, self.batch, self.transform, self.seed = store, batch, transform, seed
+        self.in_prefetch = in_prefetch
+        self.chain_host_ms = []
+        self._epochs = 0
+
+    def transformed(self, batch: dict) -> dict:
+        from pytorchvideo_tpu_torch.train.transforms import default_collate
+        from pytorchvideo_tpu_torch.transforms.functional import thwc_to_cthw
+
+        t0 = time.perf_counter()
+        video = default_collate([thwc_to_cthw(self.transform(v)) for v in batch["video"]])
+        self.chain_host_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"video": video, "label": batch["label"]}
+
+    def train_dataloader(self, n: int):
+        self._epochs += 1
+        with self.store.prefetch(self.batch, "cuda", seed=self.seed + self._epochs, epochs=None,
+                                 transform=self.transformed if self.in_prefetch else None
+                                 ) as stream:
+            for _ in range(n):
+                batch = next(stream)
+                yield batch if self.in_prefetch else self.transformed(batch)
+
+
+class ResidentFeed:
+    """A datamodule that yields one batch ``n`` times."""
+
+    def __init__(self, batch: dict):
+        self.batch_dict, self.batch = batch, batch["label"].shape[0]
+
+    def train_dataloader(self, n: int):
+        for _ in range(n):
+            yield dict(self.batch_dict)
+
+
+def train_from_store(store, train, card: str) -> dict:
+    """Phase 20 (d): MViT-B's recipe at B8 through app.train(), fed from the
+    store with the train chain (RandAugment) per clip on the card, in the
+    prefetch's stream and, for comparison, in the step's."""
+    import torch
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+    from pytorchvideo_tpu_torch.transforms.transforms_factory import create_video_transform
+
+    app = train_app(train, TRAIN_BATCH, seed=40)
+    data = app.cfg.data
+    assert data.aug_type == "randaug" and app.cfg.mix.enabled
+    transform = create_video_transform(
+        "train", num_samples=data.num_samples, video_mean=data.video_mean,
+        video_std=data.video_std, min_size=data.min_size, max_size=data.max_size,
+        crop_size=data.crop_size, aug_type=data.aug_type, seed=41)
+    feeds = {"prefetch stream": StoreFeed(store, TRAIN_BATCH, transform, 42, in_prefetch=True),
+             "step's stream": StoreFeed(store, TRAIN_BATCH, transform, 43, in_prefetch=False)}
+    app.datamodule = feeds["prefetch stream"]
+    losses, *_ = captured_run(app, WARMUP_STEPS + 1, MVIT_PER_STEP, "phase 20 (d) warm-up")
+
+    def steady_ms(label: str) -> float:
+        """ms per step through app.train() (each call a new epoch, whose
+        prefetch starts empty) by the difference of 2 and 2 +
+        FEED_TRAIN_STEPS steps."""
+        totals = {}
+        for n in (2, 2 + FEED_TRAIN_STEPS):
+            history, ms, *_ = captured_run(app, n, MVIT_PER_STEP, f"phase 20 (d) {label}")
+            losses.extend(history)
+            totals[n] = ms * n
+        return (totals[2 + FEED_TRAIN_STEPS] - totals[2]) / FEED_TRAIN_STEPS
+
+    runs = {}
+    for label, feed in feeds.items():
+        app.datamodule = feed
+        feed.chain_host_ms.clear()
+        fed_ms = steady_ms(f"fed, the chain in the {label}")
+        chain_ms = sorted(feed.chain_host_ms)[len(feed.chain_host_ms) // 2]
+        busy_ms, busy = profiled_busy(lambda: run_steps(app, FEED_TRAIN_STEPS))
+        runs[label] = {"clips_per_s": TRAIN_BATCH * 1e3 / fed_ms, "ms_per_step": fed_ms,
+                       "busy": busy, "chain_host_ms": chain_ms}
+    batch = next(iter(feeds["prefetch stream"].train_dataloader(1)))
+    assert batch["video"].is_contiguous(memory_format=torch.channels_last_3d)
+    app.datamodule = ResidentFeed(batch)
+    resident_ms = steady_ms("resident")
+    assert all(math.isfinite(h) for h in losses), f"phase 20 (d): non-finite loss {losses}"
+    for run in runs.values():
+        run["ratio"] = resident_ms / run["ms_per_step"]
+    report = {"resident_clips_per_s": TRAIN_BATCH * 1e3 / resident_ms,
+              "resident_ms_per_step": resident_ms, "runs": runs, "losses": losses}
+    for label, run in runs.items():
+        print(f"phase 20 (d): mvit_base_16x4 classification_mvit_16x4 (RandAugment, "
+              f"MixUp/CutMix, bf16) B{TRAIN_BATCH} through app.train() fed from the store "
+              f"({len(store)} clips {store.clip_shape}), the chain in the {label}: "
+              f"{run['clips_per_s']!r} clips/s ({run['ms_per_step']!r} ms a step) against "
+              f"{report['resident_clips_per_s']!r} on one resident batch ({resident_ms!r} ms): "
+              f"ratio {run['ratio']!r} (steady: the difference of 2 and "
+              f"{2 + FEED_TRAIN_STEPS} steps); busy {run['busy']!r} ({FEED_TRAIN_STEPS} steps, "
+              f"the prefetch's start included); the chain {run['chain_host_ms']!r} host ms a "
+              f"batch (median); on {card}")
+    print(f"phase 20 (d): losses finite; launches per update as phase 19 reads them")
+    del app
+    torch.cuda.empty_cache()
+    return report
+
+
+def default_datamodule(train) -> None:
+    """Phase 20 (e): the app without a datamodule builds the config's."""
+    import torch
+
+    app = train.VideoClassificationTrainApp(train.get_preset("classification_mvit_16x4"),
+                                            model=torch.nn.Linear(1, 1).cuda())
+    dm = app.datamodule
+    assert isinstance(dm, train.VideoClassificationDataModule) and dm.device.type == "cuda", dm
+    assert dm.cfg is app.cfg.data
+    print("phase 20 (e): VideoClassificationTrainApp without a datamodule built "
+          f"VideoClassificationDataModule on {dm.device} (not iterated: no video decoder here)")
+
+
+def data_feed_slice(hub, convert_to_deployable_form, train, card: str) -> dict:
+    """Phase 20: the data feed, (a) to (e), each part's seconds printed."""
+    import tempfile
+
+    import torch
+
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        print(f"phase 20 {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    report = {"transforms": transforms_on_card(card)}
+    part("(a)")
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase20_", dir=build) as tmp:
+        store = make_store(os.path.join(tmp, "serve"), FEED_STORE_CLIPS, FEED_STORE_CLIP, 20)
+        part("store of the feed")
+        report["feed"] = feed_alone(store, card)
+        part("(b)")
+        report["serving"] = serve_from_store(store, hub, convert_to_deployable_form, card)
+        del store
+        torch.cuda.empty_cache()
+        part("(c)")
+        store = make_store(os.path.join(tmp, "train"), TRAIN_STORE_CLIPS, FEED_CLIP, 21)
+        report["training"] = train_from_store(store, train, card)
+        del store
+        part("(d)")
+    default_datamodule(train)
+    part("(e)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -3423,6 +4014,10 @@ def main() -> None:
     captured = captured_step_slice(train, hub, bn_trained)
     print(f"phase 19 (the captured training step): {time.perf_counter() - t_phase:.1f} s")
     print("captured step report: " + json.dumps(captured, default=str))
+    t_phase = time.perf_counter()
+    fed = data_feed_slice(hub, convert_to_deployable_form, train, card)
+    print(f"phase 20 (the data feed): {time.perf_counter() - t_phase:.1f} s")
+    print("data feed report: " + json.dumps(fed))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

@@ -1,8 +1,8 @@
 """pytorchvideo_tpu_torch: the PyTorch/CUDA port of pytorchvideo_tpu.
 
 A second package beside the JAX one, module for module (``layers``,
-``models``, ``ops``, ``accelerate``, ``zoo``, ``losses``, ``transforms`` and
-``train`` mirror their JAX counterparts).
+``models``, ``ops``, ``accelerate``, ``zoo``, ``losses``, ``transforms``,
+``data`` and ``train`` mirror their JAX counterparts).
 Models take NCTHW clips, as upstream pytorchvideo does (X3D runs in
 ``torch.channels_last_3d``; MViT's tokens are channels-last by layout), and
 are built on the card unless the caller passes ``device="cpu"``. Each TPU
@@ -16,6 +16,7 @@ __version__ = "0.1.0"
 
 from pytorchvideo_tpu_torch import (  # noqa: F401
     accelerate,
+    data,
     layers,
     losses,
     models,

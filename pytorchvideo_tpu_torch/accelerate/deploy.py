@@ -171,7 +171,9 @@ class CompiledForward:
                     module(arg)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=self.pool):
+            # Thread-local: a data prefetch's thread (its event waits and
+            # pinned allocations) may run beside the capture.
+            with torch.cuda.graph(self.graph, pool=self.pool, capture_error_mode="thread_local"):
                 out = module(arg)
         if not isinstance(out, torch.Tensor):
             raise ValueError(f"the deploy form must return one tensor, got {type(out).__name__}")

@@ -3,7 +3,8 @@ and eval steps with their mixed-precision policy and activation
 rematerialisation, the step captured in a CUDA graph, optimizer groups
 with the LR on the device, LR schedules, precise BN, metrics, the trainer
 losses, configs and presets, and the classification train app with its
-test and predict passes and the SSL backbone graft. It trains the
+test and predict passes and the SSL backbone graft, and the datamodule
+that feeds it from videos. It trains the
 BatchNorm models (X3D, Slow, SlowFast and the other ResNet builders; the
 recipes ``classification_x3d_xs``, ``classification_slow_8x8_r50`` and
 ``classification_slowfast_8x8_r50``) and MViT (``classification_mvit_16x4``);
@@ -11,6 +12,7 @@ see train/app.py for what waits."""
 
 from pytorchvideo_tpu_torch.train.app import VideoClassificationTrainApp  # noqa: F401
 from pytorchvideo_tpu_torch.train.compiled_step import CompiledTrainStep  # noqa: F401
+from pytorchvideo_tpu_torch.train.datamodule import VideoClassificationDataModule  # noqa: F401
 from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
     DataConfig,
     MixConfig,

@@ -25,11 +25,15 @@ with precise BN over that many fresh training batches
 (``trainer.test_ensemble_method``) and ``predict()`` returns per-clip logits.
 ``load_ssl_backbone`` grafts a self-supervised backbone onto the model.
 
-The data layer is not ported yet: ``datamodule`` is any object whose
-``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3, T, H, W), or
-the list [slow, fast] of them, "label": (B,)}`` (tensors or numpy arrays),
-and whose ``val_dataloader(None)`` yields such dicts with a
-``"video_index"`` (and optionally a ``"clip_index"``) per clip.
+Without a ``datamodule`` the app builds the
+:class:`~pytorchvideo_tpu_torch.train.datamodule.VideoClassificationDataModule`
+of ``config.data`` and ``config.model``, as the JAX app does, whose batches
+arrive on the app's device through its prefetch. Any other datamodule
+works whose ``train_dataloader(n)`` yields ``n`` dicts ``{"video": (B, 3,
+T, H, W), or the list [slow, fast] of them, "label": (B,)}`` (tensors or
+numpy arrays, on the device or the host) and whose
+``val_dataloader(None)`` yields such dicts with a ``"video_index"`` (and
+optionally a ``"clip_index"``) per clip.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from pytorchvideo_tpu_torch.accelerate.deploy import CompiledForward
 from pytorchvideo_tpu_torch.train.compiled_step import CompiledTrainStep, batch_signature
 from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
+from pytorchvideo_tpu_torch.train.datamodule import VideoClassificationDataModule
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger
 from pytorchvideo_tpu_torch.train.optimizer import (
     construct_optimizer,
@@ -65,10 +70,12 @@ logger = logging.getLogger(__name__)
 
 
 class VideoClassificationTrainApp:
-    """Assembles model, optimizer and step from the config and runs the loop.
+    """Assembles model, data, optimizer and step from the config and runs
+    the loop.
 
     ``seed`` seeds the CPU generator of the batch transform's random scalars
-    (MixUp's lambda, the CutMix box, the MixUp/CutMix coin)."""
+    (MixUp's lambda, the CutMix box, the MixUp/CutMix coin) and, when the
+    app builds its datamodule, the datamodule's draws."""
 
     def __init__(
         self,
@@ -79,14 +86,12 @@ class VideoClassificationTrainApp:
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
-        if datamodule is None:
-            raise ValueError("the data layer is not ported: pass a datamodule whose "
-                             "train_dataloader(n) yields {'video', 'label'} batches")
         self.cfg = config
         self.steps_per_epoch = steps_per_epoch
         self.device = torch.device(device)
         self.model = model if model is not None else self._build_model()
-        self.datamodule = datamodule
+        self.datamodule = datamodule if datamodule is not None else VideoClassificationDataModule(
+            config.data, config.model, device=self.device, seed=seed)
         self.generator = torch.Generator().manual_seed(seed)
         self.state: Optional[TrainState] = None
         self._train_step = None
@@ -175,9 +180,10 @@ class VideoClassificationTrainApp:
 
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's clip (each pathway of a list), labels and, where
-        present, video and clip indices, on the app's device."""
-        return {key: map_video(lambda a: torch.as_tensor(a).to(self.device, non_blocking=True),
-                               batch[key])
+        present, video and clip indices, on the app's device: a tensor
+        already there (the datamodule's prefetch put it there) as it is,
+        anything else copied."""
+        return {key: map_video(lambda a: torch.as_tensor(a).to(self.device), batch[key])
                 for key in ("video", "label", "video_index", "clip_index") if key in batch}
 
     def train(self):

@@ -187,7 +187,10 @@ class CompiledTrainStep:
         graph = torch.cuda.CUDAGraph()
         for g in self._generators:
             graph.register_generator_state(g)
-        with torch.cuda.device(self.device), torch.cuda.graph(graph, pool=self.pool):
+        # Thread-local: the datamodule's prefetch thread (its event waits and
+        # pinned allocations, on a stream of its own) runs beside the capture.
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"):
             metrics = self.step.update(self.state, self._arg, self._static_labels)
         self._metrics = metrics
         # The gradients the graph writes (allocated in its pool): held here

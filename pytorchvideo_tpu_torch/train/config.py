@@ -25,8 +25,8 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
-    """The data layer's settings, kept as data: the data feed is not ported
-    yet, so the app takes any datamodule (see train/app.py)."""
+    """The data layer's settings: what the app's default datamodule
+    (train/datamodule.py) reads, and how it transforms the clips."""
 
     data_path: str = ""
     val_data_path: str = ""

@@ -3,8 +3,8 @@ pytorchvideo_tpu/train/transforms.py; upstream
 pytorchvideo_trainer/datamodule/transforms.py and collators.py):
 ``SlowFastPackPathway`` (upstream :99-139) and ``default_collate``, which
 make SlowFast's pathway-list batches from clips, and
-``MixVideoBatchWrapper`` (upstream :165). The other host-side clip
-transforms wait for the data feed."""
+``MixVideoBatchWrapper`` (upstream :165). The SSL transforms and
+``multiple_samples_collate`` wait for the SSL slice."""
 
 from __future__ import annotations
 
@@ -52,10 +52,23 @@ class SlowFastPackPathway:
         return [frames.index_select(1, index.to(frames.device)), frames]
 
 
+def _stack(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """``torch.stack`` in the samples' memory order: each sample permuted to
+    its strides' order, stacked, and the batch permuted back, so that CTHW
+    views of THWC clips make a ``channels_last_3d`` batch."""
+    first = tensors[0]
+    order = sorted(range(first.dim()), key=lambda i: -first.stride(i))
+    if order == list(range(first.dim())):
+        return torch.stack(tensors)
+    batch = torch.stack([t.permute(order) for t in tensors])
+    return batch.permute(0, *[order.index(i) + 1 for i in range(first.dim())])
+
+
 def default_collate(samples: List[Any]):
     """Stacks the samples' leaves into a batch, through dicts, lists and
     tuples (a list of ``[slow, fast]`` clips becomes ``[slow batch, fast
-    batch]``); numbers become a tensor, strings stay a list."""
+    batch]``); numbers become a tensor, strings stay a list. Tensors keep
+    their memory order (:func:`_stack`)."""
     first = samples[0]
     if isinstance(first, dict):
         return {k: default_collate([s[k] for s in samples]) for k in first}
@@ -65,4 +78,4 @@ def default_collate(samples: List[Any]):
         return list(samples)
     if isinstance(first, (int, float, np.integer, np.floating)):
         return torch.as_tensor(np.asarray(samples))
-    return torch.stack([torch.as_tensor(s) for s in samples])
+    return _stack([torch.as_tensor(s) for s in samples])

@@ -1,0 +1,38 @@
+"""Every module of the port, and chip_smoke.py, imports on a machine like
+the card's: without jax, the JAX package or any video decoder or image
+library (OpenCV, PyAV, decord, PIL). The data feed and the transforms are
+among the modules imported."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+BLOCKED = ("jax", "pytorchvideo_tpu", "cv2", "av", "decord", "PIL")
+NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
+               "data.labeled_video_dataset", "data.labeled_video_paths", "data.loader",
+               "data.samplers", "data.utils", "data.io", "data.video",
+               "transforms.functional", "transforms.transforms", "transforms.augmentations",
+               "transforms.rand_augment", "transforms.augmix", "transforms.transforms_factory",
+               "train.datamodule")
+
+
+def test_every_port_module_imports_without_jax_or_a_decoder():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import pytorchvideo_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        f"missing = [n for n in {NEW_MODULES!r} if 'pytorchvideo_tpu_torch.' + n not in names]\n"
+        "assert not missing, missing\n"
+        f"assert not [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]\n"
+        "print('ok', len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

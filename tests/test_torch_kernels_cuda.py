@@ -1585,3 +1585,157 @@ def test_app_on_the_card_captures_and_tests_through_graphs(cuda):
     with torch.no_grad():
         eager = model.eval()(app._device_batch(next(app.datamodule.val_dataloader(None)))["video"])
     torch.testing.assert_close(predictions[0]["logits"], eager.cpu(), rtol=1e-5, atol=1e-5)
+
+
+# The data feed on the card (no kernel: the prefetch's streams and events,
+# and the transforms' device arithmetic against the CPU's).
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_card(cuda):
+    import numpy as np
+
+    from pytorchvideo_tpu_torch.data import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"video": rng.integers(0, 256, size=(4, 6, 32, 40, 3), dtype=np.uint8),
+                "label": torch.arange(4) + i, "name": ["a", "b", "c", "d"],
+                "pathways": [torch.rand(4, 3), np.zeros((4, 2), np.float32)]}
+               for i in range(7)]
+    # The consumer computes on a stream of its own: it must wait for each copy.
+    consumer = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(consumer), device_prefetch(iter(batches), cuda, size=2) as stream:
+        got = []
+        for b in stream:
+            assert b["video"].is_cuda and b["name"] == ["a", "b", "c", "d"]
+            got.append({"video": b["video"].float().sum((1, 2, 3, 4)).cpu(),
+                        "label": b["label"].cpu(), "p0": b["pathways"][0].cpu()})
+        assert stream.pinned_allocations == stream.ring_size * 4
+    for b, g in zip(batches, got):
+        torch.testing.assert_close(g["video"], torch.from_numpy(b["video"]).float().sum(
+            (1, 2, 3, 4)), rtol=0, atol=0)
+        assert torch.equal(g["label"], b["label"]) and torch.equal(g["p0"], b["pathways"][0])
+
+    # A store gathered straight into the pinned ring, transformed in the
+    # prefetch's stream.
+    import tempfile
+
+    from pytorchvideo_tpu_torch.data import ClipStore, prepare_clip_store
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prepare_clip_store([{"video": b["video"][0], "label": i, "video_index": i}
+                            for i, b in enumerate(batches)], tmp, num_workers=1)
+        store = ClipStore(tmp)
+        with torch.cuda.stream(consumer), store.prefetch(
+                2, cuda, seed=1, epochs=3,
+                transform=lambda b: {**b, "video": b["video"].float() * 2}) as stream:
+            got = [b["video"].sum().cpu() for b in stream]
+            assert stream.pinned_allocations == stream.ring_size * 3
+        want = [b["video"].float().sum() * 2 for b in store.batches(2, seed=1, epochs=3)]
+        assert len(got) == 9 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def failing():
+        yield {"x": torch.zeros(3)}
+        raise KeyError("boom")
+
+    stream = device_prefetch(failing(), cuda)
+    assert next(stream)["x"].is_cuda
+    with pytest.raises(KeyError, match="boom"):
+        next(stream)
+
+    def endless():
+        while True:
+            yield {"x": torch.zeros(1 << 20)}
+
+    stream = device_prefetch(endless(), cuda)
+    next(stream)
+    stream.close(timeout=10)
+    assert not stream.alive
+
+
+@pytest.mark.cuda
+def test_transforms_on_the_card_match_the_cpu(cuda):
+    import numpy as np
+
+    from pytorchvideo_tpu_torch.transforms import augmentations as A
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms.augmix import AugMix
+    from pytorchvideo_tpu_torch.transforms.rand_augment import RandAugment
+    from pytorchvideo_tpu_torch.transforms.transforms_factory import create_video_transform
+
+    u8 = torch.from_numpy(np.random.default_rng(1).integers(0, 256, size=(8, 48, 64, 3),
+                                                            dtype=np.uint8))
+    f32 = u8.float() / 255.0
+    exact = {"subsample": lambda x: F.uniform_temporal_subsample(x, 5),
+             "crop": lambda x: F.uniform_crop(x, 40, 2), "flip": F.horizontal_flip,
+             **{name: A._NAME_TO_TRANSFORM_FUNC[name] for name in ("Equalize", "Invert")},
+             "Posterize": lambda x: A._posterize(x, 3), "Solarize": lambda x: A._solarize(x, 0.4)}
+    for name, fn in exact.items():
+        for x in (u8, f32):
+            assert torch.equal(fn(x.to(cuda)).cpu(), fn(x)), name
+    floats = {"resize": lambda x: F.resize(x, (30, 70)),
+              "crop_and_resize": lambda x: F.crop_and_resize(x, 0.0, 0.0, 20.0, 25.0, 48, 64),
+              "normalize": lambda x: F.normalize(x.float(), (0.45, 0.4, 0.35),
+                                                 (0.2, 0.25, 0.3)),
+              **{name: (lambda x, op=op: op(x, 0.7, fill=(0.5, 0.5, 0.5))) if name not in (
+                  "AutoContrast", "Equalize", "Invert") else op
+                 for name, op in A._NAME_TO_TRANSFORM_FUNC.items()},
+              "RandAugment": lambda x: RandAugment(prob=1.0, seed=3)(x),
+              "AugMix": lambda x: AugMix(seed=4)(x),
+              "train chain": lambda x: create_video_transform(
+                  "train", num_samples=4, min_size=48, max_size=56, crop_size=40,
+                  aug_type="randaug", seed=5)(x if x.dtype == torch.uint8 else
+                                              (x * 255).to(torch.uint8))}
+    for name, fn in floats.items():
+        for x in (u8, f32):
+            want = fn(x)
+            got = fn(x.to(cuda)).cpu()
+            span = float(want.double().max() - want.double().min()) or 1.0
+            assert float((got.double() - want.double()).abs().max()) <= 1e-5 * span, name
+
+
+@pytest.mark.cuda
+def test_captures_beside_a_running_prefetch(cuda):
+    # The app's datamodule prefetches in a thread of its own (event waits,
+    # pinned allocations) while the app captures its step and its eval
+    # forward: the captures are thread-local, so they hold.
+    import tempfile
+
+    import numpy as np
+
+    from pytorchvideo_tpu_torch.data import ClipStore, prepare_clip_store
+    from pytorchvideo_tpu_torch.train import VideoClassificationTrainApp, get_preset
+
+    class StoreData:
+        def __init__(self, store):
+            self.store = store
+
+        def _batches(self, n, seed):
+            def to_clip(batch):
+                video = batch["video"].permute(0, 4, 1, 2, 3).float() / 255
+                return {**batch, "video": video, "label": batch["label"] % 7}
+            stream = self.store.prefetch(4, cuda, seed=seed, epochs=None, transform=to_clip)
+            with stream:
+                for _ in range(n):
+                    yield next(stream)
+
+        def train_dataloader(self, n):
+            return self._batches(n, 0)
+
+        def val_dataloader(self, _):
+            return self._batches(2, 1)
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        prepare_clip_store([{"video": rng.integers(0, 256, size=(4, 32, 32, 3), dtype=np.uint8),
+                             "label": i, "video_index": i} for i in range(16)], tmp,
+                           num_workers=1)
+        cfg = get_preset("classification_x3d_xs", **{"model.num_classes": 7,
+                                                    "trainer.max_epochs": 1})
+        app = VideoClassificationTrainApp(cfg, model=_small_x3d(cuda),
+                                          datamodule=StoreData(ClipStore(tmp)),
+                                          steps_per_epoch=5)
+        losses = app.train()
+        (step,) = app._captured_steps.values()
+        assert step.graph is not None and app.state.step == 5
+        assert all(math.isfinite(h) for h in losses)
+        assert len(app.predict()) == 2 and len(app._captured_evals) == 1

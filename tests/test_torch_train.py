@@ -31,6 +31,7 @@ from pytorchvideo_tpu_torch.layers.stochastic import DropPath, drop_path, drop_p
 from pytorchvideo_tpu_torch.losses import soft_target_cross_entropy
 from pytorchvideo_tpu_torch.train import (
     OptimizerConfig,
+    VideoClassificationDataModule,
     VideoClassificationTrainApp,
     construct_optimizer,
     forward_backward,
@@ -409,8 +410,11 @@ def test_entry_points_default_to_the_card():
         # No card: building the configured model there raises.
         with pytest.raises((AssertionError, RuntimeError)):
             VideoClassificationTrainApp(cfg, datamodule=_Batches())
-    with pytest.raises(ValueError, match="data layer"):
-        VideoClassificationTrainApp(cfg, device="cpu")
+    # Without a datamodule the app builds the config's, on the app's device.
+    app = VideoClassificationTrainApp(cfg, model=torch.nn.Linear(1, 1), device="cpu")
+    assert isinstance(app.datamodule, VideoClassificationDataModule)
+    assert app.datamodule.cfg is cfg.data and app.datamodule.device == torch.device("cpu")
+    assert inspect.signature(VideoClassificationDataModule).parameters["device"].default == "cuda"
 
 
 def test_every_port_module_imports_without_jax():
