@@ -274,6 +274,34 @@ exits nonzero, printing no result, when a check fails or no card is present.
     built without a datamodule builds ``VideoClassificationDataModule`` on
     the card (not iterated: the card's machine has no video decoder).
 
+21. AVA detection and the serving engine (models/detection.py,
+    ops/roi_align.py, engine/; no kernel of the port: no JAX module of
+    this path reaches a Pallas kernel, and the counters must stay at 0).
+    (a) ``hub.slow_r50_detection()`` at full width (80 classes, res5
+    dilated at stride 1, RoI head at 1/16), seeded random weights
+    (``randomize_`` on the backbone, BN stats from a B2 batch), 4x256x256
+    in f32: requests of B1 with 1, 8 and 32 boxes and B8 with 8 boxes a
+    clip, each one's scores held against the same model on the CPU (rtol
+    5e-3, atol 5e-4) and timed, the request types in turns (requests/s by
+    ``cuda_time_ms``, host ms a request; then the busy share as phase
+    17's, peak memory); one traced B1 request with 8 boxes split by part
+    inside the model's forward (backbone, head, and in it the T pool,
+    RoIAlign, the spatial max pool, ``proj``; the request's busy ms, span
+    and host gaps; its device ms by aten op). (b) ``hub.slowfast_r50_detection()`` at [8, 32]
+    x 256 x 256: B1 with 8 boxes held against the CPU, B1 and B8 timed.
+    (c) A ``NeuralEngine`` of ``PeopleDetectionHook`` (a stub predictor of
+    5 boxes), ``ActionDetectionHook`` (full-width ``slow_r50_detection``)
+    and ``X3DClsHook`` (full-width ``x3d_s``, its forward a
+    ``CompiledForward``) over an in-memory 64x360x640 uint8 video on the
+    host (the card's machine has no decoder: the pipeline starts at
+    ``"video"``): 20 requests, ms a request and a hook; one request's
+    outputs against the eager models on the same preprocessed input;
+    ``X3DClsHook``'s input (frame pick, copy, transform) and its replay
+    timed alone; the X3D forward replays with no eager call and no new
+    capture. (d) RoIAlign
+    at (8, 2048, 16, 16) with 64 boxes, 7x7 at 1/16, f32 and bf16, on the
+    card against the CPU, timed beside its byte bound.
+
 Each phase from 15 on prints its seconds.
 
 The line before the last is a JSON object with one entry per kernel, each
@@ -1196,8 +1224,9 @@ def host_ms(fn, samples: int = HOST_SAMPLES) -> float:
 
 def device_union_ms(prof):
     """(busy ms, span ms) of a ``torch.profiler`` trace: the union of the
-    device's kernel, copy and set intervals (not the optimizer's
-    ``record_function`` span, which the trace also puts on the device), and
+    device's kernel, copy and set intervals (not the optimizer's or
+    ``detection_split``'s ``record_function`` spans, which the trace also
+    puts on the device), and
     the span from the first one's start to the last one's end. A union, not
     a sum: cuDNN's grouped convs run kernels side by side, and a graph's
     independent branches overlap."""
@@ -1205,7 +1234,7 @@ def device_union_ms(prof):
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name
-                   and not e.name.startswith("Optimizer."))
+                   and not e.name.startswith(("Optimizer.", DET_RANGE)))
     assert spans, "the profiler saw no device activity"
     busy, (start, end) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -3917,6 +3946,398 @@ def data_feed_slice(hub, convert_to_deployable_form, train, card: str) -> dict:
     return report
 
 
+DET_CLIP = (4, 256, 256)
+DET_SLOWFAST_CLIP = [(8, 256, 256), (32, 256, 256)]
+# (clips, boxes per clip) of each timed request.
+DET_REQUESTS = [(1, 1), (1, 8), (1, 32), (8, 8)]
+DET_SLOWFAST_REQUESTS = [(1, 8), (8, 8)]
+DET_TOL = dict(rtol=5e-3, atol=5e-4)  # card f32 against the CPU, as tests/test_models_parity.py
+DET_TIMED = 10
+DET_WARMUP = 10
+# The prefix of detection_split's record_function ranges.
+DET_RANGE = "detection."
+ENGINE_VIDEO = (64, 360, 640)
+ENGINE_REQUESTS = 20
+ENGINE_BOXES = 5
+ROI_FEATURES = (8, 2048, 16, 16)  # slow_r50_detection's res5 at B8, 256x256
+ROI_BOXES = 64
+ROI_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": KERNEL_TOL["bfloat16"]}
+# The aten ops a detection request's device time is split by (each one's
+# device time includes its callees').
+DET_SPLIT_OPS = ("aten::conv3d", "aten::batch_norm", "aten::relu_", "aten::add_",
+                 "aten::max_pool3d", "aten::avg_pool3d", "aten::index_select", "aten::bmm",
+                 "aten::max_pool2d", "aten::linear", "aten::sigmoid")
+
+
+def random_boxes(n_per_clip: int, clips_: int, size: int, generator):
+    """(N, 5) boxes over ``clips_`` clips of ``size`` pixels (batch index,
+    x1, y1, x2, y2), a fifth of each side to either side of the frame."""
+    import torch
+
+    rows = []
+    for b in range(clips_):
+        xy = (torch.rand(n_per_clip, 2, generator=generator) * 1.0 - 0.2) * size
+        wh = (torch.rand(n_per_clip, 2, generator=generator) * 0.5 + 0.1) * size
+        rows.append(torch.cat([torch.full((n_per_clip, 1), float(b)), xy, xy + wh], dim=1))
+    return torch.cat(rows)
+
+
+def detection_model(hub, name: str, clip, gen):
+    """``hub.<name>()`` on the card: the backbone's weights and BN stats as
+    ``randomize_`` sets them (stats from a B2 batch of ``clip``), the head's
+    projection He-normal with a small bias."""
+    import torch
+
+    model = getattr(hub, name)()
+    assert all(p.is_cuda for p in model.parameters()), f"{name} built off the card"
+    randomize_(model.model, gen, clips(2, clip, gen))
+    proj = model.detection_head.proj
+    with torch.no_grad():
+        proj.weight.copy_(torch.randn(proj.weight.shape, generator=gen)
+                          * math.sqrt(2.0 / proj.in_features))
+        proj.bias.copy_(torch.randn(proj.bias.shape, generator=gen) * 0.1)
+    return model.eval()
+
+
+def check_detection_on_cpu(label: str, model, cpu_model, x, boxes) -> float:
+    """The card's f32 scores against the same model's on the CPU
+    (``cpu_model``, a copy): max |err|, within DET_TOL."""
+    import torch
+
+    with torch.inference_mode():
+        got = model(x, boxes.cuda()).cpu()
+        ref = cpu_model([p.cpu() for p in x] if isinstance(x, list) else x.cpu(), boxes)
+    assert got.shape == ref.shape == (len(boxes), 80, 1, 1, 1), f"{label}: {got.shape}"
+    assert bool(got.isfinite().all()), f"{label}: scores not finite"
+    err = (got - ref).abs().max().item()
+    print(f"phase 21 {label}: card f32 vs CPU, max |err| {err!r} over {tuple(got.shape)} "
+          f"(rtol {DET_TOL['rtol']}, atol {DET_TOL['atol']})")
+    torch.testing.assert_close(got, ref, **DET_TOL)
+    return err
+
+
+def serve_detections(name: str, model, requests: dict, card: str) -> dict:
+    """The request types of phase 21 for one model (key -> (x, boxes)):
+    ``model(x, boxes)`` in f32 under inference mode. Each type's peak memory
+    above what was allocated before; then ms (``cuda_time_ms``, after
+    DET_WARMUP calls) and host ms a request, timed in turns (in order, then
+    in reverse; the faster run of each), so no type pays for being timed
+    first; then its busy share (phase 17's)."""
+    import torch
+
+    calls = {}
+    for key, (x, boxes) in requests.items():
+        def request(x=x, boxes=boxes.cuda()):
+            with torch.inference_mode():
+                return model(x, boxes)
+
+        calls[key] = request
+    rows = {}
+    for key, request in calls.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = request()
+        torch.cuda.synchronize()
+        assert bool(out.isfinite().all()), f"{name} {key}: scores not finite"
+        rows[key] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                     "boxes": len(requests[key][1]), "ms": [], "host_ms": []}
+    order = list(calls.items())
+    for key, request in order + order[::-1]:
+        rows[key]["ms"].append(cuda_time_ms(request, DET_TIMED, DET_WARMUP))
+        rows[key]["host_ms"].append(host_ms(request))
+    for key, request in calls.items():
+        row = rows[key]
+        row["ms_turns"], row["host_ms_turns"] = row["ms"], row["host_ms"]
+        row["ms"], row["host_ms"] = min(row["ms"]), min(row["host_ms"])
+        row["requests_per_s"] = 1000.0 / row["ms"]
+        row["busy_ms"], row["busy_share"] = device_busy(request)
+        print(f"phase 21 {name} f32 {key}: {row['requests_per_s']!r} requests/s "
+              f"({row['ms']!r} ms; turns {row['ms_turns']}), host {row['host_ms']!r} ms a "
+              f"request (turns {row['host_ms_turns']}), busy {row['busy_share']!r} "
+              f"({row['busy_ms']!r} ms), peak {row['peak_bytes']} bytes; on {card}")
+    return rows
+
+
+def detection_split(model, x, boxes) -> dict:
+    """Device ms of one traced request's parts, read inside the model's own
+    forward: each part (the backbone, the head, and in it the T pool,
+    RoIAlign, the spatial max pool and ``proj``) runs in a
+    ``record_function`` range opened and closed by forward hooks, and its
+    device ms is the sum of the kernels launched in that range; beside
+    them the request's busy ms, its span and the host's gaps (span -
+    busy), and its device ms by the aten ops of ``DET_SPLIT_OPS``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    head = model.detection_head
+    parts = {"backbone": model.model, "head": head, "t_pool": head.pool,
+             "roi_align": head.roi_layer, "spatial_max_pool": head.pool_spatial,
+             "proj": head.proj}
+    parts = {part: module for part, module in parts.items() if module is not None}
+    handles = []
+    for part, module in parts.items():
+        ranges = []
+
+        def enter(m, args, name=DET_RANGE + part, ranges=ranges):
+            ranges.append(torch.autograd.profiler.record_function(name))
+            ranges[-1].__enter__()
+
+        def leave(m, args, out, ranges=ranges):
+            ranges.pop().__exit__(None, None, None)
+
+        handles += [module.register_forward_pre_hook(enter),
+                    module.register_forward_hook(leave)]
+    boxes = boxes.cuda()
+    try:
+        with torch.inference_mode():
+            model(x, boxes)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                model(x, boxes)
+                torch.cuda.synchronize()
+    finally:
+        for handle in handles:
+            handle.remove()
+    busy, span = device_union_ms(prof)
+    split = dict.fromkeys(parts, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(DET_RANGE):
+            total = getattr(e, "device_time_total", None)
+            total = e.cuda_time_total if total is None else total
+            split[e.name[len(DET_RANGE):]] += total / 1000.0
+    assert all(split[part] > 0 for part in ("backbone", "head", "roi_align")), \
+        f"the trace gave a part of the request no device time: {split}"
+    by_op = {}
+    for e in prof.key_averages():
+        if e.key in DET_SPLIT_OPS:
+            total = getattr(e, "device_time_total", None)
+            total = e.cuda_time_total if total is None else total
+            by_op[e.key] = {"calls": e.count, "device_ms": total / 1000.0}
+    split.update({"request_busy_ms": busy, "request_span_ms": span,
+                  "host_gaps_ms": span - busy, "by_op": by_op})
+    return split
+
+
+def check_roi_align(card: str) -> dict:
+    """Phase 21 (d): RoIAlign at slow_r50_detection's B8 res5 shape, as the
+    head calls it (7x7, spatial scale 1/16, 2 samples a bin), on the card
+    against the same call on the CPU, f32 and bf16, and timed."""
+    import torch
+
+    from pytorchvideo_tpu_torch.ops import roi_align
+
+    gen = torch.Generator().manual_seed(214)
+    B, C, H, W = ROI_FEATURES
+    feats = torch.randn(ROI_FEATURES, generator=gen).contiguous(memory_format=torch.channels_last)
+    boxes = random_boxes(ROI_BOXES // B, B, H * 16, gen)
+    report = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        f_cpu = feats.to(dtype)
+        f_card = f_cpu.cuda()
+        b_card = boxes.cuda()
+        ref = roi_align(f_cpu, boxes, (7, 7), 1.0 / 16.0)
+        got = roi_align(f_card, b_card, (7, 7), 1.0 / 16.0)
+        assert got.shape == (ROI_BOXES, C, 7, 7) and got.dtype == dtype
+        err = (got.float().cpu() - ref.float()).abs().max().item()
+        torch.testing.assert_close(got.cpu(), ref, **ROI_TOL[name])
+        call = functools.partial(roi_align, f_card, b_card, (7, 7), 1.0 / 16.0)
+        ms = cuda_time_ms(call, 20)
+        device_ms, busy = device_busy(call)
+        itemsize = f_card.element_size()
+        nbytes = (feats.numel() + ROI_BOXES * C * 49) * itemsize + boxes.numel() * 4
+        bound, bound_by = bound_ms(0.0, nbytes)
+        report[name] = {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "busy_share": busy,
+                        "bound_ms": bound, "bound_by": bound_by}
+        print(f"phase 21 (d) roi_align {name} {ROI_FEATURES} x {ROI_BOXES} boxes -> 7x7: card "
+              f"vs CPU max |err| {err!r}; {ms!r} ms a call, {device_ms!r} ms of it on the "
+              f"device (busy {busy!r}; bound {bound!r} ms, {bound_by}: the features read and "
+              f"the output written once); on {card}")
+    return report
+
+
+def engine_run(hooks, video, keyframe, requests: int) -> dict:
+    """``requests`` runs of a NeuralEngine of ``hooks`` from a status of the
+    video and its keyframe: wall ms per request (the card synchronised at
+    its end) and per hook (each hook's run timed to a synchronise)."""
+    import statistics
+
+    import torch
+
+    from pytorchvideo_tpu_torch.engine import NeuralEngine
+
+    per_hook = {type(h).__name__: [] for h in hooks}
+    for hook in hooks:
+        run = hook.run
+
+        def timed(status, run=run, name=type(hook).__name__):
+            t0 = time.perf_counter()
+            out = run(status)
+            torch.cuda.synchronize()
+            per_hook[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        hook.run = timed
+    engine = NeuralEngine(hooks)
+    request_ms, last = [], None
+    for _ in range(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = engine({"video": video, "loaded_image": keyframe})
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+    for hook in hooks:
+        del hook.run
+    return {"request_ms": statistics.median(request_ms), "request_ms_all": request_ms,
+            "hook_ms": {name: statistics.median(ts) for name, ts in per_hook.items()},
+            "status": last}
+
+
+def engine_slice(hub, card: str) -> dict:
+    """Phase 21 (c): a NeuralEngine of PeopleDetectionHook (a stub predictor
+    of ENGINE_BOXES boxes), ActionDetectionHook (full-width
+    slow_r50_detection) and X3DClsHook (full-width x3d_s, captured) over an
+    in-memory uint8 video on the host."""
+    import torch
+
+    from pytorchvideo_tpu_torch.engine import (
+        ActionDetectionHook,
+        PeopleDetectionHook,
+        X3DClsHook,
+    )
+    from pytorchvideo_tpu_torch.engine.hook import transform_on
+    from pytorchvideo_tpu_torch.transforms.functional import thwc_to_cthw
+
+    gen = torch.Generator().manual_seed(213)
+    T, H, W = ENGINE_VIDEO
+    video = torch.randint(0, 256, (T, H, W, 3), generator=gen, dtype=torch.uint8)
+    keyframe = video[T // 2]
+    stub = random_boxes(ENGINE_BOXES, 1, min(H, W), gen)[:, 1:] * torch.tensor(
+        [W / min(H, W), H / min(H, W)] * 2)
+
+    det = detection_model(hub, "slow_r50_detection", DET_CLIP, gen)
+    action = ActionDetectionHook(state_dict=det.state_dict())
+    del det
+    x3d = hub.x3d_s(model_num_class=400)
+    randomize_(x3d, gen, torch.randn(2, 3, 13, 160, 160, generator=gen).cuda())
+    cls_hook = X3DClsHook(state_dict=x3d.state_dict())
+    del x3d
+    assert all(p.is_cuda for p in action.model.parameters())
+    assert all(p.is_cuda for p in cls_hook.model.parameters())
+    graph = cls_hook._forward.graph
+    eager_calls = []
+    handle = cls_hook.model.register_forward_pre_hook(lambda m, a: eager_calls.append(1))
+    people = PeopleDetectionHook(predictor=lambda image: stub)
+    engine_run([people, action, cls_hook], video, keyframe, 2)  # warm-up
+    reset_counts()
+    run = engine_run([people, action, cls_hook], video, keyframe, ENGINE_REQUESTS)
+    counts = read_counts()
+    handle.remove()
+    assert not eager_calls and cls_hook._forward.graph is graph, \
+        "X3DClsHook ran its model eagerly or captured again"
+    assert not any(counts.values()), f"the engine launched a kernel of the port: {counts}"
+    status = run.pop("status")
+    scores, logits = status["action_scores"], status["action_class"]
+    assert scores.shape == (ENGINE_BOXES, 80, 1, 1, 1) and logits.shape == (1, 400)
+    assert bool(scores.isfinite().all()) and bool(logits.isfinite().all())
+
+    # One request's outputs against the eager models on the same
+    # preprocessed input.
+    with torch.inference_mode():
+        clip = thwc_to_cthw(cls_hook.transform(video.cuda()))[None]
+        eager_logits = cls_hook.model(clip)
+        v = action.transform(video.cuda().float())
+        sh, sw = v.shape[1:3]
+        y0, x0 = (sh - action.crop_size) // 2, (sw - action.crop_size) // 2
+        v = v[:, y0:y0 + action.crop_size, x0:x0 + action.crop_size]
+        boxes = stub * torch.tensor([sw / W, sh / H] * 2) - torch.tensor(
+            [x0, y0, x0, y0], dtype=torch.float32)
+        rois = torch.cat([torch.zeros(len(boxes), 1), boxes.clamp(0, action.crop_size)], 1)
+        eager_scores = action.model(thwc_to_cthw(v)[None], rois.cuda())
+    errs = {"action_scores": (scores - eager_scores).abs().max().item(),
+            "action_class": (logits - eager_logits).abs().max().item()}
+    torch.testing.assert_close(scores, eager_scores, **DET_TOL)
+    torch.testing.assert_close(logits, eager_logits, **DET_TOL)
+
+    # X3DClsHook's time split: its input (the frame pick on the host, the
+    # copy to the card, the transform there) and the captured forward's
+    # replay, each timed alone.
+    x3d_input = functools.partial(transform_on, cls_hook.transform, video, cls_hook.device)
+
+    def replay():
+        with torch.inference_mode():
+            return cls_hook._forward(clip)
+
+    x3d_split = time_turns({"input": x3d_input, "replay": replay}, DET_TIMED, DET_WARMUP)
+    x3d_split["replay_device_ms"], x3d_split["replay_busy_share"] = device_busy(replay)
+    assert cls_hook._forward.graph is graph, "X3DClsHook captured again"
+    print(f"phase 21 (c) X3DClsHook split, ms a call: {x3d_split}; on {card}")
+    print(f"phase 21 (c) engine (people stub {ENGINE_BOXES} boxes -> slow_r50_detection, "
+          f"x3d_s captured) over a {T}x{H}x{W} uint8 video on the host, {ENGINE_REQUESTS} "
+          f"requests: {run['request_ms']!r} ms a request (median); per hook "
+          f"{run['hook_ms']}; outputs vs the eager models max |err| {errs}; X3D replays "
+          f"with no new capture; no kernel of the port launched; on {card}")
+    run.update({"errs": errs, "counts": counts, "x3d_split": x3d_split})
+    del action, cls_hook
+    torch.cuda.empty_cache()
+    return run
+
+
+def detection_slice(hub, card: str) -> dict:
+    """Phase 21: AVA detection and the engine at full width, (a) to (d)."""
+    import copy
+
+    import torch
+
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        print(f"phase 21 {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    gen = torch.Generator().manual_seed(21)
+    report = {"slow_r50_detection": {}, "slowfast_r50_detection": {}}
+    reset_counts()
+    for name, clip, requests in (("slow_r50_detection", DET_CLIP, DET_REQUESTS),
+                                 ("slowfast_r50_detection", DET_SLOWFAST_CLIP,
+                                  DET_SLOWFAST_REQUESTS)):
+        model = detection_model(hub, name, clip, gen)
+        cpu_model = copy.deepcopy(model).cpu()
+        n_params = sum(p.numel() for p in model.parameters())
+        x8 = clips(8, clip, gen)
+        errs, typed = {}, {}
+        for B, n in requests:
+            x = [p[:B] for p in x8] if isinstance(x8, list) else x8[:B]
+            boxes = random_boxes(n, B, clip[-1] if isinstance(clip[0], int) else clip[0][-1],
+                                 gen)
+            key = f"B{B} {n} boxes/clip"
+            if name == "slow_r50_detection" or (B, n) == requests[0]:
+                errs[key] = check_detection_on_cpu(f"{name} {key}", model, cpu_model, x,
+                                                   boxes)
+            typed[key] = (x, boxes)
+        report[name].update(serve_detections(name, model, typed, card))
+        del typed
+        report[name]["cpu_errs"] = errs
+        report[name]["parameters"] = n_params
+        if name == "slow_r50_detection":
+            x, boxes = x8[:1], random_boxes(8, 1, clip[-1], gen)
+            split = detection_split(model, x, boxes)
+            report[name]["split_B1_8_boxes"] = split
+            print(f"phase 21 (a) slow_r50_detection B1 8 boxes, device ms by part: {split}")
+        del model, cpu_model, x8
+        torch.cuda.empty_cache()
+        part("(a)" if name == "slow_r50_detection" else "(b)")
+    counts = read_counts()
+    assert not any(counts.values()), f"detection launched a kernel of the port: {counts}"
+    report["engine"] = engine_slice(hub, card)
+    part("(c)")
+    report["roi_align"] = check_roi_align(card)
+    part("(d)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -4018,6 +4439,10 @@ def main() -> None:
     fed = data_feed_slice(hub, convert_to_deployable_form, train, card)
     print(f"phase 20 (the data feed): {time.perf_counter() - t_phase:.1f} s")
     print("data feed report: " + json.dumps(fed))
+    t_phase = time.perf_counter()
+    detection = detection_slice(hub, card)
+    print(f"phase 21 (AVA detection and the engine): {time.perf_counter() - t_phase:.1f} s")
+    print("detection report: " + json.dumps(detection))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, module for module (``layers``,
 ``models``, ``ops``, ``accelerate``, ``zoo``, ``losses``, ``transforms``,
-``data`` and ``train`` mirror their JAX counterparts).
+``data``, ``train`` and ``engine`` mirror their JAX counterparts).
 Models take NCTHW clips, as upstream pytorchvideo does (X3D runs in
 ``torch.channels_last_3d``; MViT's tokens are channels-last by layout), and
 are built on the card unless the caller passes ``device="cpu"``. Each TPU
@@ -17,6 +17,7 @@ __version__ = "0.1.0"
 from pytorchvideo_tpu_torch import (  # noqa: F401
     accelerate,
     data,
+    engine,
     layers,
     losses,
     models,

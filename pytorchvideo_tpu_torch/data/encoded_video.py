@@ -5,7 +5,7 @@ OpenCV's ``VideoCapture`` (FFmpeg underneath), imported inside its
 functions only: the machine with the card has no video decoder, and the
 port's modules import without one. The JAX package's first-party decoder
 (``decoder="native"``) and the PyAV slot wait for the native binding
-(ROADMAP queue 1, item 6)."""
+(ROADMAP queue 1, item 5)."""
 
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def select_video_class(decoder: str):
         raise NotImplementedError(
             f"decoder={decoder!r} is not ported: the native decoder's ctypes binding "
             "(encoded_video_native.py, native_pipeline.py) waits for ROADMAP queue 1, "
-            "item 6; use decoder='opencv'")
+            "item 5; use decoder='opencv'")
     if decoder in (DecoderType.OPENCV, DecoderType.TORCHVISION, DecoderType.DECORD):
         return EncodedVideoOpenCV
     raise NotImplementedError(f"Unknown decoder type {decoder}")

@@ -31,9 +31,9 @@ class Video(ABC):
 
 
 class VideoPathHandler:
-    """A path to its Video: a file to :class:`EncodedVideo` (upstream
-    data/video.py:21-50). Frame directories (``FrameVideo``) are not
-    ported yet (ROADMAP queue 1, item 6)."""
+    """A path to its Video: a directory of frames to :class:`FrameVideo`
+    (its listing cached), a file to :class:`EncodedVideo` (upstream
+    data/video.py:21-50)."""
 
     def __init__(self) -> None:
         self.path_order_cache: Dict[str, list] = {}
@@ -42,9 +42,12 @@ class VideoPathHandler:
                         decode_audio: bool = False, decoder: str = "opencv",
                         fps: float = 30.0) -> Video:
         if os.path.isdir(filepath):
-            raise NotImplementedError(
-                f"{filepath} is a frame directory: FrameVideo is not ported yet "
-                "(ROADMAP queue 1, item 6)")
+            from pytorchvideo_tpu_torch.data.frame_video import FrameVideo
+
+            if decode_audio:
+                raise ValueError("a frame directory has no audio: decode_audio must be False")
+            return FrameVideo.from_directory(filepath, fps,
+                                             path_order_cache=self.path_order_cache)
         from pytorchvideo_tpu_torch.data.encoded_video import EncodedVideo
 
         return EncodedVideo.from_path(filepath, decode_video=decode_video,

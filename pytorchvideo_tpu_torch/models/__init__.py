@@ -2,6 +2,12 @@
 
 from pytorchvideo_tpu_torch.models import hub  # noqa: F401
 from pytorchvideo_tpu_torch.models.csn import create_csn  # noqa: F401
+from pytorchvideo_tpu_torch.models.detection import (  # noqa: F401
+    ResNetRoIHead,
+    create_res_roi_pooling_head,
+    create_resnet_with_roi_head,
+    create_slowfast_with_roi_head,
+)
 from pytorchvideo_tpu_torch.models.head import (  # noqa: F401
     ResNetBasicHead,
     SequencePool,
@@ -9,7 +15,11 @@ from pytorchvideo_tpu_torch.models.head import (  # noqa: F401
     create_res_basic_head,
     create_vit_basic_head,
 )
-from pytorchvideo_tpu_torch.models.net import MultiPathWayWithFuse, Net  # noqa: F401
+from pytorchvideo_tpu_torch.models.net import (  # noqa: F401
+    DetectionBBoxNetwork,
+    MultiPathWayWithFuse,
+    Net,
+)
 from pytorchvideo_tpu_torch.models.r2plus1d import (  # noqa: F401
     create_2plus1d_bottleneck_block,
     create_r2plus1d,

@@ -1,11 +1,12 @@
 """Named ResNet architectures (counterpart of pytorchvideo_tpu/models/hub/resnet.py,
 upstream models/hub/resnet.py:41-159). Weights are the builder's own random
-init: the port loads no checkpoint yet. Each factory takes ``create_resnet``'s
-keywords, ``device`` included ("cuda" unless the caller asks for the CPU).
-Each takes 8x224x224 NCTHW clips. ``slow_r50_detection`` waits for the
-detection models."""
+init; ``hub.utils.load_pretrained_variables`` loads a local ``.pyth``. Each
+factory takes its builder's keywords, ``device`` included ("cuda" unless the
+caller asks for the CPU). The classifiers take 8x224x224 NCTHW clips,
+``slow_r50_detection`` 4x256x256 clips and (N, 5) boxes."""
 
 from pytorchvideo_tpu_torch.layers.pooling import MaxPool3d
+from pytorchvideo_tpu_torch.models.detection import create_resnet_with_roi_head
 from pytorchvideo_tpu_torch.models.resnet import create_resnet
 
 
@@ -39,3 +40,10 @@ def i3d_r50(**kwargs):
         ),
     )
     return create_resnet(**kwargs)
+
+
+def slow_r50_detection(**kwargs):
+    """Slow R50 4x16 AVA detector (upstream hub/resnet.py:73-90; checkpoint
+    ava/SLOW_4x16_R50_DETECTION.pyth): 80 classes, res5 dilated at stride
+    1, RoI head at spatial scale 1/16."""
+    return create_resnet_with_roi_head(**kwargs)

@@ -4,9 +4,10 @@ random init. Each factory takes ``create_slowfast``'s keywords, ``device``
 included ("cuda" unless the caller asks for the CPU), and takes
 ``[slow, fast]`` NCTHW clips. The JAX factories default to the packed fast
 pathway (``pathway_packs=(1, 2)``), a TPU layout with the plain build's
-parameters; the port's build is the plain one. ``slowfast_r50_detection``
-waits for the detection models."""
+parameters; the port's build is the plain one, as is the JAX
+``slowfast_r50_detection``'s."""
 
+from pytorchvideo_tpu_torch.models.detection import create_slowfast_with_roi_head
 from pytorchvideo_tpu_torch.models.slowfast import create_slowfast
 
 
@@ -36,3 +37,11 @@ def slowfast_16x8_r101_50_50(**kwargs):
     ))
     kwargs.setdefault("head_pool_kernel_sizes", ((16, 7, 7), (64, 7, 7)))
     return create_slowfast(**kwargs)
+
+
+def slowfast_r50_detection(**kwargs):
+    """SlowFast R50 8x8 AVA detector (upstream hub/slowfast.py:150-176;
+    checkpoint ava/SLOWFAST_8x8_R50_DETECTION.pyth): 80 classes, res5
+    dilated at stride 1, RoI head at spatial scale 1/16; [8, 32] x 256 x 256
+    clips and (N, 5) boxes."""
+    return create_slowfast_with_roi_head(**kwargs)

@@ -1,5 +1,6 @@
 """Generic model containers (counterpart of pytorchvideo_tpu/models/net.py
-``Net`` and ``MultiPathWayWithFuse``; upstream models/net.py:11-44, :77-122)."""
+``Net``, ``DetectionBBoxNetwork`` and ``MultiPathWayWithFuse``; upstream
+models/net.py:11-44, :47-74, :77-122)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,22 @@ class Net(nn.Module):
         for block in self.blocks:
             x = block(x)
         return x
+
+
+class DetectionBBoxNetwork(nn.Module):
+    """A backbone and a box head (upstream net.py:47-74): ``forward(x,
+    bboxes)`` runs ``model`` on ``x`` (a clip, or SlowFast's pathway list)
+    and ``detection_head`` on its features and ``bboxes``, (N, 5) rows of
+    (batch index, x1, y1, x2, y2) in input pixels."""
+
+    def __init__(self, *, model: nn.Module, detection_head: nn.Module):
+        super().__init__()
+        self.model = model
+        self.detection_head = detection_head
+
+    def forward(self, x: Union[torch.Tensor, List[torch.Tensor]],
+                bboxes: torch.Tensor) -> torch.Tensor:
+        return self.detection_head(self.model(x), bboxes)
 
 
 class MultiPathWayWithFuse(nn.Module):

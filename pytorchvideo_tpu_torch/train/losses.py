@@ -6,7 +6,7 @@ soft-target cross entropy re-exported.
 The JAX package's ``axis_name`` (NT-Xent's negatives all-gathered across
 the devices of a ``shard_map``) maps to a ``torch.distributed`` process
 group, which waits for the parallel slice of the port (ROADMAP queue 1
-item 10): passing one raises ``NotImplementedError``.
+item 8): passing one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def ntxent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.07,
     if group is not None:
         raise NotImplementedError("NT-Xent over a torch.distributed group (all-gathered "
                                   "negatives) waits for the parallel slice, ROADMAP queue 1 "
-                                  "item 10")
+                                  "item 8")
     z1, z2 = _l2_normalize(z1), _l2_normalize(z2)
     logits = (z1 @ z2.T) / temperature
     return F.cross_entropy(logits, torch.arange(z1.shape[0], device=z1.device))

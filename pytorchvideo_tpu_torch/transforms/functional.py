@@ -14,7 +14,8 @@ waiting for it.
 Where the JAX package's arithmetic and upstream's differ, the port computes
 the JAX package's: :func:`crop_and_resize` clamps the source index, not the
 coordinate, at the border (its first row and column mix pixels 0 and 1
-where ``F.interpolate`` takes pixel 0). The box ops wait for detection.
+where ``F.interpolate`` takes pixel 0). The box ops take (..., 4) boxes
+(x1, y1, x2, y2) in pixels beside the clip they go with.
 """
 
 from __future__ import annotations
@@ -191,6 +192,88 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 
 def horizontal_flip(x: torch.Tensor) -> torch.Tensor:
     return x.flip(WIDTH_AXIS)
+
+
+# ---------------------------------------------------------------------------
+# Box ops (detection, AVA)
+# ---------------------------------------------------------------------------
+
+
+def crop_boxes(boxes: torch.Tensor, x_offset: int, y_offset: int) -> torch.Tensor:
+    """Boxes shifted into a crop at (y_offset, x_offset) (upstream
+    functional.py:429-446)."""
+    offsets = device_constant([x_offset, y_offset, x_offset, y_offset], boxes.dtype,
+                              boxes.device)
+    return boxes - offsets
+
+
+def clip_boxes_to_image(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """x in [0, width - 1], y in [0, height - 1] (upstream
+    functional.py:407-427)."""
+    x = boxes[..., 0::2].clamp(0.0, width - 1.0)
+    y = boxes[..., 1::2].clamp(0.0, height - 1.0)
+    return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
+def short_side_scale_with_boxes(images: torch.Tensor, boxes: torch.Tensor, size: int,
+                                interpolation: str = "bilinear"
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`short_side_scale`, the boxes scaled by the same factor
+    (upstream functional.py:195-236)."""
+    h, w = images.shape[HEIGHT_AXIS], images.shape[WIDTH_AXIS]
+    images = short_side_scale(images, size, interpolation)
+    new_h, new_w = images.shape[HEIGHT_AXIS], images.shape[WIDTH_AXIS]
+    scale = float(new_h) / h if w < h else float(new_w) / w
+    return images, boxes * scale
+
+
+def random_short_side_scale_with_boxes(images: torch.Tensor, boxes: torch.Tensor,
+                                       min_size: int, max_size: int,
+                                       interpolation: str = "bilinear",
+                                       generator: Optional[torch.Generator] = None
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`short_side_scale_with_boxes` to a size drawn from [min_size,
+    max_size] on the host from ``generator`` (upstream
+    functional.py:233-264)."""
+    size = int(torch.randint(min_size, max_size + 1, (), generator=generator))
+    return short_side_scale_with_boxes(images, boxes, size, interpolation)
+
+
+def random_crop_with_boxes(images: torch.Tensor, size: int, boxes: torch.Tensor,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random ``size`` crop (offsets y, then x, drawn on the host from
+    ``generator``), the boxes shifted into it and clipped to it (upstream
+    functional.py:267-296)."""
+    h, w = images.shape[HEIGHT_AXIS], images.shape[WIDTH_AXIS]
+    y_offset = int(torch.randint(0, max(h - size, 0) + 1, (), generator=generator))
+    x_offset = int(torch.randint(0, max(w - size, 0) + 1, (), generator=generator))
+    cropped = crop(images, y_offset, x_offset, size)
+    return cropped, clip_boxes_to_image(crop_boxes(boxes, x_offset, y_offset), size, size)
+
+
+def uniform_crop_with_boxes(images: torch.Tensor, size: int, spatial_idx: int,
+                            boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`uniform_crop`, the boxes shifted into it and clipped to it
+    (upstream functional.py:350-378)."""
+    h, w = images.shape[HEIGHT_AXIS], images.shape[WIDTH_AXIS]
+    y_offset, x_offset = _uniform_crop_offsets(h, w, size, int(spatial_idx))
+    cropped = crop(images, y_offset, x_offset, size)
+    return cropped, clip_boxes_to_image(crop_boxes(boxes, x_offset, y_offset), size, size)
+
+
+def horizontal_flip_with_boxes(prob: float, images: torch.Tensor, boxes: torch.Tensor,
+                               generator: Optional[torch.Generator] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """With probability ``prob`` (drawn on the host from ``generator``), the
+    clip and its boxes mirrored: x becomes width - 1 - x (upstream
+    functional.py:380-405)."""
+    if not float(torch.rand((), generator=generator)) < prob:
+        return images, boxes
+    width = images.shape[WIDTH_AXIS]
+    flipped = torch.stack([width - boxes[..., 2] - 1, boxes[..., 1],
+                           width - boxes[..., 0] - 1, boxes[..., 3]], dim=-1)
+    return horizontal_flip(images), flipped
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ Takes numpy ``params`` and ``batch_stats`` trees in the JAX package's layout
 and returns a ``state_dict`` for the port's modules, which keep upstream
 pytorchvideo's key layout:
 
-- path ``blocks_1/res_blocks_0/...`` -> key ``blocks.1.res_blocks.0...``;
+- path ``blocks_1/res_blocks_0/...`` -> key ``blocks.1.res_blocks.0...``
+  (a detector's ``model/blocks_0/...`` and ``detection_head/proj`` map by
+  the same rule to upstream's ``model.blocks.0...`` and
+  ``detection_head.proj``);
 - the JAX package's renames (``X3D_RENAME_RULES`` and ``MVIT_RENAME_RULES``
   of the importer) are undone: ``norm_b/norm`` -> ``norm_b.0``,
   ``norm_b/se/fc1|fc2`` -> ``norm_b.1.block.0|2``, ``projected_pool`` ->

@@ -1,7 +1,8 @@
 """Every module of the port, and chip_smoke.py, imports on a machine like
-the card's: without jax, the JAX package or any video decoder or image
-library (OpenCV, PyAV, decord, PIL). The data feed and the transforms are
-among the modules imported."""
+the card's: without jax, the JAX package, any video decoder or image
+library (OpenCV, PyAV, decord, PIL), torchvision or networkx. The data
+feed, the transforms, detection and the engine are among the modules
+imported."""
 
 import subprocess
 import sys
@@ -9,13 +10,16 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 
-BLOCKED = ("jax", "pytorchvideo_tpu", "cv2", "av", "decord", "PIL")
+BLOCKED = ("jax", "pytorchvideo_tpu", "cv2", "av", "decord", "PIL", "torchvision", "networkx")
 NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "data.labeled_video_dataset", "data.labeled_video_paths", "data.loader",
                "data.samplers", "data.utils", "data.io", "data.video",
                "transforms.functional", "transforms.transforms", "transforms.augmentations",
                "transforms.rand_augment", "transforms.augmix", "transforms.transforms_factory",
-               "train.datamodule")
+               "train.datamodule", "ops.roi_align", "models.detection", "models.net",
+               "models.hub.utils", "models.hub.resnet", "models.hub.slowfast", "engine",
+               "engine.engine", "engine.hook", "engine.detection_hook", "data.frame_video",
+               "data.ava")
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
