@@ -302,6 +302,40 @@ exits nonzero, printing no result, when a check fails or no card is present.
     at (8, 2048, 16, 16) with 64 boxes, 7x7 at 1/16, f32 and bf16, on the
     card against the CPU, timed beside its byte bound.
 
+22. Self-supervised pretraining (train/ssl_app.py, train/ssl.py,
+    models/byol.py, simclr.py, memory_bank.py; LARS in train/optimizer.py),
+    in f32 with TF32 off. (a) LARS (the BYOL preset's optimizer: lr 4.8, wd
+    1e-6, zero-wd 1-D params) on full-width ``slow_r50``: six updates at a
+    warm-up of the device LR on seeded gradients, the head's bias zeroed (a
+    tensor whose norm is 0), each tensor's update held against the JAX
+    chain (decay, trust ratio on "main" and "zero", momentum) in float64
+    within phase 19 (e)'s bound; the update of the 1-D "zero" group with
+    and without the ratio (the JAX chain's scaling that its docstring
+    denies). (b) BYOL on full-width ``slow_r50`` at 8x224x224 (feature
+    256, predictor 4096, mmt 0.996 annealed, the preset's LARS): a B2
+    two-view step on the card against the same step on the CPU (the loss,
+    every parameter, the momentum encoder and the BN buffers within rtol
+    5e-3 / atol 5e-4; the head's bias, whose gradient is zero up to rounding
+    so that LARS steps it by lr x its norm in a direction the rounding
+    picks, held by that step's norm instead); B8 through
+    ``SSLTrainApp.train()`` (the captured step) timed against the eager
+    step in turns, with the step's device time by part (online forward and
+    backward, momentum forwards, LARS, the EMA). (c) SimCLR (feature 128,
+    temperature 0.1, LARS) and MoCo v2 (dim 128, queue 65536, temperature
+    0.07, SGD lr 0.4) on ``slow_r50`` at B8: five updates through
+    ``SSLTrainApp.train()`` against five eager ones from the same weights
+    and batches within phase 19's bound, MoCo's pointer +8 a step and the
+    queue rows a replay writes equal to its normalised keys; then timed as
+    (b). (d) SimCLR on full-width ``mvit_base_16x4`` (16x224x224, f32) at
+    B4 through ``make_simclr_train_step``: one step launches twice the
+    classification step's kernels (once a view; attention on the CUDA
+    cores, the pools tiled), and its gradients lie within phase 9's
+    per-tensor bound of the plain-kernel step (printed beside it). (e)
+    ``MemoryBank`` at its defaults (1,280,000 x 2048 f32, 4096 negatives) on
+    ``slow_r50`` at B8: one step changes the ``x_ind`` rows and no other;
+    ms a step and peak memory; ``KnnMemory.knn_predict`` at length 65536,
+    k 200, B8, timed.
+
 Each phase from 15 on prints its seconds.
 
 The line before the last is a JSON object with one entry per kernel, each
@@ -4338,6 +4372,563 @@ def detection_slice(hub, card: str) -> dict:
     return report
 
 
+# Phase 22, self-supervised pretraining, float32 with TF32 off.
+SSL_CLIP = (8, 224, 224)  # slow_r50's 8x8 clip
+SSL_CHECK_BATCH = 2
+SSL_BATCH = 8
+SSL_TOL = dict(rtol=5e-3, atol=5e-4)  # card against the CPU, tests/test_models_parity.py
+SSL_STEPS = 5  # captured against eager in (c)
+SSL_TIMED_STEPS = 3
+SSL_MVIT_BATCH = 4
+# BYOL's backbone head feeds the predictor's fc1 and BatchNorm, so the
+# head's bias gets a gradient that is zero up to rounding; LARS's trust
+# ratio (on the 1-D "zero" group, as the JAX chain scales it) turns that
+# into a step of lr x its norm in the direction the rounding picks.
+BYOL_ROUNDING_BIAS = "blocks.5.proj.bias"
+STEP_NORM_REL = 1e-4
+F32_SPREAD_FACTOR = 2.0
+QUEUE_TOL = dict(rtol=1e-4, atol=1e-5)
+BANK = dict(bank_size=1280000, dim=2048, neg_size=4096)
+KNN = dict(length=65536, dim=2048, knn_k=200, num_classes=400)
+
+
+class SyntheticViews:
+    """A two-view datamodule of seeded random clips on the card:
+    ``train_dataloader(n)`` yields n batches {"video": (B, 2, 3, *clip)},
+    the same n on every call."""
+
+    def __init__(self, batch: int, seed: int, clip=SSL_CLIP):
+        self.batch, self.seed, self.clip = batch, seed, clip
+
+    def train_dataloader(self, n: int):
+        import torch
+
+        gen = torch.Generator(device="cuda").manual_seed(self.seed)
+        for _ in range(n):
+            yield {"video": torch.randn(self.batch, 2, 3, *self.clip, device="cuda",
+                                        generator=gen)}
+
+
+def ssl_app(train, task: str, batch: int, seed: int, optim, steps: int = SSL_STEPS, **fields):
+    """``SSLTrainApp`` of ``task`` on full-width ``slow_r50`` (head dropout 0)
+    at 8x224x224 over ``SyntheticViews``, its weights drawn under ``seed``."""
+    import torch
+
+    cfg = train.SSLConfig(task=task, optim=optim, max_epochs=1, **fields)
+    cfg.model = train.ModelConfig(name="slow_r50", clip_length=SSL_CLIP[0], crop_size=SSL_CLIP[1],
+                                  kwargs={"dropout_rate": 0.0})
+    torch.manual_seed(seed)
+    app = train.SSLTrainApp(cfg, steps_per_epoch=steps, seed=seed,
+                            datamodule=SyntheticViews(batch, seed))
+    app.setup()
+    assert all(p.is_cuda for p in app.task.parameters()), "the app built off the card"
+    return app
+
+
+def lars_reference(p, g, buf, label: str, cfg, lr: float, trust=None):
+    """The JAX chain's update of one tensor in float64 (JAX
+    optimizer.py:102-122): decayed weights, the trust ratio (1 where either
+    norm is 0) unless ``label`` is "bn" (or ``trust`` says otherwise), the
+    momentum trace, -lr."""
+    import torch
+
+    wd = {"main": cfg.weight_decay, "zero": 0.0, "bn": cfg.bn_weight_decay}[label]
+    u = g + wd * p
+    if trust is None:
+        trust = label != "bn"
+    if trust:
+        pn, un = torch.linalg.vector_norm(p).item(), torch.linalg.vector_norm(u).item()
+        u = u * (1.0 if pn == 0.0 or un == 0.0 else pn / un)
+    m = u if buf is None else u + cfg.momentum * buf
+    return p - lr * (u + cfg.momentum * m if cfg.nesterov else m)
+
+
+def lars_check(train, hub, card: str) -> dict:
+    """Phase 22 (a): LARS on the card against the JAX chain in float64."""
+    import torch
+
+    model = hub.slow_r50(model_num_class=256)
+    with torch.no_grad():
+        model.get_parameter(BYOL_ROUNDING_BIAS).zero_()  # a tensor whose norm is 0
+    cfg = train.get_preset("byol_train_app_conf")["optimizer"]
+    optimizer = train.construct_optimizer(model, cfg)
+    assert isinstance(optimizer, train.LARS), type(optimizer)
+    names = {p: n for n, p in model.named_parameters()}
+    labels = {names[p]: g["label"] for g in optimizer.param_groups for p in g["params"]}
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    lrs = [cfg.lr * (k + 1) / 8 for k in range(LR_CHECK_STEPS)]  # a linear warm-up
+    shares, zero_delta = [], 0.0
+    for lr in lrs:
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        buffers = {names[p]: s["momentum_buffer"].double() for p, s in optimizer.state.items()}
+        grads = {n: torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+                 for n, p in model.named_parameters()}
+        for n, p in model.named_parameters():
+            p.grad = grads[n]
+        train.set_lr(optimizer, lr)
+        optimizer.step()
+        ref = {n: lars_reference(before[n].double(), grads[n].double(), buffers.get(n),
+                                 labels[n], cfg, lr) for n in before}
+        shares.append(update_share(model, ref, before))
+        for n in (n for n in before if labels[n] == "zero"):
+            plain = lars_reference(before[n].double(), grads[n].double(), buffers.get(n), "zero",
+                                   cfg, lr, trust=False)
+            zero_delta = max(zero_delta, (plain - ref[n]).abs().max().item())
+    worst, name = max(shares)
+    print(f"phase 22 (a) LARS (byol_train_app_conf: lr {cfg.lr}, wd {cfg.weight_decay}, zero-wd "
+          f"1-D) on slow_r50, {len(lrs)} updates at LRs {lrs}: each update against the JAX "
+          f"chain in float64, the worst tensor's share of its bound ({LR_CHECK_REL} x its change "
+          f"+ one f32 rounding): {[(round(sh, 6), n) for sh, n in shares]}; {BYOL_ROUNDING_BIAS} "
+          f"started at norm 0. The 'zero' group with the trust ratio against without it (the "
+          f"JAX docstring's reading): max |delta| {zero_delta!r}; on {card}")
+    assert worst <= 1.0, f"LARS: an update off the JAX chain by {worst} of its bound in {name}"
+    return {"lrs": lrs, "update_shares": [sh for sh, _ in shares], "zero_group_max_delta":
+            zero_delta}
+
+
+def ssl_step_norm_check(label: str, before: dict, after: dict, key: str, scale: float) -> float:
+    """|after - before| of ``key`` equals ``scale`` (0 where the gradient was
+    exactly 0) within STEP_NORM_REL; returns the step's norm."""
+    import torch
+
+    step = torch.linalg.vector_norm((after[key] - before[key]).double()).item()
+    assert step == 0.0 or abs(step - scale) <= STEP_NORM_REL * scale, (
+        f"{label}: {key} stepped by {step}, expected {scale}")
+    return step
+
+
+def ssl_timings(label: str, captured, eager, B: int, card: str, capture_peak: int) -> dict:
+    """The captured step (the app's, captured before) and the eager step
+    timed in turns on one batch, as phase 19 times them; the eager step's
+    peak memory over one step, the captured one's ``capture_peak`` (its
+    warm-up updates and capture: a replay allocates nothing)."""
+    import torch
+
+    batch = {"video": next(iter(captured.datamodule.train_dataloader(1)))["video"]}
+    mmt = captured._momentum(0, 0)
+    fns = {"eager": lambda: eager._train_step(eager.state, batch,
+                                               **({} if mmt is None else {"mmt": mmt})),
+           "captured": lambda: captured._step(batch, mmt)}
+    timings = step_timings(fns, 2 * B, SSL_TIMED_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns["eager"]()
+    torch.cuda.synchronize()
+    timings["eager"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    timings["captured"]["peak_bytes"] = capture_peak
+    e, c = timings["eager"], timings["captured"]
+    print(f"phase 22 {label} f32 B{B} (two views: {2 * B} clips through the online network) "
+          f"eager / captured: {e['clips_per_s']!r} / {c['clips_per_s']!r} clips/s "
+          f"({e['ms_per_step']!r} / {c['ms_per_step']!r} ms/step), host {e['host_ms']!r} / "
+          f"{c['host_ms']!r} ms/step, busy {e['busy']!r} / {c['busy']!r}, peak "
+          f"{e['peak_bytes']} / {c['peak_bytes']} bytes; on {card}")
+    return timings
+
+
+def byol_parts_ms(app, B: int) -> dict:
+    """Device ms of a BYOL step's parts at B (``cuda_time_ms``, eager, on the
+    app's task): the online network and predictor forward and backward of
+    both views, the momentum encoder's two forwards, LARS's update, the EMA."""
+    import torch
+
+    from pytorchvideo_tpu_torch.models.byol import l2_normalize
+
+    task, optimizer = app.task, app.state.optimizer
+    video = next(iter(app.datamodule.train_dataloader(1)))["video"]
+    x1, x2 = video[:, 0], video[:, 1]
+    task.train()
+    with torch.no_grad():
+        t1, t2 = task.forward_backbone_mmt(x1), task.forward_backbone_mmt(x2)
+
+    def online():
+        for p in task.parameters():
+            p.grad = None
+        p1, p2 = task.forward_backbone(x1), task.forward_backbone(x2)
+        ((task.sim_loss(p1, t2) + task.sim_loss(p2, t1)) / 2).backward()
+
+    def momentum():
+        with torch.no_grad():
+            l2_normalize(task.momentum(x1)), l2_normalize(task.momentum(x2))
+
+    online()
+    parts = {"online forward and backward": online, "momentum forwards": momentum,
+             "LARS update": optimizer.step,
+             "EMA": lambda: task.momentum_update(app.state.mmt)}
+    return {name: cuda_time_ms(fn, SSL_TIMED_STEPS, warmup=1) for name, fn in parts.items()}
+
+
+def byol_check(train, card: str) -> dict:
+    """Phase 22 (b): BYOL on slow_r50, the card against the CPU at B2, then
+    at B8 the app's captured step against the eager one, ``train()`` and the
+    timings (:func:`ssl_captured_against_eager`), with the eager step's
+    device time by part."""
+    import copy
+
+    import torch
+
+    optim = train.get_preset("byol_train_app_conf")["optimizer"]
+    fields = dict(feature_dim=256, predictor_inner=4096, mmt=0.996)
+    app = ssl_app(train, "byol", SSL_CHECK_BATCH, seed=81, optim=optim, **fields)
+    video = next(iter(app.datamodule.train_dataloader(1)))["video"]
+    mmt = app._momentum(0, 0)
+    before = {k: v.detach().cpu().double() for k, v in app.task.state_dict().items()}
+    # One step from the same weights and views, in four forms.
+    tasks = {"card f64": copy.deepcopy(app.task).double(),
+             "cpu f64": copy.deepcopy(app.task).cpu().double(),
+             "cpu f32": copy.deepcopy(app.task).cpu(), "card f32": app.task}
+    after, losses = {}, {}
+    for form, task in tasks.items():
+        p = next(task.parameters())
+        state = app.state if task is app.task else train.ssl_train_state(
+            task, train.construct_optimizer(task, optim), app.cfg.mmt)
+        reset_counts()
+        state, metrics = app._train_step(state, {"video": video.to(p.device, p.dtype)}, mmt=mmt)
+        if p.is_cuda:
+            check_path_counts(f"phase 22 (b) byol slow_r50 {form} step", read_counts(), {}, 1,
+                              "steps")
+        losses[form] = metrics["loss"].item()
+        after[form] = {k: v.detach().cpu() for k, v in task.state_dict().items()}
+        del state
+    del tasks
+    torch.cuda.empty_cache()
+    bias = f"online.{BYOL_ROUNDING_BIAS}"
+    rounding = {bias, f"momentum.{BYOL_ROUNDING_BIAS}"}
+    # (1) The card's step against the CPU's in float64: the port's step,
+    # LARS, the EMA and the BN buffers, free of f32 rounding.
+    for a, b in (("card f64", "cpu f64"), ("card f32", "cpu f32")):
+        assert abs(losses[a] - losses[b]) <= SSL_TOL["atol"] + SSL_TOL["rtol"] * abs(losses[b]), (
+            a, b, losses)
+    worst = {}
+    for key, r in after["cpu f64"].items():
+        got = after["card f64"][key]
+        assert torch.isfinite(got.double()).all(), key
+        if key in rounding:
+            continue
+        if not r.is_floating_point():
+            assert torch.equal(got, r), key
+            continue
+        torch.testing.assert_close(got, r, **SSL_TOL, msg=lambda m, k=key: f"{k}: {m}")
+        tree = key.split(".")[0]
+        worst[tree] = max(worst.get(tree, 0.0), (got - r).abs().max().item())
+    scale = optim.lr * torch.linalg.vector_norm(before[bias]).item()
+    norms = {form: ssl_step_norm_check(f"phase 22 (b) {form}", before, after[form], bias, scale)
+             for form in after}
+    rounding_delta = (after["card f64"][bias] - after["cpu f64"][bias]).abs().max().item()
+    # (2) In float32, as SSL runs: each tensor's update off the float64 one,
+    # relative to the update's size, on the card and on the CPU (the
+    # momentum tree and the BN buffers included); per tensor, the card's
+    # within F32_SPREAD_FACTOR of the CPU's, or of the CPU's median where
+    # the CPU's is below it.
+    rel = {form: {k: (torch.linalg.vector_norm(after[form][k].double() - r.double())
+                      / torch.linalg.vector_norm(r.double() - before[k])).item()
+                  for k, r in after["card f64"].items()
+                  if r.is_floating_point() and k not in rounding
+                  and not torch.equal(r.double(), before[k])}
+           for form in ("card f32", "cpu f32")}
+    spread = {}
+    for form, errs in rel.items():
+        for tree in ("online", "momentum", "predictor"):
+            vals = sorted(v for k, v in errs.items() if k.split(".")[0] == tree)
+            spread.setdefault(form, {})[tree] = {"median": vals[len(vals) // 2],
+                                                 "max": vals[-1], "tensors": len(vals)}
+    cpu_median = sorted(rel["cpu f32"].values())[len(rel["cpu f32"]) // 2]
+    ratios = sorted((rel["card f32"][k] / max(rel["cpu f32"][k], cpu_median), k)
+                    for k in rel["card f32"])
+    quantiles = {q: ratios[min(len(ratios) - 1, int(q * len(ratios)))][0]
+                 for q in (0.5, 0.9, 0.99)}
+    worst_ratio, worst_key = ratios[-1]
+    print(f"phase 22 (b) byol slow_r50 B{SSL_CHECK_BATCH} two-view step (LARS lr {optim.lr}), "
+          f"losses {losses}. float64, card against the CPU: max |diff| by tree {worst} (rtol "
+          f"{SSL_TOL['rtol']}, atol {SSL_TOL['atol']}). float32: each tensor's update off the "
+          f"float64 one, relative L2, by tree: {spread}; per tensor, the card's over max(the "
+          f"CPU's, the CPU's median {cpu_median!r}): quantiles {quantiles}, max {worst_ratio!r} "
+          f"({worst_key}), bound {F32_SPREAD_FACTOR} (a random-init BN ResNet amplifies f32 "
+          f"rounding, and LARS steps every tensor by lr x its norm). {bias}: its gradient is zero "
+          f"up to rounding; LARS stepped it by {norms} (lr x its norm {scale!r}), the f64 runs "
+          f"apart by max |diff| {rounding_delta!r}; on {card}")
+    assert worst_ratio <= F32_SPREAD_FACTOR, (
+        f"phase 22 (b): float32 on the card {worst_ratio} x the CPU's distance from float64 in "
+        f"{worst_key}")
+    del app, before, after
+    torch.cuda.empty_cache()
+
+    report = ssl_captured_against_eager(train, "byol", 82, optim, card, part="(b)",
+                                        parts=lambda eager: byol_parts_ms(eager, SSL_BATCH),
+                                        **fields)
+    report["check"] = {"losses": losses, "f64_max_abs_diff": worst, "f32_update_spread": spread,
+                       "f32_card_over_cpu": {"quantiles": quantiles, "max": worst_ratio,
+                                             "tensor": worst_key},
+                       "rounding_bias_step_norms": norms, "rounding_bias_delta": rounding_delta}
+    return report
+
+
+def worst_share(got: dict, ref: dict) -> tuple:
+    """(the worst tensor's max |diff| over its bound in ``tensors_close``,
+    its name, its max |diff|), without asserting; integer buffers must be
+    equal."""
+    import torch
+
+    rel, floor = STEP_GRAD_TOL["bfloat16"]
+    module_max = {}
+    for n, r in ref.items():
+        if r.is_floating_point() and r.numel():
+            module_max[_module_of(n)] = max(module_max.get(_module_of(n), 0.0),
+                                            r.abs().max().item())
+    worst = (0.0, "", 0.0)
+    for n, r in ref.items():
+        if not r.is_floating_point():
+            assert torch.equal(got[n], r), f"{n}: {got[n]} != {r}"
+            continue
+        err = (got[n].double() - r.double()).abs().max().item() if r.numel() else 0.0
+        bound = rel * r.abs().max().item() + floor * module_max[_module_of(n)]
+        worst = max(worst, (err / bound, n, err))
+    return worst
+
+
+def sync_state(src, dst) -> None:
+    """Copies ``src``'s task state (parameters, buffers, queue) and its
+    optimizer's per-parameter state into ``dst`` (an app of the same task
+    and optimizer), in place where ``dst`` holds them."""
+    dst.task.load_state_dict(src.task.state_dict())
+    source, target = src.state.optimizer.state, dst.state.optimizer.state
+    for ps, pd in zip(src.task.parameters(), dst.task.parameters()):
+        if ps in source:
+            target[pd] = {k: v.clone() for k, v in source[ps].items()}
+
+
+def ssl_captured_against_eager(train, task: str, seed: int, optim, card: str, part: str = "(c)",
+                               parts=None, **fields) -> dict:
+    """Phase 22 ``part`` for one task: SSL_STEPS updates of the app's captured
+    step (its warm-up updates, the capture's replay, replays), each held by
+    phase 19's bound against the eager step's update from the same state on
+    the same batch; a second eager update from that state gives the eager
+    step's own spread (cuDNN's weight gradients and the max pool's backward
+    add with atomics, and a random-init BN ResNet amplifies rounding). Then,
+    for BYOL and MoCo, a replay at mmt 0 (the momentum encoder must equal the
+    online one after it) and MoCo's queue; ``SSLTrainApp.train()`` on a
+    fresh app through its capture; that app's captured step and the eager
+    one timed, and ``parts(eager app)`` (a dict of device ms) when given."""
+    import torch
+
+    from pytorchvideo_tpu_torch.models.byol import l2_normalize
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    apps = {form: ssl_app(train, task, SSL_BATCH, seed, optim, **fields)
+            for form in ("captured", "eager", "eager again")}
+    app, eager = apps["captured"], apps["eager"]
+    batches = [b["video"] for b in app.datamodule.train_dataloader(SSL_STEPS)]
+    shares, losses, capture_peak = [], {form: [] for form in apps}, 0
+    reset_counts()
+    for i, video in enumerate(batches):
+        scalars = {} if task == "simclr" else {"mmt": app._momentum(i, 0)}
+        for form in ("eager", "eager again"):
+            sync_state(app, apps[form])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        app.state, metrics = app._step({"video": video}, scalars.get("mmt"))
+        torch.cuda.synchronize()
+        capture_peak = max(capture_peak, torch.cuda.max_memory_allocated())
+        losses["captured"].append(metrics["loss"].item())
+        for form in ("eager", "eager again"):
+            e = apps[form]
+            e.state, metrics = e._train_step(e.state, {"video": video}, **scalars)
+            losses[form].append(metrics["loss"].item())
+        ref = eager.task.state_dict()
+        shares.append({form: worst_share(apps[form].task.state_dict(), ref)
+                       for form in ("captured", "eager again")})
+    label = f"phase 22 {part} {task} slow_r50 f32 B{SSL_BATCH} lr {optim.lr}"
+    check_path_counts(f"{label} updates", read_counts(), {}, 3 * SSL_STEPS, "steps")
+    (step,) = app._captured_steps.values()
+    assert step.graph is not None and step.calls == SSL_STEPS
+    print(f"{label}: {SSL_STEPS} updates of SSLTrainApp's captured step (2 eager warm-ups, the "
+          f"capture, replays), each against the eager update from the same state, and a second "
+          f"eager update against the first: losses {losses}; per update, the worst tensor's max "
+          f"|diff| over phase 19's bound (share, tensor, max |diff|): {shares}; on {card}")
+    report = {"lr": optim.lr, "losses": losses, "worst_share_of_bound": shares}
+    for i, row in enumerate(shares):
+        share, name, err = row["captured"]
+        assert share <= 1.0, (f"{label}: update {i + 1} off eager by {err} in {name}, {share} "
+                              f"of its bound")
+    del apps["eager again"]
+    if task != "simclr":
+        model = app.task
+        video = next(iter(app.datamodule.train_dataloader(1)))["video"]
+        ptr = int(model.queue_ptr) if task == "moco_v2" else None
+        if task == "moco_v2":
+            assert ptr == SSL_STEPS * SSL_BATCH % model.queue_size
+            with torch.no_grad():
+                keys = l2_normalize(l2_normalize(model.momentum(video[:, 1])))
+        # A replay at mmt 0: the EMA must read the value written before it,
+        # leaving the momentum encoder equal to the updated online one.
+        app._step({"video": video}, 0.0)
+        online = {k: v for k, v in model.online.state_dict().items() if v.is_floating_point()}
+        momentum = model.momentum.state_dict()
+        assert all(torch.equal(momentum[k], v) for k, v in online.items()), "mmt 0 not read"
+        print(f"{label}: a replay at mmt 0 left the momentum encoder equal to the online one "
+              f"({len(online)} tensors, BN buffers included)")
+        if task == "moco_v2":
+            assert int(model.queue_ptr) == (ptr + SSL_BATCH) % model.queue_size
+            rows = model.queue[ptr:ptr + SSL_BATCH]
+            torch.testing.assert_close(rows, keys, **QUEUE_TOL)
+            report["queue_rows_max_abs_diff"] = (rows - keys).abs().max().item()
+            print(f"{label}: the queue pointer at {ptr} after {SSL_STEPS} updates, +{SSL_BATCH} "
+                  f"at that replay, whose rows match its normalised keys within max |diff| "
+                  f"{report['queue_rows_max_abs_diff']!r}")
+    # The user's entry point on a fresh app (the one above has taken
+    # SSL_STEPS + 1 updates at the recipe's constant LR): train() captures
+    # its step after the warm-up updates.
+    del app
+    torch.cuda.empty_cache()
+    app = ssl_app(train, task, SSL_BATCH, seed, optim, steps=WARMUP_STEPS + 1, **fields)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_losses = app.train()
+    capture_peak = torch.cuda.max_memory_allocated()
+    check_path_counts(f"{label} app.train()", read_counts(), {}, len(train_losses), "steps")
+    (step,) = app._captured_steps.values()
+    assert step.graph is not None and step.calls == WARMUP_STEPS + 1, step.calls
+    assert all(map(math.isfinite, train_losses)), train_losses
+    report["train_losses"] = train_losses
+    report["timings"] = ssl_timings(f"{part} {task} slow_r50", app, eager, SSL_BATCH, card,
+                                    capture_peak)
+    if parts is not None:
+        report["parts_ms"] = parts(eager)
+        total = sum(report["parts_ms"].values())
+        print(f"{label} eager step's device ms by part: {report['parts_ms']}; shares "
+              f"{({k: v / total for k, v in report['parts_ms'].items()})}; on {card}")
+    del app, eager, apps
+    torch.cuda.empty_cache()
+    return report
+
+
+def ssl_mvit_check(train, hub, card: str) -> dict:
+    """Phase 22 (d): SimCLR on mvit_base_16x4 through the port's step maker:
+    the kernels' launches over one step, and its gradients against the
+    plain-kernel step's."""
+    import torch
+
+    from pytorchvideo_tpu_torch.layers import MultilayerPerceptron
+    from pytorchvideo_tpu_torch.models import SimCLR
+
+    mvit = hub.mvit_base_16x4(head_num_classes=128)
+    randomize_mvit_(mvit, torch.Generator().manual_seed(91))
+    task = SimCLR(MultilayerPerceptron([128, 128, 128], final_activation=None), backbone=mvit,
+                  temperature=0.1)
+    optim = train.get_preset("simclr_train_app_conf")["optimizer"]
+    state = train.ssl_train_state(task, train.construct_optimizer(task, optim))
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    video = torch.randn(SSL_MVIT_BATCH, 2, 3, *MVIT_CLIP, device="cuda", generator=gen)
+    x1, x2 = video[:, 0], video[:, 1]
+    grads = {}
+    for form, context in (("kernels", contextlib.nullcontext), ("plain", plain_kernels)):
+        task.zero_grad(set_to_none=True)
+        task.train()
+        torch.cuda.manual_seed(11)  # the same head dropout masks in both forms
+        reset_counts()
+        with context():
+            task.loss(x1, x2).backward()
+        counts = read_counts()
+        if form == "plain":
+            assert not any(counts.values()), f"the plain step launched kernels: {counts}"
+        grads[form] = {n: p.grad.clone() for n, p in task.named_parameters()}
+    err = tensors_close("phase 22 (d) simclr mvit_base_16x4 gradients, kernels against plain",
+                        grads["kernels"], grads["plain"])
+    share, worst_name, _ = worst_share(grads["kernels"], grads["plain"])
+    del grads
+    task.zero_grad(set_to_none=True)
+    step = train.make_simclr_train_step()
+    reset_counts()
+    state, metrics = step(state, {"video": video})
+    counts = read_counts()
+    check_path_counts(f"phase 22 (d) simclr mvit_base_16x4 f32 B{SSL_MVIT_BATCH}, one step of "
+                      f"two views", counts, f32_routes(MVIT_PER_STEP), 2, "views")
+    loss = metrics["loss"].item()
+    assert math.isfinite(loss), loss
+    print(f"phase 22 (d) simclr mvit_base_16x4 f32 B{SSL_MVIT_BATCH} (two views, LARS): loss "
+          f"{loss!r}; gradients against the plain-kernel step: max |diff| {err!r}, the worst "
+          f"tensor ({worst_name}) at {share!r} of phase 9's bf16 bound (rel "
+          f"{STEP_GRAD_TOL['bfloat16'][0]} of the tensor's max |g| + {STEP_GRAD_TOL['bfloat16'][1]}"
+          f" of its module's); on {card}")
+    del task, state, video
+    torch.cuda.empty_cache()
+    return {"counts": counts, "grad_max_abs_diff": err, "grad_worst_share_of_bound": share,
+            "loss": loss}
+
+
+def memory_bank_check(train, hub, card: str) -> dict:
+    """Phase 22 (e): ``MemoryBank`` at its defaults on slow_r50, and
+    ``KnnMemory.knn_predict`` timed."""
+    import torch
+
+    from pytorchvideo_tpu_torch.models import MemoryBank
+
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    bank = MemoryBank(hub.slow_r50(model_num_class=BANK["dim"], dropout_rate=0.0),
+                      generator=gen, **BANK)
+    optimizer = train.construct_optimizer(bank, train.OptimizerConfig(method="sgd", lr=0.1))
+    x = torch.randn(SSL_BATCH, 3, *SSL_CLIP, device="cuda", generator=gen)
+    x_ind = torch.randperm(BANK["bank_size"], device="cuda", generator=gen)[:SSL_BATCH]
+
+    def step():
+        bank.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = bank.loss(x, x_ind, gen)
+        loss.backward()
+        optimizer.step()
+        return loss
+
+    before = bank.memory.clone()
+    loss = step().item()
+    changed = torch.nonzero((bank.memory != before).any(dim=1)).flatten()
+    del before
+    assert sorted(changed.tolist()) == sorted(x_ind.tolist()), (changed, x_ind)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(step, SSL_TIMED_STEPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    del bank, optimizer
+    torch.cuda.empty_cache()
+    knn = train.KnnMemory(**{k: v for k, v in KNN.items()})
+    knn_state = knn.init(gen, device="cuda")
+    knn_state["labels"].copy_(torch.randint(0, KNN["num_classes"], (KNN["length"],),
+                                            device="cuda", generator=gen))
+    q = torch.randn(SSL_BATCH, KNN["dim"], device="cuda", generator=gen)
+    scores = knn.knn_predict(knn_state, q)
+    assert scores.shape == (SSL_BATCH, KNN["num_classes"]) and torch.isfinite(scores).all()
+    knn_ms = cuda_time_ms(lambda: knn.knn_predict(knn_state, q), 20)
+    print(f"phase 22 (e) MemoryBank {BANK} f32 on slow_r50 B{SSL_BATCH}: loss {loss!r}; the "
+          f"{SSL_BATCH} x_ind rows changed and no other; {ms!r} ms a step (SGD), peak "
+          f"{peak} bytes; KnnMemory.knn_predict {KNN} at B{SSL_BATCH}: {knn_ms!r} ms; on {card}")
+    return {"loss": loss, "ms_per_step": ms, "peak_bytes": peak, "knn_predict_ms": knn_ms}
+
+
+def ssl_slice(train, hub, card: str) -> dict:
+    """Phase 22: self-supervised pretraining, each part's seconds printed."""
+    t_part = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 22 {part}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    report = {"lars": lars_check(train, hub, card)}
+    lap("(a)")
+    report["byol"] = byol_check(train, card)
+    lap("(b)")
+    report["simclr"] = ssl_captured_against_eager(
+        train, "simclr", 83, train.get_preset("simclr_train_app_conf")["optimizer"], card,
+        feature_dim=128, temperature=0.1)
+    report["moco_v2"] = ssl_captured_against_eager(
+        train, "moco_v2", 84, train.get_preset("moco_v2_train_app_conf")["optimizer"], card,
+        feature_dim=128, queue_size=65536, temperature=0.07, mmt=0.994)
+    lap("(c)")
+    report["mvit_simclr"] = ssl_mvit_check(train, hub, card)
+    lap("(d)")
+    report["memory_bank"] = memory_bank_check(train, hub, card)
+    lap("(e)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -4443,6 +5034,10 @@ def main() -> None:
     detection = detection_slice(hub, card)
     print(f"phase 21 (AVA detection and the engine): {time.perf_counter() - t_phase:.1f} s")
     print("detection report: " + json.dumps(detection))
+    t_phase = time.perf_counter()
+    ssl = ssl_slice(train, hub, card)
+    print(f"phase 22 (self-supervised pretraining): {time.perf_counter() - t_phase:.1f} s")
+    print("ssl report: " + json.dumps(ssl, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -4738,6 +5333,21 @@ def main() -> None:
                 "launches_at_capture": sum(reading["capture"][n] for n in names),
                 "launches_per_replay": [sum(r[n] for n in names) for r in reading["replays"]],
                 "path": where}
+    # The launches of one SimCLR step on MViT-B (phase 22 (d)), two views.
+    ssl_counts = ssl["mvit_simclr"]["counts"]
+    ssl_wrappers = {
+        "pooled_attention_packed": ("pooled_attention_packed",),
+        "token_pool": ("token_pool_conv", "token_pool_max"),
+        "pooled_attention_packed_bwd": ("pooled_attention_packed_bwd",),
+        "token_pool_dw": ("token_pool_dw",),
+        "token_pool_dx": ("token_pool_dx",),
+    }
+    for entry in entries:
+        if entry["name"] in ssl_wrappers:
+            entry["ssl_step"] = {
+                "launches": sum(ssl_counts[n] for n in ssl_wrappers[entry["name"]]),
+                "path": f"phase 22 (d): SimCLR on mvit_base_16x4 f32 16x224x224, B{SSL_MVIT_BATCH}, "
+                        f"one step of two views through make_simclr_train_step"}
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

@@ -22,9 +22,14 @@ from pytorchvideo_tpu_torch.layers.fusion import (  # noqa: F401
     TemporalConcatFusion,
     make_fusion_layer,
 )
+from pytorchvideo_tpu_torch.layers.mlp import (  # noqa: F401
+    MultilayerPerceptron,
+    make_multilayer_perceptron,
+)
 from pytorchvideo_tpu_torch.layers.nonlocal_net import NonLocal, create_nonlocal  # noqa: F401
 from pytorchvideo_tpu_torch.layers.norms import (  # noqa: F401
     BatchNorm,
+    BatchNorm1d,
     LayerNorm,
     make_act,
     make_norm,

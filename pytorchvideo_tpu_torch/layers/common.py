@@ -52,10 +52,11 @@ def Conv3d(
 
 def avg_pool3d(x: torch.Tensor, kernel_size, stride=None, padding=(0, 0, 0)) -> torch.Tensor:
     """Average pool over (T, H, W) with count_include_pad=True, summed in
-    float32 whatever x's dtype (PyTorch's CPU avg_pool3d has no bfloat16)."""
+    float32 at least (PyTorch's CPU avg_pool3d has no bfloat16; float64
+    stays float64)."""
     k = triple(kernel_size)
     return F.avg_pool3d(
-        x.float(),
+        x.to(torch.promote_types(x.dtype, torch.float32)),
         k,
         stride=triple(stride) if stride is not None else k,
         padding=triple(padding),
@@ -65,11 +66,12 @@ def avg_pool3d(x: torch.Tensor, kernel_size, stride=None, padding=(0, 0, 0)) -> 
 
 def max_pool3d(x: torch.Tensor, kernel_size, stride=None, padding=(0, 0, 0)) -> torch.Tensor:
     """Max pool over (T, H, W) with MaxPool3d semantics: -inf padding, floor
-    output size. Exact in any dtype; on the CPU it is taken in float32
-    (PyTorch's CPU max_pool3d has no bfloat16), on the card in x's dtype."""
+    output size. Exact in any dtype: on the CPU a 16-bit x is pooled in
+    float32 (PyTorch's CPU max_pool3d has no bfloat16), any other dtype as
+    it is."""
     k = triple(kernel_size)
     return F.max_pool3d(
-        x.float() if x.device.type == "cpu" else x,
+        x.float() if x.device.type == "cpu" and x.element_size() < 4 else x,
         k,
         stride=triple(stride) if stride is not None else k,
         padding=triple(padding),

@@ -79,6 +79,16 @@ class BatchNorm(nn.BatchNorm3d):
         return out
 
 
+class BatchNorm1d(BatchNorm):
+    """:class:`BatchNorm` over (B, C) features or (B, C, L) sequences: the
+    JAX package's one BatchNorm reduces over every axis but the channels',
+    whatever the rank (the SSL projector's and predictor's norm)."""
+
+    def _check_input_dim(self, input: torch.Tensor) -> None:
+        if input.dim() not in (2, 3):
+            raise ValueError(f"expected 2D or 3D input (got {input.dim()}D input)")
+
+
 def make_norm(
     norm: Optional[Callable], num_features: int, eps: float = 1e-5, momentum: float = 0.1
 ) -> Optional[nn.Module]:

@@ -1,6 +1,7 @@
 """Models of the port (counterpart of pytorchvideo_tpu/models)."""
 
 from pytorchvideo_tpu_torch.models import hub  # noqa: F401
+from pytorchvideo_tpu_torch.models.byol import BYOL  # noqa: F401
 from pytorchvideo_tpu_torch.models.csn import create_csn  # noqa: F401
 from pytorchvideo_tpu_torch.models.detection import (  # noqa: F401
     ResNetRoIHead,
@@ -15,6 +16,7 @@ from pytorchvideo_tpu_torch.models.head import (  # noqa: F401
     create_res_basic_head,
     create_vit_basic_head,
 )
+from pytorchvideo_tpu_torch.models.memory_bank import MemoryBank  # noqa: F401
 from pytorchvideo_tpu_torch.models.net import (  # noqa: F401
     DetectionBBoxNetwork,
     MultiPathWayWithFuse,
@@ -33,6 +35,7 @@ from pytorchvideo_tpu_torch.models.resnet import (  # noqa: F401
     create_res_stage,
     create_resnet,
 )
+from pytorchvideo_tpu_torch.models.simclr import SimCLR  # noqa: F401
 from pytorchvideo_tpu_torch.models.slowfast import (  # noqa: F401
     FastToSlowFusionBuilder,
     FuseFastToSlow,

@@ -4,7 +4,8 @@ rematerialisation, the step captured in a CUDA graph, optimizer groups
 with the LR on the device, LR schedules, precise BN, metrics, the trainer
 losses, configs and presets, and the classification train app with its
 test and predict passes and the SSL backbone graft, and the datamodule
-that feeds it from videos. It trains the
+that feeds it from videos; self-supervised pretraining (BYOL, SimCLR,
+MoCo v2) with LARS, the SSL transforms and ``SSLTrainApp``. It trains the
 BatchNorm models (X3D, Slow, SlowFast and the other ResNet builders; the
 recipes ``classification_x3d_xs``, ``classification_slow_8x8_r50`` and
 ``classification_slowfast_8x8_r50``) and MViT (``classification_mvit_16x4``);
@@ -19,6 +20,8 @@ from pytorchvideo_tpu_torch.train.config import (  # noqa: F401
     ModelConfig,
     TrainerConfig,
     VideoClassificationTrainConfig,
+    config_from_dict,
+    config_to_dict,
     save_config,
 )
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger  # noqa: F401
@@ -38,6 +41,7 @@ from pytorchvideo_tpu_torch.train.lr_policy import (  # noqa: F401
     get_lr_at_epoch,
 )
 from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
+    LARS,
     OptimizerConfig,
     construct_optimizer,
     load_optimizer_state,
@@ -47,6 +51,24 @@ from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
 )
 from pytorchvideo_tpu_torch.train.precise_batchnorm import PreciseBn, update_bn_stats  # noqa: F401
 from pytorchvideo_tpu_torch.train.presets import PRESETS, get_preset  # noqa: F401
+from pytorchvideo_tpu_torch.train.ssl import (  # noqa: F401
+    KnnMemory,
+    MoCoV2,
+    batch_shuffle,
+    batch_unshuffle,
+    momentum_anneal_cosine,
+)
+from pytorchvideo_tpu_torch.train.ssl_app import (  # noqa: F401
+    SSLConfig,
+    SSLTrainApp,
+    SSLTrainState,
+    SSLTrainStep,
+    TwoViewTransform,
+    make_byol_train_step,
+    make_moco_train_step,
+    make_simclr_train_step,
+    ssl_train_state,
+)
 from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
     REMAT_POLICIES,
     TrainState,
@@ -57,7 +79,13 @@ from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
     make_train_step,
 )
 from pytorchvideo_tpu_torch.train.transforms import (  # noqa: F401
+    ColorJitterVideoSSl,
+    GaussianBlur,
     MixVideoBatchWrapper,
+    RandomErasing,
+    RepeatandConverttoList,
     SlowFastPackPathway,
+    build_collator_from_name,
     default_collate,
+    multiple_samples_collate,
 )

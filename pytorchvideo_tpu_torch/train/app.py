@@ -47,7 +47,7 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 import torch
 
 from pytorchvideo_tpu_torch.accelerate.deploy import CompiledForward
-from pytorchvideo_tpu_torch.train.compiled_step import CompiledTrainStep, batch_signature
+from pytorchvideo_tpu_torch.train.compiled_step import CapturedSteps
 from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
 from pytorchvideo_tpu_torch.train.datamodule import VideoClassificationDataModule
 from pytorchvideo_tpu_torch.train.logger import MetricsLogger
@@ -101,25 +101,12 @@ class VideoClassificationTrainApp:
     def _drop_graphs(self) -> None:
         """Forget every captured graph (the card's train steps by batch
         signature, eval forwards by clip shape) and their memory pool."""
-        self._pool = None
-        self._captured_steps: Dict[tuple, CompiledTrainStep] = {}
+        self._captured_steps = CapturedSteps(self.device)
         self._captured_evals: Dict[tuple, CompiledForward] = {}
-
-    def _graph_pool(self):
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
 
     def _step(self, batch: Dict[str, Any]):
         """One update on a device batch: captured on the card, eager on the CPU."""
-        if self.device.type != "cuda":
-            return self._train_step(self.state, batch, self.generator)
-        key = batch_signature(self._train_step, batch)
-        step = self._captured_steps.get(key)
-        if step is None:
-            step = CompiledTrainStep(self._train_step, self.state, pool=self._graph_pool())
-            self._captured_steps[key] = step
-        return step(self.state, batch, self.generator)
+        return self._captured_steps.run(self._train_step, self.state, batch, self.generator)
 
     def _evaluate(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Eval-mode logits of a device batch: a replayed ``CompiledForward``
@@ -132,7 +119,8 @@ class VideoClassificationTrainApp:
         self.state.model.eval()
         forward = self._captured_evals.get(key)
         if forward is None:
-            forward = CompiledForward(self.state.model, video, pool=self._graph_pool())
+            forward = CompiledForward(self.state.model, video,
+                                      pool=self._captured_steps.graph_pool())
             self._captured_evals[key] = forward
         return forward(video)
 

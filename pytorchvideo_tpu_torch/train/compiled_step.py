@@ -1,19 +1,39 @@
 """The training step captured in a CUDA graph: the port's counterpart of the
-JAX app's ``jax.jit(make_train_step(...))`` (pytorchvideo_tpu/train/app.py),
-as accelerate/deploy.py's ``CompiledForward`` is of its compiled forward.
+JAX apps' ``jax.jit`` of their steps (pytorchvideo_tpu/train/app.py's
+``make_train_step``, ssl_app.py's BYOL, SimCLR and MoCo v2 steps), as
+accelerate/deploy.py's ``CompiledForward`` is of its compiled forward.
 
-:class:`CompiledTrainStep` captures ONE graph for one batch signature (the
-clip's, or each pathway's, shape, dtype and device, the labels', the step's
-``grad_accum_steps`` and ``compute_dtype``) after its warm-up updates, and
-replays it at every call after. The graph holds the whole device part of
-the eager step (``TrainStep.update``): the forward and backward of every
-microbatch (checkpointed under ``remat_policy``), the zero gradients of
-parameters the loss does not reach, the clip by global norm, the
-optimizer's update and the metrics. The host's part stays around it: the
-batch transform (MixUp/CutMix draws its scalars and box from the app's CPU
-generator), the copy of the batch into the static buffers, the schedule's
-LR written into the optimizer's LR tensor (train/optimizer.py), and the
-update count.
+:class:`CompiledTrainStep` captures ONE graph for one batch signature
+(``step.signature(batch)``: for the classification step the clip's, or each
+pathway's, shape, dtype and device, the labels', ``grad_accum_steps`` and
+``compute_dtype``; for an SSL step the two views' and the task) after its
+warm-up updates, and replays it at every call after. It takes any step
+with the interface of train_loop.py's ``TrainStep`` and ssl_app.py's
+``SSLTrainStep``:
+
+- ``signature(batch)``: the tuple a graph is captured for;
+- ``prepare(batch, generator)``: the host's part (checks, the batch
+  transform, whose random scalars come from ``generator``), returning the
+  update's inputs, each a tensor or a list of tensors;
+- ``write_scalars(state, **scalars)``: the host's values the update reads
+  from device tensors, written before each update: the schedule's LR into
+  the optimizer's LR tensor (train/optimizer.py), and an SSL step's EMA
+  momentum ``mmt`` into the state's ``mmt`` tensor;
+- ``update(state, *inputs)``: the device part, which reads nothing back to
+  the host, returning its metrics as 0-d device tensors.
+
+:class:`CapturedSteps` is what both train apps step through: their captured
+steps by signature in one memory pool on the card, the eager step on the
+CPU.
+
+The graph holds the whole of ``update``: for the classification step the
+forward and backward of every microbatch (checkpointed under
+``remat_policy``), the zero gradients of parameters the loss does not
+reach, the clip by global norm, the optimizer's update and the metrics; for
+an SSL step the two views' forwards and the backward, the optimizer's
+update, then the EMA of the momentum encoder and the queue's rotation. The
+host's part stays around it: ``prepare``, the copy of the inputs into the
+static buffers, ``write_scalars`` and the update count.
 
 Capture. The first ``WARMUP_STEPS`` batches of a signature are real
 updates, made eagerly on a side stream (PyTorch's recipe for whole-network
@@ -26,9 +46,9 @@ one pool. A capture that fails raises: there is no eager fallback.
 Random draws. torch's default CUDA generator is graph-safe: each replay
 advances it, so each replay draws new DropPath and dropout masks. A
 module's own CUDA generator (a ``generator`` attribute, as DropPath,
-Dropout and MultiScaleBlock hold) is registered with the graph
-(``CUDAGraph.register_generator_state``) to the same effect; a torch
-without that refuses such a model.
+Dropout and MultiScaleBlock hold, and MoCo v2's shuffle) is registered
+with the graph (``CUDAGraph.register_generator_state``) to the same
+effect; a torch without that refuses such a model.
 
 What a replay cannot see. The graph runs the kernels recorded at the
 capture on the tensors it saw there. Python-side state is frozen into it:
@@ -50,27 +70,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from pytorchvideo_tpu_torch.train.optimizer import set_lr
-from pytorchvideo_tpu_torch.train.train_loop import TrainState, TrainStep
+from pytorchvideo_tpu_torch.train.train_loop import TrainState, _tensors
 
 WARMUP_STEPS = 2
-
-
-def _tensors(video) -> List[torch.Tensor]:
-    return list(video) if isinstance(video, (list, tuple)) else [video]
-
-
-def _spec(t: torch.Tensor):
-    return tuple(t.shape), t.dtype, t.device
-
-
-def batch_signature(step: TrainStep, batch: Dict[str, Any]) -> tuple:
-    """What one graph of ``step`` is captured for: the clip's (or each
-    pathway's) and the labels' shape, dtype and device, whether the clip is
-    a list, the step's ``grad_accum_steps`` and ``compute_dtype``."""
-    video = batch[step.input_key]
-    return (isinstance(video, (list, tuple)), tuple(_spec(t) for t in _tensors(video)),
-            _spec(batch[step.label_key]), step.grad_accum_steps, step.compute_dtype)
 
 
 def _explicit_generators(model: torch.nn.Module) -> List[torch.Generator]:
@@ -94,12 +96,14 @@ def model_device(model: torch.nn.Module) -> torch.device:
 
 
 class CompiledTrainStep:
-    """``step(state, batch, generator=None) -> (state, metrics)``, as the
-    eager ``step`` (a :class:`~pytorchvideo_tpu_torch.train.train_loop.TrainStep`)
-    computes it, for one batch signature (:func:`batch_signature`, fixed by
-    the first call): the first ``WARMUP_STEPS`` calls make eager updates on a
-    side stream, the next captures the update in one ``torch.cuda.CUDAGraph``
-    and replays it, and every later call replays it.
+    """``step(state, batch, generator=None, **scalars) -> (state, metrics)``,
+    as the eager ``step`` (a
+    :class:`~pytorchvideo_tpu_torch.train.train_loop.TrainStep` or an
+    :class:`~pytorchvideo_tpu_torch.train.ssl_app.SSLTrainStep`) computes it,
+    for one batch signature (``step.signature``, fixed by the first call):
+    the first ``WARMUP_STEPS`` calls make eager updates on a side stream, the
+    next captures the update in one ``torch.cuda.CUDAGraph`` and replays it,
+    and every later call replays it.
 
     ``state`` is the train state the graph is captured for: its model on one
     CUDA device (else ValueError) and, when it has an LR schedule, its
@@ -108,15 +112,16 @@ class CompiledTrainStep:
     ``torch.cuda.graph_pool_handle()`` shared with the model's other graphs
     (default: a new one, kept as ``.pool``).
 
-    A call runs ``step.prepare`` (the batch transform) eagerly, copies the
-    clip and labels into the static buffers, writes the LR of update
-    ``state.step``, updates (eagerly, or by a replay), advances ``state.step``
-    and ``calls``, and returns the metrics as 0-d device tensors. A batch of
-    another signature, or another train state, raises ValueError. See the
-    module docstring for what a replay cannot see.
+    A call runs ``step.prepare`` eagerly, copies its inputs into the static
+    buffers, runs ``step.write_scalars(state, **scalars)`` (the LR of update
+    ``state.step``; an SSL step's ``mmt``), updates (eagerly, or by a
+    replay), advances ``state.step`` and ``calls``, and returns the metrics
+    as 0-d device tensors. A batch of another signature, or another train
+    state, raises ValueError. See the module docstring for what a replay
+    cannot see.
     """
 
-    def __init__(self, step: TrainStep, state: TrainState, pool=None):
+    def __init__(self, step, state: TrainState, pool=None):
         self.device = model_device(state.model)
         if state.lr_schedule is not None and not all(
                 isinstance(g["lr"], torch.Tensor) and g["lr"].device == self.device
@@ -138,28 +143,26 @@ class CompiledTrainStep:
         self._side = None
 
     def __call__(self, state: TrainState, batch: Dict[str, Any],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, **scalars):
         if state is not self.state:
             raise ValueError("this step was captured for another train state")
-        signature = batch_signature(self.step, batch)
+        signature = self.step.signature(batch)
         if self.signature is not None and signature != self.signature:
             raise ValueError(f"this step was captured for the batch signature {self.signature}, "
                              f"got {signature}")
-        video, labels = self.step.prepare(batch, generator)
+        inputs = self.step.prepare(batch, generator)
         if self.signature is None:
             # The static buffers lie outside the graph's pool.
-            self._static_video = [t.detach().clone() for t in _tensors(video)]
-            self._static_labels = labels.detach().clone()
-            self._arg = (self._static_video if isinstance(video, (list, tuple))
-                         else self._static_video[0])
+            self._static = [[t.detach().clone() for t in _tensors(x)] for x in inputs]
+            self._args = tuple(static if isinstance(x, (list, tuple)) else static[0]
+                               for static, x in zip(self._static, inputs))
             self._side = torch.cuda.Stream(self.device)
             self.signature = signature
         with torch.no_grad():
-            for static, t in zip(self._static_video, _tensors(video)):
-                static.copy_(t)
-            self._static_labels.copy_(labels)
-        if state.lr_schedule is not None:
-            set_lr(state.optimizer, state.lr_schedule(state.step))
+            for static, x in zip(self._static, inputs):
+                for buffer, t in zip(static, _tensors(x)):
+                    buffer.copy_(t)
+        self.step.write_scalars(state, **scalars)
         if self.calls < WARMUP_STEPS:
             metrics = self._warm_up()
         else:
@@ -178,7 +181,7 @@ class CompiledTrainStep:
         current = torch.cuda.current_stream(self.device)
         self._side.wait_stream(current)
         with torch.cuda.stream(self._side):
-            metrics = self.step.update(self.state, self._arg, self._static_labels)
+            metrics = self.step.update(self.state, *self._args)
         current.wait_stream(self._side)
         return metrics
 
@@ -191,9 +194,40 @@ class CompiledTrainStep:
         # pinned allocations, on a stream of its own) runs beside the capture.
         with torch.cuda.device(self.device), torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
-            metrics = self.step.update(self.state, self._arg, self._static_labels)
+            metrics = self.step.update(self.state, *self._args)
         self._metrics = metrics
         # The gradients the graph writes (allocated in its pool): held here
         # so that the pool never hands their memory to another allocation.
         self._grads = [p.grad for p in model.parameters() if p.requires_grad]
         self.graph = graph
+
+
+class CapturedSteps(dict):
+    """An app's captured train steps, one :class:`CompiledTrainStep` per batch
+    signature (this dict maps ``step.signature(batch)`` to it), all in one
+    graph memory pool, which the app's other graphs share through
+    :meth:`graph_pool`. On a ``device`` other than the card, :meth:`run`
+    calls the eager step."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = torch.device(device)
+        self.pool = None
+
+    def graph_pool(self):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+    def run(self, step, state: TrainState, batch: Dict[str, Any],
+            generator: Optional[torch.Generator] = None, **scalars):
+        """One update of ``state`` on ``batch``: the captured step of the
+        batch's signature on the card (made at its first batch), ``step``
+        itself elsewhere."""
+        if self.device.type != "cuda":
+            return step(state, batch, generator, **scalars)
+        key = step.signature(batch)
+        compiled = self.get(key)
+        if compiled is None:
+            compiled = self[key] = CompiledTrainStep(step, state, pool=self.graph_pool())
+        return compiled(state, batch, generator, **scalars)

@@ -1,11 +1,13 @@
 """Trainer configuration as dataclasses (counterpart of
 pytorchvideo_tpu/train/config.py; upstream train_app.py:229-253 and its
-conf/ yaml tree), serialisable to json."""
+conf/ yaml tree), serialisable to json and built back from nested dicts
+(parsed json or yaml) by :func:`config_from_dict`."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -79,7 +81,36 @@ class VideoClassificationTrainConfig:
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
 
 
+def _from_dict(cls, data: Dict[str, Any]):
+    """``cls`` from the nested dict ``data``: keys that are not fields of
+    ``cls`` are ignored, missing ones keep their defaults, dataclass fields
+    are built from their dicts, and a list where the field is a tuple (as
+    json writes a tuple) becomes a tuple."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        value = data[f.name]
+        ftype = hints.get(f.name, f.type)
+        if dataclasses.is_dataclass(ftype) and isinstance(value, dict):
+            value = _from_dict(ftype, value)
+        elif isinstance(value, list) and tuple in (typing.get_origin(ftype), ftype):
+            value = tuple(value)
+        kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def config_from_dict(data: Dict[str, Any]) -> VideoClassificationTrainConfig:
+    """The full train config from a nested dict (JAX config.py:104)."""
+    return _from_dict(VideoClassificationTrainConfig, data)
+
+
+def config_to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
 def save_config(cfg, path: str) -> None:
     """Writes the resolved config as json, for reproducibility."""
     with open(path, "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        json.dump(config_to_dict(cfg), f, indent=2, default=str)

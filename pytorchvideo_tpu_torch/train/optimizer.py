@@ -17,7 +17,12 @@ add_decayed_weights -> trace(momentum, nesterov) -> scale(-lr), which is
 ``torch.optim.SGD`` with the group's weight decay; adam and adamw are both
 scale_by_adam -> add_decayed_weights -> scale(-lr) in the JAX package, that is
 decoupled weight decay scaled by the LR, which is ``torch.optim.AdamW``.
-LARS waits for the SSL slice.
+sgd with ``lars_on`` is add_decayed_weights -> scale_by_trust_ratio on the
+"main" and "zero" groups (identity on "bn") -> trace -> scale(-lr), where
+``torch.optim.SGD`` has no place for the ratio between the decay and the
+momentum: that is :class:`LARS`. The JAX docstring says the ratio applies
+to non-BN params with ``ignore_1d_param=True``; its chain also scales the
+1-D "zero" group, and the port follows the chain.
 
 :func:`lr_schedule_from_config` is the per-step closed-form schedule
 (upstream's manual_update_lr); the train step sets it on every group before
@@ -106,12 +111,74 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> 
             group["lr"] = lr
 
 
+class LARS(torch.optim.Optimizer):
+    """SGD with a layer-wise trust ratio between the weight decay and the
+    momentum, the JAX package's ``lars_on`` chain (JAX optimizer.py:109-120):
+    per tensor, ``u = g + wd * p``; in a group with ``trust_ratio`` set,
+    ``u *= |p| / |u|`` (L2 norms over the tensor; 1 where either norm is 0,
+    as ``optax.scale_by_trust_ratio`` takes it, so a zero-initialised bias
+    takes a whole step); ``m = u + momentum * m`` from ``m = 0``; ``p -= lr
+    * (u + momentum * m if nesterov else m)``.
+
+    The ratio is a ``torch.where`` on the device, so a step reads nothing
+    back to the host and a CUDA graph can hold it; ``lr`` may be a 0-d
+    tensor (read where it lies at each step, so a replay sees the value
+    written before it) or a float."""
+
+    def __init__(self, params, lr=0.1, momentum: float = 0.9, weight_decay: float = 0.0,
+                 nesterov: bool = False, trust_ratio: bool = True):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay,
+                                      nesterov=nesterov, trust_ratio=trust_ratio))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                updates = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            else:
+                updates = [g.clone() for g in grads]
+            if group["trust_ratio"]:
+                p_norms = torch._foreach_norm(params)
+                u_norms = torch._foreach_norm(updates)
+                ratios = [torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+                          for pn, un in zip(p_norms, u_norms)]
+                torch._foreach_mul_(updates, ratios)
+            buffers = []
+            for p in params:
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                buffers.append(state["momentum_buffer"])
+            torch._foreach_mul_(buffers, group["momentum"])
+            torch._foreach_add_(buffers, updates)
+            if group["nesterov"]:
+                torch._foreach_add_(updates, buffers, alpha=group["momentum"])
+            else:
+                updates = buffers
+            lr = group["lr"]
+            if isinstance(lr, torch.Tensor) and lr.device.type == "cpu":
+                lr = lr.item()
+            if isinstance(lr, torch.Tensor):
+                torch._foreach_sub_(params, torch._foreach_mul(updates, lr))
+            else:
+                torch._foreach_add_(params, updates, alpha=-lr)
+        return loss
+
+
 def construct_optimizer(model: nn.Module, cfg: OptimizerConfig) -> torch.optim.Optimizer:
     """The optimizer over ``model``'s trainable parameters in the JAX
     package's groups; each group carries its ``label``, and all share one
-    0-d LR tensor on the parameters' device (see the module docstring)."""
-    if cfg.lars_on:
-        raise NotImplementedError("LARS is not ported yet")
+    0-d LR tensor on the parameters' device (see the module docstring).
+    sgd with ``lars_on`` is :class:`LARS`, its trust ratio on the "main" and
+    "zero" groups."""
     labels = param_labels(model, cfg.zero_weight_decay_1d_param)
     wd = {"bn": cfg.bn_weight_decay, "zero": 0.0, "main": cfg.weight_decay}
     params = dict(model.named_parameters())
@@ -126,6 +193,10 @@ def construct_optimizer(model: nn.Module, cfg: OptimizerConfig) -> torch.optim.O
     device = next(iter(params.values())).device
     on_card = device.type == "cuda"
     lr = torch.tensor(cfg.lr, dtype=torch.float32 if on_card else torch.float64, device=device)
+    if cfg.method == "sgd" and cfg.lars_on:
+        for group in groups:
+            group["trust_ratio"] = group["label"] != "bn"
+        return LARS(groups, lr=lr, momentum=cfg.momentum, nesterov=cfg.nesterov)
     if cfg.method == "sgd":
         return torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum, nesterov=cfg.nesterov,
                                fused=True if on_card else None)

@@ -6,7 +6,11 @@ hyperparameters, and keyword overrides on dotted paths (e.g.
 composition. The port trains the four classification recipes
 (``classification_slow_8x8_r50``, ``classification_slowfast_8x8_r50``,
 ``classification_x3d_xs``, ``classification_mvit_16x4``; X3D-S through a
-``model.name`` override); the SSL recipes wait for LARS and the SSL apps.
+``model.name`` override). The three SSL recipes return dicts as the JAX
+package's do; their keys (``backbone``, ``projector_dims``, ``momentum``,
+``k``, ``batch_shuffle``) are not ``SSLConfig``'s fields
+(train/ssl_app.py), so a caller maps them, and their ``optimizer`` builds
+with ``construct_optimizer`` (LARS for BYOL and SimCLR).
 """
 
 from __future__ import annotations
@@ -111,8 +115,8 @@ def classification_mvit_16x4(**overrides) -> VideoClassificationTrainConfig:
 
 
 def byol_train_app_conf(**overrides) -> Dict[str, Any]:
-    """BYOL SSL recipe (conf/byol_train_app_conf.yaml): returns the kwargs
-    for train.ssl.BYOLTask — momentum annealed cosine on."""
+    """BYOL SSL recipe (conf/byol_train_app_conf.yaml), as a dict:
+    momentum annealed cosine on, LARS."""
     cfg = dict(
         backbone="slow_r50",
         projector_dims=(2048, 4096, 256),

@@ -47,7 +47,7 @@ import contextlib
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -141,6 +141,14 @@ def map_video(fn: Callable, video: Video):
     return fn(video)
 
 
+def _tensors(video: Video) -> List[torch.Tensor]:
+    return list(video) if isinstance(video, (list, tuple)) else [video]
+
+
+def _spec(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
+
+
 def split_video(video: Video, chunks: int) -> list:
     """The clip (each pathway alike) split along the batch into ``chunks``
     microbatches."""
@@ -204,9 +212,11 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 class TrainStep:
     """``step(state, batch, generator=None) -> (state, metrics)``, built by
     :func:`make_train_step`: :meth:`prepare` (the host's part: checks, the
-    batch transform), the LR of update ``state.step`` written into the
-    optimizer (:func:`~pytorchvideo_tpu_torch.train.optimizer.set_lr`),
-    :meth:`update` (the device's part), then the update count."""
+    batch transform), :meth:`write_scalars` (the LR of update ``state.step``
+    written into the optimizer,
+    :func:`~pytorchvideo_tpu_torch.train.optimizer.set_lr`), :meth:`update`
+    (the device's part), then the update count. train/compiled_step.py
+    captures :meth:`update` by that interface, :meth:`signature` included."""
 
     def __init__(self, loss_fn: Callable, batch_transform: Optional[Callable],
                  clip_grad_norm: Optional[float], input_key: str, label_key: str,
@@ -220,6 +230,20 @@ class TrainStep:
         self.input_key, self.label_key = input_key, label_key
         self.compute_dtype, self.remat_policy = compute_dtype, remat_policy
         self.grad_accum_steps = grad_accum_steps
+
+    def signature(self, batch: Dict[str, Any]) -> tuple:
+        """What one CUDA graph of this step is captured for: the clip's (or
+        each pathway's) and the labels' shape, dtype and device, whether the
+        clip is a list, ``grad_accum_steps`` and ``compute_dtype``."""
+        video = batch[self.input_key]
+        return (isinstance(video, (list, tuple)), tuple(_spec(t) for t in _tensors(video)),
+                _spec(batch[self.label_key]), self.grad_accum_steps, self.compute_dtype)
+
+    def write_scalars(self, state: TrainState) -> None:
+        """The host's values that the device part reads from tensors: the LR
+        of update ``state.step``."""
+        if state.lr_schedule is not None:
+            set_lr(state.optimizer, state.lr_schedule(state.step))
 
     def prepare(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None):
         """(video, labels) of ``batch`` after the batch transform, which
@@ -265,8 +289,7 @@ class TrainStep:
     def __call__(self, state: TrainState, batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None):
         video, labels = self.prepare(batch, generator)
-        if state.lr_schedule is not None:
-            set_lr(state.optimizer, state.lr_schedule(state.step))
+        self.write_scalars(state)
         metrics = self.update(state, video, labels)
         state.step += 1
         return state, metrics

@@ -24,6 +24,15 @@ pytorchvideo's key layout:
 - bare parameters (MViT's ``cls_token``, ``pos_embed_spatial``,
   ``pos_embed_temporal``, ``pos_embed_class``, ``pos_embed``) keep their
   names.
+
+:func:`jax_ssl_state_to_state_dict` turns a JAX SSL state (the dict of
+pytorchvideo_tpu/models/byol.py, simclr.py, memory_bank.py or
+train/ssl.py's MoCoV2) into the port task's ``state_dict``: each variables
+tree (``online``, ``momentum``, ``predictor``, ``backbone``, ``mlp``) by
+the rules above under its key, where a ``MultilayerPerceptron``'s Dense
+``fc_0``, ``fc_1``... keep their names and its flax-named norms
+(``BatchNorm_0``...) become ``norm_0``...; the arrays ``queue``,
+``queue_ptr`` (int64) and ``memory`` as they are.
 """
 
 from __future__ import annotations
@@ -118,4 +127,30 @@ def jax_variables_to_state_dict(
         state_dict[f"{name}.weight"] = _tensor(weight)
         if "bias" in node:
             state_dict[f"{name}.bias"] = _tensor(node["bias"])
+    return state_dict
+
+
+MLP_INVERSE_RENAME_RULES = [
+    (r"(^|\.)fc\.(\d+)\.", r"\1fc_\2."),
+    (r"(^|\.)(?:BatchNorm|LayerNorm)\.(\d+)\.", r"\1norm_\2."),
+]
+SSL_VARIABLES = ("online", "momentum", "predictor", "backbone", "mlp")
+SSL_ARRAYS = ("queue", "queue_ptr", "memory")
+
+
+def jax_ssl_state_to_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX SSL state (numpy leaves) -> the port task's ``state_dict``."""
+    state_dict: Dict[str, torch.Tensor] = OrderedDict()
+    for key, value in state.items():
+        if key in SSL_VARIABLES:
+            converted = jax_variables_to_state_dict(value["params"], value.get("batch_stats", {}))
+            for name, tensor in converted.items():
+                for pattern, replacement in MLP_INVERSE_RENAME_RULES:
+                    name = re.sub(pattern, replacement, name)
+                state_dict[f"{key}.{name}"] = tensor
+        elif key in SSL_ARRAYS:
+            tensor = _tensor(value)
+            state_dict[key] = tensor.long() if key == "queue_ptr" else tensor
+        else:
+            raise ValueError(f"unknown SSL state entry {key!r}")
     return state_dict

@@ -1,8 +1,8 @@
 """Every module of the port, and chip_smoke.py, imports on a machine like
 the card's: without jax, the JAX package, any video decoder or image
 library (OpenCV, PyAV, decord, PIL), torchvision or networkx. The data
-feed, the transforms, detection and the engine are among the modules
-imported."""
+feed, the transforms, detection, the engine and self-supervised
+pretraining are among the modules imported."""
 
 import subprocess
 import sys
@@ -19,7 +19,8 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "train.datamodule", "ops.roi_align", "models.detection", "models.net",
                "models.hub.utils", "models.hub.resnet", "models.hub.slowfast", "engine",
                "engine.engine", "engine.hook", "engine.detection_hook", "data.frame_video",
-               "data.ava")
+               "data.ava", "layers.mlp", "models.byol", "models.simclr", "models.memory_bank",
+               "train.ssl", "train.ssl_app")
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
