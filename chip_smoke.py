@@ -335,8 +335,42 @@ exits nonzero, printing no result, when a check fails or no card is present.
     ``slow_r50`` at B8: one step changes the ``x_ind`` rows and no other;
     ms a step and peak memory; ``KnnMemory.knn_predict`` at length 65536,
     k 200, B8, timed.
+23. The deploy extras (accelerate/, utils/), full width, seeded random
+    weights. (a) ``hub.efficient_x3d_s()`` at 13x160x160: ``convert()``
+    eager and compiled at B1, B8 and B128, each eager forward raising #1's
+    count by 22, all tiled; its logits within phase 4's bf16 bound of the
+    plain f32 model; clips/s eager and compiled beside phase 17's ``x3d_s``;
+    ``efficient_x3d_xs`` at 4x160, one B8 check. (b) The efficient blocks
+    at X3D-S's stage-2 shape (T13, S20, C108) in f32 and bf16:
+    ``X3dBottleneckBlock`` with and without SE at stride 1 and 2 and
+    ``Conv3d3x3x3DwBnAct`` with each activation, converted, against the
+    train form in eval mode (bf16: phase 4's bound; f32: 1e-4 x max |y|);
+    one #1 launch per stride-1 depthwise conv, none at stride 2. (c)
+    ``transmute_model(hub.x3d_s(), "cuda")`` bit-equal to
+    ``convert_to_deployable_form`` on the same B8, with the same 22
+    launches. (d) Int8 MViT-B 16x4 (``int8_serving_fn`` of the bf16 deploy
+    form): the number of quantized layers by the JAX package's rule; every
+    ``torch._int_mm`` product of one B8 forward equal to the same operands'
+    product on the CPU (in float64, exact); the logits against the bf16
+    deploy form's (``INT8_REL_TOL``) and top-1 where the margin allows; B1,
+    B8, B32 eager and compiled (clips/s, host ms, busy, peak) beside phase
+    17's bf16 figures. (e) ``quantize_variables`` of full-width ``x3d_s`` and
+    MViT-B: ``quantization_error``, and the dequantized model's logits
+    against the original's (``WEIGHT_INT8_REL_TOL``). (f)
+    ``model_complexity`` of ``x3d_s``, ``x3d_xs``, ``mvit_base_16x4`` and
+    ``slow_r50``: parameters equal to MODEL_ZOO.md's, GFLOPs printed. (g)
+    The BatchNorm MViT-B 16x4 (random BN affine, running stats of one
+    train-mode forward, each branch's last layer scaled down to keep the
+    random network well-conditioned): ``fuse_bn_mvit`` (f32: phase 4's f32
+    bound) and its bf16 deploy form (the bf16 bound) against the unfused
+    f32 model on the plain kernels; #4's and #6's launches per forward equal
+    to the LayerNorm model's. (h) ``utils.time_jitted`` of (a)'s compiled B8
+    forward within 25% of ``cuda_time_ms``; a ``utils.trace`` written to a
+    temporary directory.
 
-Each phase from 15 on prints its seconds.
+Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase 23``
+runs the build and phase 23 alone (no kernels line, no ok line), a
+development run.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route; the
@@ -1256,6 +1290,34 @@ def host_ms(fn, samples: int = HOST_SAMPLES) -> float:
     return statistics.median(times)
 
 
+def device_spans(prof) -> list:
+    """The (start, end) us of the device intervals ``device_union_ms`` unites."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name
+                  and not e.name.startswith(("Optimizer.", DET_RANGE)))
+
+
+def device_trace(fn):
+    """A ``torch.profiler`` trace (device activity only) of ``fn()``, the card
+    synchronised at both ends. A trace that holds no device interval at all
+    is taken once more: on the card's machine the profiler now and then
+    records nothing for a whole trace (phase 21 (d)'s RoIAlign once), which
+    says nothing of ``fn``. ``device_union_ms`` fails when the second trace
+    holds none either."""
+    import torch
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if device_spans(prof):
+            break
+    return prof
+
+
 def device_union_ms(prof):
     """(busy ms, span ms) of a ``torch.profiler`` trace: the union of the
     device's kernel, copy and set intervals (not the optimizer's or
@@ -1264,11 +1326,7 @@ def device_union_ms(prof):
     the span from the first one's start to the last one's end. A union, not
     a sum: cuDNN's grouped convs run kernels side by side, and a graph's
     independent branches overlap."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name
-                   and not e.name.startswith(("Optimizer.", DET_RANGE)))
+    spans = device_spans(prof)
     assert spans, "the profiler saw no device activity"
     busy, (start, end) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -1285,15 +1343,13 @@ def device_busy(fn, calls: int = PROFILED_CALLS):
     """(busy ms per call, busy share) of ``calls`` back-to-back ``fn()``s
     traced by ``torch.profiler`` (device activity only): the union of the
     device's intervals per call, and over the span (``device_union_ms``)."""
-    import torch
-
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def back_to_back():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    busy, span = device_union_ms(prof)
+
+    busy, span = device_union_ms(device_trace(back_to_back))
     return busy / calls, busy / span
 
 
@@ -3721,13 +3777,7 @@ def feed_alone(store, card: str) -> dict:
 def profiled_busy(fn) -> tuple:
     """(busy ms, busy share) of ``fn()`` traced by ``torch.profiler``
     (device activity only; phase 17's union over the span)."""
-    import torch
-
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy, span = device_union_ms(prof)
+    busy, span = device_union_ms(device_trace(fn))
     return busy, busy / span
 
 
@@ -4929,6 +4979,495 @@ def ssl_slice(train, hub, card: str) -> dict:
     return report
 
 
+# Phase 23, the deploy extras. X3D-XS's clip; the efficient blocks at X3D-S's
+# stage 2 (conv_b's grid and width, the stage's width outside the bottleneck).
+X3D_XS_CLIP = (4, 160, 160)
+BLOCK_BATCH = 4
+BLOCK_GRID = (13, 20, 20)
+BLOCK_WIDTH, BLOCK_INNER = 48, 108
+# A converted block in f32 against its train form: BN folded in float64,
+# then rounded to f32, and the convs summed in another order.
+BLOCK_F32_REL_TOL = 1e-4
+# (label, factory, args, kwargs, input channels, #1 launches per forward)
+BOTTLENECK = ("X3dBottleneckBlock", (BLOCK_WIDTH, BLOCK_INNER, BLOCK_WIDTH))
+BLOCK_CASES = [
+    ("X3dBottleneckBlock SE stride 1", *BOTTLENECK, dict(act_functions=("swish", "swish", "relu")),
+     BLOCK_WIDTH, 1),
+    ("X3dBottleneckBlock no SE stride 1", *BOTTLENECK,
+     dict(se_ratio=0.0, act_functions=("swish", "swish", "relu")), BLOCK_WIDTH, 1),
+    ("X3dBottleneckBlock SE stride 2", *BOTTLENECK, dict(spatial_stride=2), BLOCK_WIDTH, 0),
+    ("X3dBottleneckBlock no SE stride 2", *BOTTLENECK, dict(se_ratio=0.0, spatial_stride=2),
+     BLOCK_WIDTH, 0),
+    *((f"Conv3d3x3x3DwBnAct {act}", "Conv3d3x3x3DwBnAct", (BLOCK_INNER,),
+       dict(activation=act), BLOCK_INNER, 1) for act in ("relu", "swish", "hswish", "identity")),
+]
+# Int8 MViT-B's logits against the bf16 deploy form's, relative to the
+# largest (PERF.md section 6: set before the first run on the card).
+INT8_REL_TOL = 0.1
+INT8_CHECK_BATCH = 8
+# Weight-only int8 (dequantized to f32) against the f32 model, relative to
+# the largest logit (set with INT8_REL_TOL).
+WEIGHT_INT8_REL_TOL = 0.1
+# MODEL_ZOO.md's parameter counts (millions, two decimals) and each model's clip.
+MODEL_ZOO_PARAMS = {"x3d_s": (3.79, (3, 13, 160, 160)), "x3d_xs": (3.79, (3, 4, 160, 160)),
+                    "mvit_base_16x4": (36.61, (3, 16, 224, 224)),
+                    "slow_r50": (32.45, (3, 8, 224, 224))}
+# utils.time_jitted against cuda_time_ms on one compiled forward.
+TIME_JITTED_SHARE = 0.25
+
+
+def phase17_rows(compiled_report: dict, label: str) -> dict:
+    """Phase 17's served rows of ``label`` by batch (empty where phase 17 did
+    not run in this process)."""
+    return {r["batch"]: r for r in compiled_report.get(label, {}).get("rows", [])}
+
+
+def efficient_x3d_check(hub, label: str, clip, gen):
+    """Phase 23 (a): the efficient X3D's eager deploy form at B8, its 22
+    launches and its logits against its train form in f32 (TF32 off), and
+    its train mode back on the train form."""
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import EfficientX3d
+
+    model = getattr(hub, label)()
+    assert isinstance(model, EfficientX3d) and all(p.is_cuda for p in model.parameters())
+    randomize_(model.model, gen, clips(2, clip, gen))
+    model.eval()
+    x = clips(8, clip, gen)
+    with torch.no_grad():
+        ref = model(x).float()
+        model.convert()
+        reset_counts()
+        got = model(x).float()
+        check_path_counts(f"{label} convert() B8", read_counts(), X3D_PER_FORWARD, 1)
+    check_logits(label, {"bfloat16": got}, ref)
+    return model
+
+
+def efficient_x3d_slice(hub, card: str, compiled_report: dict) -> dict:
+    """Phase 23 (a) and (h): ``efficient_x3d_s`` served eager and compiled
+    at B1, B8 and B128 (the counts cover the eager forwards exactly),
+    ``efficient_x3d_xs`` checked at B8, then ``time_jitted`` and ``trace`` on
+    the compiled B8 forward."""
+    import tempfile
+
+    import torch
+    from pytorchvideo_tpu_torch import utils
+    from pytorchvideo_tpu_torch.accelerate import CompiledForward
+    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
+
+    gen = torch.Generator().manual_seed(23)
+    efficient_x3d_check(hub, "efficient_x3d_xs", X3D_XS_CLIP, gen)
+    model = efficient_x3d_check(hub, "efficient_x3d_s", X3D_S_CLIP, gen)
+    batches = {B: clips(B, X3D_S_CLIP, gen, torch.bfloat16) for B in BATCHES}
+    rates = {}
+    reset_counts()
+    with torch.no_grad():
+        for B, x in batches.items():
+            iters = 10 if B < max(BATCHES) else 5
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: model(x), iters, warmup=1)
+            rates[B] = {"forwards": iters + 1, "eager_ms": ms,
+                        "eager_clips_per_s": B * 1000.0 / ms,
+                        "eager_peak_bytes": torch.cuda.max_memory_allocated()}
+    counts = read_counts()
+    check_path_counts("efficient_x3d_s eager path", counts, X3D_PER_FORWARD,
+                      sum(r["forwards"] for r in rates.values()))
+    with torch.no_grad():
+        for B, x in batches.items():
+            reset_counts()
+            model.convert(example_input=x)
+            assert isinstance(model.deploy_form, CompiledForward)
+            check_path_counts(f"efficient_x3d_s B{B} capture", read_counts(), X3D_PER_FORWARD,
+                              WARMUP_FORWARDS + 1, unit="forwards (warm-up and capture)")
+            reset_counts()
+            ms = cuda_time_ms(lambda: model(x), 10 if B < max(BATCHES) else 5, warmup=1)
+            assert not any(read_counts().values()), f"efficient_x3d_s B{B}: a replay launched"
+            rates[B].update(compiled_ms=ms, compiled_clips_per_s=B * 1000.0 / ms)
+            p17 = phase17_rows(compiled_report, "x3d_s").get(B)
+            beside = ("phase 17 not run" if p17 is None else
+                      f"phase 17 x3d_s deploy {p17['eager']['clips_per_s']!r} / "
+                      f"{p17['compiled']['clips_per_s']!r}")
+            print(f"efficient_x3d_s B{B} bf16 eager / compiled: {rates[B]['eager_clips_per_s']!r}"
+                  f" / {rates[B]['compiled_clips_per_s']!r} clips/s ({rates[B]['eager_ms']!r} / "
+                  f"{ms!r} ms/forward); {beside} clips/s; on {card}")
+            if B == 8:
+                x8, compiled8 = x, model.deploy_form
+        # (h) time_jitted on the compiled B8 forward against cuda_time_ms, in turns.
+        jitted, events = [], []
+        for _ in range(2):
+            jitted.append(utils.time_jitted(compiled8, x8, iters=20, trials=3) * 1e3)
+            events.append(cuda_time_ms(lambda: compiled8(x8), 20))
+        tj, ct = min(jitted), min(events)
+        print(f"efficient_x3d_s compiled B8: utils.time_jitted {tj!r} ms, cuda_time_ms {ct!r} ms "
+              f"(ratio {tj / ct!r}; bound {TIME_JITTED_SHARE})")
+        assert abs(tj - ct) <= TIME_JITTED_SHARE * ct, (
+            f"time_jitted {tj} ms against cuda_time_ms {ct} ms")
+        # A trace of one eager deploy forward and one replay.
+        with tempfile.TemporaryDirectory() as log_dir:
+            with utils.trace(log_dir):
+                with utils.annotate("efficient_x3d_s B8 eager"):
+                    compiled8.module(x8)
+                with utils.annotate("efficient_x3d_s B8 replay"):
+                    compiled8(x8)
+                torch.cuda.synchronize()
+            path = os.path.join(log_dir, "trace.json")
+            size = os.path.getsize(path)
+            with open(path) as f:
+                events_in = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events_in if e.get("cat") == "kernel")
+        ranges = [e["name"] for e in events_in if str(e.get("name")).startswith("efficient_x3d_s")]
+        print(f"utils.trace: {size} bytes, {kernels} device kernel events, ranges "
+              f"{sorted(set(ranges))}")
+        assert size > 0 and kernels > 0, "the trace holds no device kernel"
+    return {"model": model.model, "rates": rates, "counts": counts,
+            "time_jitted_ms": tj, "cuda_time_ms": ct}
+
+
+def efficient_blocks_check() -> dict:
+    """Phase 23 (b): each block case converted in f32 and bf16 against its
+    train form in eval mode, with its #1 launches."""
+    import torch
+    from pytorchvideo_tpu_torch import accelerate
+
+    gen = torch.Generator().manual_seed(231)
+    errs = {}
+    for label, factory, args, kwargs, channels, launches in BLOCK_CASES:
+        block = getattr(accelerate, factory)(*args, **kwargs)
+        assert all(p.is_cuda for p in block.parameters()), f"{label} built off the card"
+        randomize_(block.model, gen, torch.randn(2, channels, *BLOCK_GRID, generator=gen).cuda())
+        x = torch.randn(BLOCK_BATCH, channels, *BLOCK_GRID, generator=gen).cuda()
+        with torch.no_grad():
+            ref = block.eval()(x).float()
+            scale = ref.abs().max().item()
+            for dtype, rel in ((torch.float32, BLOCK_F32_REL_TOL),
+                               (torch.bfloat16, LOGIT_REL_TOL["bfloat16"])):
+                block.convert(dtype=dtype)
+                reset_counts()
+                out = block(x).float()
+                expected = {"depthwise3x3x3_bn_swish": launches,
+                            "depthwise3x3x3_bn_swish.tiled": launches}
+                moved = {k: read_counts()[k] for k in expected}
+                assert moved == expected, f"{label} {dtype}: launches {moved}, expected {expected}"
+                err = (out - ref).abs().max().item()
+                name = str(dtype).split(".")[-1]
+                errs[f"{label} {name}"] = err / scale
+                assert out.shape == ref.shape and err <= rel * scale, (
+                    f"{label} {name}: off the train form by {err} > {rel} x {scale}")
+        print(f"efficient block {label} at {(BLOCK_BATCH, channels, *BLOCK_GRID)}: converted vs "
+              f"train form max |err| / max |y| f32 {errs[label + ' float32']!r} (bound "
+              f"{BLOCK_F32_REL_TOL}), bf16 {errs[label + ' bfloat16']!r} (bound "
+              f"{LOGIT_REL_TOL['bfloat16']}); #1 launches {launches} a forward")
+    return errs
+
+
+def transmuter_check(hub, x3d_model) -> dict:
+    """Phase 23 (c): ``transmute_model(hub.x3d_s(), "cuda")`` against
+    ``convert_to_deployable_form`` of the same weights: equal tensors, equal
+    logits on one B8, 22 launches each."""
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form, transmute_model
+
+    model = hub.x3d_s()
+    model.load_state_dict(x3d_model.state_dict(), strict=True)
+    model.eval()
+    deploy = convert_to_deployable_form(model)
+    transmuted = transmute_model(model, "cuda")
+    a, b = deploy.state_dict(), transmuted.state_dict()
+    assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a), "weights differ"
+    x = clips(8, X3D_S_CLIP, torch.Generator().manual_seed(232), torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for name, form in (("convert_to_deployable_form", deploy), ("transmute_model", transmuted)):
+            reset_counts()
+            out[name] = form(x)
+            check_path_counts(f"x3d_s {name} B8", read_counts(), X3D_PER_FORWARD, 1)
+    equal = torch.equal(out["convert_to_deployable_form"], out["transmute_model"])
+    print(f"transmute_model(x3d_s, 'cuda') vs convert_to_deployable_form, B8: {len(a)} tensors "
+          f"equal, logits bit-equal: {equal}")
+    assert equal, "the transmuter's logits differ from the deploy form's"
+    return {"tensors": len(a), "bit_equal": equal}
+
+
+def expected_int8_layers(model) -> int:
+    """The Linear layers the JAX interceptor quantizes on an MViT, counted
+    here from the architecture: in x out >= 16384, and not a head-packed
+    attention's q, k or v (JAX's ``_ProjParams``)."""
+    import torch.nn as nn
+
+    n = 0
+    for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(m, nn.Linear) and m.in_features * m.out_features >= 16384:
+            n += leaf not in ("q", "k", "v")
+    return n
+
+
+def int8_slice(hub, card: str, compiled_report: dict) -> dict:
+    """Phase 23 (d) and (e): int8 MViT-B 16x4 (``int8_serving_fn`` of the
+    bf16 deploy form) against the bf16 deploy form, its products checked
+    exactly, served eager and compiled; weight-only int8 of MViT-B."""
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import (
+        CompiledForward,
+        convert_to_deployable_form,
+        int8_serving_fn,
+    )
+    from pytorchvideo_tpu_torch.accelerate import int8 as int8_module
+    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
+
+    gen = torch.Generator().manual_seed(233)
+    model = hub.mvit_base_16x4()
+    randomize_mvit_(model, gen)
+    deploy = convert_to_deployable_form(model)
+    int8 = int8_serving_fn(deploy)
+    layers = sum(isinstance(m, int8_module.Int8Linear) for m in int8.modules())
+    expected = expected_int8_layers(model)
+    print(f"int8 mvit_base_16x4: {layers} int8 Linear layers (the JAX rule counts {expected}); "
+          f"q, k and v and block 0's 96 x 96 attention proj stay bf16")
+    assert layers == expected
+
+    # One B8 forward: every int8 product against the CPU's, exactly.
+    x = clips(INT8_CHECK_BATCH, MVIT_CLIP, gen, torch.bfloat16)
+    plain = int8_module.int8_matmul
+    seen = {"calls": 0, "padded": 0, "macs": 0}
+
+    def checked(x_q, w_q):
+        y = plain(x_q, w_q)
+        assert y.is_cuda and y.dtype == torch.int32
+        (M, K), N = x_q.shape, w_q.shape[0]
+        cpu = torch.mm(x_q.cpu().double(), w_q.cpu().double().t())  # |sum| < 2^53: exact
+        assert torch.equal(y.cpu().double(), cpu), f"an int8 product ({M}x{K}x{N}) differs"
+        seen["calls"] += 1
+        seen["padded"] += M < int8_module.INT_MM_MIN_ROWS
+        seen["macs"] += M * K * N
+        return y
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = deploy(x).float()
+        int8_module.int8_matmul = checked
+        try:
+            reset_counts()
+            got = int8(x).float()
+            counts = read_counts()
+        finally:
+            int8_module.int8_matmul = plain
+        check_path_counts("int8 mvit_base_16x4 B8", counts, MVIT_PER_FORWARD, 1)
+    print(f"int8 mvit_base_16x4 B8: {seen['calls']} torch._int_mm products ({seen['padded']} "
+          f"padded to {int8_module.INT_MM_PAD_ROWS} rows, {seen['macs']} MACs) equal to the CPU's "
+          f"float64 products of the same int8 operands ({time.perf_counter() - t0:.1f} s)")
+    # A block's layers run on the cls token and the grid apart, the head once.
+    assert seen["calls"] == 2 * layers - 1, f"{seen['calls']} int8 products for {layers} layers"
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    top2 = ref.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = got.argmax(1) == ref.argmax(1)
+    print(f"int8 mvit_base_16x4 vs bf16 deploy, B8: max |diff| / max |logit| {err / scale!r} "
+          f"(bound {INT8_REL_TOL}); top-1 agrees on {int(agree.sum())}/{len(agree)} rows, "
+          f"{int(agree[decided].sum())}/{int(decided.sum())} decided by 2 x max |diff|")
+    assert bool(got.isfinite().all()) and err <= INT8_REL_TOL * scale
+    assert bool(agree[decided].all()), "int8 top-1 differs where the margin decides it"
+
+    # Served eager and compiled, beside phase 17's bf16 deploy form.
+    rows, first = [], None
+    reset_counts()
+    for i, B in enumerate(MVIT_BATCHES):
+        xb = clips(B, MVIT_CLIP, gen, torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        graph = CompiledForward(int8, xb, pool=None if first is None else first.pool)
+        first = first or graph
+        torch.cuda.synchronize()
+        check_path_counts(f"int8 mvit_base_16x4 B{B} capture", read_counts(), MVIT_PER_FORWARD,
+                          WARMUP_FORWARDS + 1, unit="forwards (warm-up and capture)")
+        rows.append(serve_compiled("int8 mvit_base_16x4", graph, i, B, MVIT_CLIP, gen,
+                                   MVIT_PER_FORWARD, torch.cuda.max_memory_allocated() - base))
+        p17 = phase17_rows(compiled_report, "mvit_base_16x4").get(B)
+        if p17 is not None:
+            print(f"  beside phase 17's bf16 mvit_base_16x4 B{B} eager / compiled: "
+                  f"{p17['eager']['clips_per_s']!r} / {p17['compiled']['clips_per_s']!r} clips/s, "
+                  f"host {p17['eager']['host_ms']!r} / {p17['compiled']['host_ms']!r} ms, peak "
+                  f"{p17['eager']['peak_bytes']} / {p17['compiled']['peak_bytes']} bytes")
+            rows[-1]["bf16_phase17"] = {k: p17[k] for k in ("eager", "compiled")}
+        del graph
+    del first, deploy, int8
+    torch.cuda.empty_cache()
+    weight_only = weight_int8_check({"mvit_base_16x4": model}, gen)
+    del model
+    torch.cuda.empty_cache()
+    return {"layers": layers, "products": seen, "rel_err_vs_bf16": err / scale, "rows": rows,
+            "counts": counts, "weight_only": weight_only}
+
+
+def weight_int8_check(models: dict, gen) -> dict:
+    """Phase 23 (e): ``quantization_error`` of each model's ``state_dict``, and
+    its logits with the dequantized weights (f32) against its own."""
+    import copy
+
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import (
+        dequantize_variables,
+        quantization_error,
+        quantize_variables,
+    )
+
+    report = {}
+    for name, model in models.items():
+        clip = MVIT_CLIP if name.startswith("mvit") else X3D_S_CLIP
+        state = model.state_dict()
+        quantized = quantize_variables(state)
+        n = sum(isinstance(v, dict) for v in quantized.values())
+        dequantized = copy.deepcopy(model)
+        dequantized.load_state_dict(dequantize_variables(quantized, torch.float32))
+        x = clips(2, clip, gen)
+        with torch.no_grad():
+            ref, got = model(x).float(), dequantized(x).float()
+        rel = (got - ref).abs().max().item() / ref.abs().max().item()
+        err = quantization_error(state)
+        print(f"quantize_variables {name}: {n} int8 weights, quantization_error {err!r}; "
+              f"dequantized f32 logits vs the model's, B2: max |diff| / max |logit| {rel!r} "
+              f"(bound {WEIGHT_INT8_REL_TOL})")
+        assert rel <= WEIGHT_INT8_REL_TOL
+        report[name] = {"int8_weights": n, "quantization_error": err, "rel_logit_err": rel}
+        del dequantized
+    return report
+
+
+def complexity_check(hub) -> dict:
+    """Phase 23 (f): ``model_complexity`` of four hub models: parameters
+    equal to MODEL_ZOO.md's, GFLOPs of one clip printed."""
+    import torch
+    from pytorchvideo_tpu_torch.utils.flops import model_complexity
+
+    report = {}
+    for name, (params_m, shape) in MODEL_ZOO_PARAMS.items():
+        t0 = time.perf_counter()
+        model = getattr(hub, name)()
+        out = model_complexity(model, shape)
+        del model
+        torch.cuda.empty_cache()
+        print(f"model_complexity {name} {shape}: {out['params_m']!r} M parameters (MODEL_ZOO.md "
+              f"{params_m}), {out['gflops']!r} GFLOPs a clip (FlopCounterMode, 2 per MAC; "
+              f"{time.perf_counter() - t0:.1f} s on the host)")
+        assert round(out["params_m"], 2) == params_m, f"{name}: {out['params_m']} M parameters"
+        report[name] = out
+    return report
+
+
+# The BatchNorm MViT has no final norm: its residual stream adds up 32
+# branches as they come. With randomize_mvit_'s weights as they are it is
+# chaotic at full depth (benchmarks_torch/bn_mvit_conditioning.py, on the CPU
+# at 4x64x64 clips: a 1e-6 change of the input moves its logits by 115 of
+# 244, float64 against float32 by 67); with the last layer of each branch
+# scaled down, as randomize_ keeps X3D's norm_c gains in [0.2, 0.4], it is
+# not, and its bf16 rounding stays within phase 4's bound.
+BN_MVIT_BRANCH_SCALE = 0.1
+
+
+def randomize_bn_mvit_(model, generator) -> None:
+    """``randomize_mvit_``'s weights with each residual branch's last layer
+    (``attn.proj``, ``mlp.fc2``) scaled by ``BN_MVIT_BRANCH_SCALE``, BN
+    affine away from the identity (gamma in [0.5, 1.5], beta of std 0.1),
+    and running stats those of one train-mode forward of seeded clips
+    (cumulative over the norm's calls)."""
+    import torch
+    from torch.nn.modules.batchnorm import _BatchNorm
+
+    randomize_mvit_(model, generator)
+    norms = [m for m in model.modules() if isinstance(m, _BatchNorm)]
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if name.endswith(("attn.proj", "mlp.fc2")):
+                module.weight.mul_(BN_MVIT_BRANCH_SCALE)
+        for bn in norms:
+            c, dev = bn.num_features, bn.weight.device
+            bn.weight.copy_((0.5 + torch.rand(c, generator=generator)).to(dev))
+            bn.bias.copy_((torch.randn(c, generator=generator) * 0.1).to(dev))
+            bn.reset_running_stats()
+            bn.momentum = None
+        model.train()
+        model(torch.randn(2, 3, *MVIT_CLIP, generator=generator).cuda())
+        model.eval()
+        for bn in norms:
+            bn.momentum = 0.1
+
+
+def bn_mvit_check(hub) -> dict:
+    """Phase 23 (g): the BatchNorm MViT-B 16x4, ``fuse_bn_mvit`` in f32 and
+    its bf16 deploy form against the unfused f32 model on the plain kernels,
+    with #4's and #6's launches per forward."""
+    import torch
+    from torch.nn.modules.batchnorm import _BatchNorm
+    from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form, fuse_bn_mvit
+
+    gen = torch.Generator().manual_seed(234)
+    model = hub.mvit_base_16x4(norm="batchnorm")
+    randomize_bn_mvit_(model, gen)
+    n_bn = sum(isinstance(m, _BatchNorm) for m in model.modules())
+    x = torch.randn(MVIT_CHECK_BATCH, 3, *MVIT_CLIP, generator=gen).cuda()
+    per_forward = {}
+    with torch.no_grad():
+        with plain_kernels():
+            ref = model(x).float()
+        fused = fuse_bn_mvit(model)
+        left = sum(isinstance(m, _BatchNorm) for m in fused.modules())
+        deploy = convert_to_deployable_form(fused)
+        got = {}
+        for name, form, xx, counts in (("float32", fused, x, f32_routes(MVIT_PER_FORWARD)),
+                                       ("bfloat16", deploy, x.bfloat16(), MVIT_PER_FORWARD)):
+            reset_counts()
+            got[name] = form(xx).float()
+            per_forward[name] = read_counts()
+            check_path_counts(f"mvit_base_16x4 batchnorm fuse_bn_mvit {name}", per_forward[name],
+                              counts, 1)
+        with plain_kernels():
+            plain_bf16 = deploy(x.bfloat16()).float()
+    print(f"mvit_base_16x4 batchnorm bf16 deploy form on the plain versions vs plain f32: max "
+          f"|err| / max |logit| {(plain_bf16 - ref).abs().max().item() / ref.abs().max().item()!r}")
+    bf16 = per_forward["bfloat16"]
+    print(f"mvit_base_16x4 batchnorm: {n_bn} BatchNorms, {left} left after fuse_bn_mvit (the pool "
+          f"norms, which skip the cls token); #4 {bf16['pooled_attention_packed']} and #6 "
+          f"{bf16['token_pool_conv']} conv + {bf16['token_pool_max']} max launches a bf16 "
+          f"forward, as the LayerNorm model's")
+    check_logits("mvit_base_16x4 batchnorm fuse_bn_mvit", got, ref)
+    del model, fused, deploy
+    torch.cuda.empty_cache()
+    return {"batchnorms": n_bn, "left_after_fuse": left, "per_forward": per_forward["bfloat16"]}
+
+
+def deploy_extras_slice(hub, card: str, compiled_report: dict) -> dict:
+    """Phase 23: the deploy extras (see the module docstring)."""
+    import torch
+
+    report, t_part = {}, [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 23 {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    x3d = efficient_x3d_slice(hub, card, compiled_report)
+    part("(a) and (h)")
+    report["efficient_blocks"] = efficient_blocks_check()
+    part("(b)")
+    report["transmuter"] = transmuter_check(hub, x3d["model"])
+    part("(c)")
+    report["int8"] = int8_slice(hub, card, compiled_report)
+    report["int8"]["weight_only"].update(
+        weight_int8_check({"x3d_s": x3d["model"]}, torch.Generator().manual_seed(235)))
+    part("(d) and (e)")
+    report["complexity"] = complexity_check(hub)
+    part("(f)")
+    report["bn_mvit"] = bn_mvit_check(hub)
+    part("(g)")
+    report["efficient_x3d"] = {k: v for k, v in x3d.items() if k != "model"}
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -4959,6 +5498,14 @@ def main() -> None:
     lib_path = _build.build_library()
     _build.load_library()
     print(f"build: {os.path.relpath(lib_path, REPO)} in {time.perf_counter() - t_start:.1f} s")
+    if sys.argv[1:] == ["--phase", "23"]:  # a development run: phase 23 alone
+        t_phase = time.perf_counter()
+        extras = deploy_extras_slice(hub, card, {})
+        print(f"phase 23 (the deploy extras): {time.perf_counter() - t_phase:.1f} s")
+        print("deploy extras report: " + json.dumps(extras, default=str))
+        return
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, or --phase 23")
 
     kernel_report = check_kernel(dw)
 
@@ -5038,6 +5585,10 @@ def main() -> None:
     ssl = ssl_slice(train, hub, card)
     print(f"phase 22 (self-supervised pretraining): {time.perf_counter() - t_phase:.1f} s")
     print("ssl report: " + json.dumps(ssl, default=str))
+    t_phase = time.perf_counter()
+    extras = deploy_extras_slice(hub, card, compiled)
+    print(f"phase 23 (the deploy extras): {time.perf_counter() - t_phase:.1f} s")
+    print("deploy extras report: " + json.dumps(extras, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -5348,6 +5899,31 @@ def main() -> None:
                 "launches": sum(ssl_counts[n] for n in ssl_wrappers[entry["name"]]),
                 "path": f"phase 22 (d): SimCLR on mvit_base_16x4 f32 16x224x224, B{SSL_MVIT_BATCH}, "
                         f"one step of two views through make_simclr_train_step"}
+    # Phase 23's paths: the efficient X3D's eager forwards (#1), the int8 and
+    # the BatchNorm MViT-B's forwards (#4, #6).
+    eff = extras["efficient_x3d"]
+    mvit_paths = {
+        "int8_mvit": (extras["int8"]["counts"],
+                      f"phase 23 (d): int8_serving_fn(mvit_base_16x4 deploy bf16), one B"
+                      f"{INT8_CHECK_BATCH} forward (then captured at B1/8/32, as phase 17)"),
+        "bn_mvit": (extras["bn_mvit"]["per_forward"],
+                    f"phase 23 (g): convert_to_deployable_form(fuse_bn_mvit(mvit_base_16x4("
+                    f"norm='batchnorm'))) bf16, one B{MVIT_CHECK_BATCH} forward"),
+    }
+    phase23_wrappers = {"pooled_attention_packed": ("pooled_attention_packed",),
+                        "token_pool": ("token_pool_conv", "token_pool_max")}
+    for entry in entries:
+        if entry["name"] == "depthwise3x3x3_bn_swish":
+            entry["efficient_x3d"] = {
+                "launches": eff["counts"]["depthwise3x3x3_bn_swish"],
+                "launches_by_route": by_route(eff["counts"], "depthwise3x3x3_bn_swish"),
+                "path": "phase 23 (a): efficient_x3d_s().convert() bf16 13x160x160, eager, "
+                        "B1/8/128 (22 a forward)",
+                "serving": eff["rates"]}
+        for key, (counts, path) in mvit_paths.items():
+            if entry["name"] in phase23_wrappers:
+                entry[key] = {"launches": sum(counts[n] for n in phase23_wrappers[entry["name"]]),
+                              "path": path}
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

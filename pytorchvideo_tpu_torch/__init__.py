@@ -26,3 +26,7 @@ from pytorchvideo_tpu_torch import (  # noqa: F401
     transforms,
     zoo,
 )
+from pytorchvideo_tpu_torch.models.hub.efficient_x3d import (  # noqa: F401
+    efficient_x3d_s,
+    efficient_x3d_xs,
+)

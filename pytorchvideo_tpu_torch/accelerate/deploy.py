@@ -3,22 +3,29 @@
 Counterpart of pytorchvideo_tpu/accelerate/deploy.py
 ``convert_to_deployable_form``, which folds BN, casts to bf16 and AOT-compiles
 the JAX forward, and of its ``export_stablehlo``. Here the conversion
-rewrites a copy of the module tree:
+rewrites a copy of the module tree in three passes, the ``"cuda"`` target of
+the transmuter (accelerate/transmuter.py), which runs them:
 
-- every conv+BN pair is folded (accelerate/fuse.py);
-- each stride-1 depthwise 3x3x3 ``conv_b`` of a bottleneck whose BN folded
-  into it (X3D's, and CSN's) becomes :class:`DepthwiseConv3x3x3BnAct`, one
-  call of the fused kernel (ops/depthwise_conv.py). X3D's swish runs in the
-  kernel's epilogue where the block has no SE; otherwise the kernel applies
-  the folded bias only, and what follows (SE and swish, CSN's ReLU) stays
-  plain torch. Strided ``conv_b``, and grouped convs that are not depthwise,
-  stay ``F.conv3d``: the kernel, as the TPU's, computes stride 1 only;
-- weights are cast to ``dtype``.
+- :func:`fold_bn_pass`: every conv+BN pair is folded (accelerate/fuse.py);
+- :func:`kernel_pass`: each stride-1 depthwise 3x3x3 ``conv_b`` of a
+  bottleneck whose BN folded into it (X3D's, and CSN's) becomes
+  :class:`DepthwiseConv3x3x3BnAct`, one call of the fused kernel
+  (ops/depthwise_conv.py). X3D's swish runs in the kernel's epilogue where
+  the block has no SE; otherwise the kernel applies the folded bias only,
+  and what follows (SE and swish, CSN's ReLU) stays plain torch. The
+  efficient blocks of accelerate/conv_blocks.py take the same swap through
+  their ``swap_in_kernel``. Strided ``conv_b``, and grouped convs that are
+  not depthwise, stay ``F.conv3d``: the kernel, as the TPU's, computes
+  stride 1 only;
+- :func:`cast_pass`: weights are cast to ``dtype``.
 
-A LayerNorm MViT has no BN to fold, so its deploy form is the eval model
+With ``fold_bn=False`` the BNs stay as they are, and so does every
+``conv_b`` (the kernel takes a conv only with its BN folded into it). A
+LayerNorm MViT has no BN to fold, so its deploy form is the eval model
 with weights in ``dtype``; its token pools and attention run on their
-kernels in every form (layers/attention.py). Folding the BatchNorm MViT
-(``fuse_bn_mvit`` of the JAX package) is not ported.
+kernels in every form (layers/attention.py). The BatchNorm MViT folds its
+norms with ``fuse_bn_mvit`` (accelerate/fuse.py) before it is converted, as
+in the JAX package.
 
 Without ``example_input`` the result is that module, run eagerly: it takes
 NCTHW input of ``dtype`` (SlowFast: a list ``[slow, fast]``, each cast by the
@@ -38,7 +45,6 @@ which registers the ops.
 
 from __future__ import annotations
 
-import copy
 import io
 from typing import List, Optional, Union
 
@@ -112,6 +118,36 @@ def _swap_in_kernel(block: BottleneckBlock) -> None:
     block.norm_b = se if has_se else None
     if fuse_swish:
         block.act_b = None
+
+
+def fold_bn_pass(model: nn.Module, fold_bn: bool = True, **kwargs) -> Optional[nn.Module]:
+    """Folds every conv+BN pair of an eval-mode ``model`` in place; None (no
+    change) where ``fold_bn`` is off or the model holds no BN."""
+    if not fold_bn or not any(isinstance(m, nn.BatchNorm3d) for m in model.modules()):
+        return None
+    return fold_conv_bn(model)
+
+
+def kernel_pass(model: nn.Module, **kwargs) -> Optional[nn.Module]:
+    """Puts each stride-1 depthwise 3x3x3 conv whose BN folded into it on
+    the kernel, in place: a bottleneck's ``conv_b``, and the convs of the
+    modules that define ``swap_in_kernel`` (the efficient blocks). None
+    where nothing was swapped."""
+    swapped = 0
+    for block in list(model.modules()):
+        if (isinstance(block, BottleneckBlock) and _is_kernel_conv(block.conv_b)
+                and _folded_norm_b(block)):
+            _swap_in_kernel(block)
+            swapped += 1
+        elif callable(getattr(block, "swap_in_kernel", None)):
+            swapped += block.swap_in_kernel()
+    return model if swapped else None
+
+
+def cast_pass(model: nn.Module, dtype: Optional[torch.dtype] = torch.bfloat16,
+              **kwargs) -> Optional[nn.Module]:
+    """Casts the weights to ``dtype``; None keeps them."""
+    return None if dtype is None else model.to(dtype)
 
 
 Clip = Union[torch.Tensor, List[torch.Tensor]]
@@ -209,25 +245,24 @@ def _require_card(module: nn.Module, inputs: List[torch.Tensor]) -> None:
 
 def convert_to_deployable_form(
     model: nn.Module, dtype: Optional[torch.dtype] = torch.bfloat16,
-    example_input: Optional[Clip] = None,
+    example_input: Optional[Clip] = None, fold_bn: bool = True,
 ) -> Union[nn.Module, CompiledForward]:
     """Returns the deploy form of ``model`` (which is left unchanged): BN
     folded, stride-1 depthwise 3x3x3 ``conv_b`` on the fused kernel, weights
-    in ``dtype`` (``None`` keeps them), in eval mode. Call it on NCTHW input
-    of that dtype, on the device the model was moved to.
+    in ``dtype`` (``None`` keeps them), in eval mode: the transmuter's
+    ``"cuda"`` passes (:func:`fold_bn_pass`, :func:`kernel_pass`,
+    :func:`cast_pass`). ``fold_bn=False`` leaves every BN and every conv
+    as they are. Call it on NCTHW input of that dtype, on the device the
+    model was moved to.
 
     With ``example_input`` (a CUDA clip batch, or SlowFast's list of them,
     cast to ``dtype``), returns that module's :class:`CompiledForward` at the
     input's shape; a model or input off the card raises ValueError."""
+    from pytorchvideo_tpu_torch.accelerate.transmuter import transmute_model
+
     if example_input is not None:
         _require_card(model, _tensors(example_input))
-    model = fold_conv_bn(copy.deepcopy(model).eval())
-    for block in list(model.modules()):
-        if (isinstance(block, BottleneckBlock) and _is_kernel_conv(block.conv_b)
-                and _folded_norm_b(block)):
-            _swap_in_kernel(block)
-    if dtype is not None:
-        model = model.to(dtype)
+    model = transmute_model(model, "cuda", dtype=dtype, fold_bn=fold_bn)
     if example_input is None:
         return model
     example = [t.to(dtype or t.dtype) for t in _tensors(example_input)]

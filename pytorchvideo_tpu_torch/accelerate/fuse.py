@@ -1,18 +1,22 @@
 """Inference-time BatchNorm folding over a module tree.
 
-Counterpart of pytorchvideo_tpu/accelerate/fuse.py ``fold_conv_bn``, which
-rewrites a JAX variables tree. Here the rewrite is on modules: each eval BN
-that follows a conv (the same sibling pairs as the JAX package) folds into
-the conv, scale into the weight and shift into the conv's bias (created where
-the conv had none), and the BN leaves the model. Exact up to rounding.
+Counterpart of pytorchvideo_tpu/accelerate/fuse.py ``fold_conv_bn`` and
+``fuse_bn_mvit``, which rewrite a JAX variables tree. Here the rewrite is on
+modules: each eval BN that follows a conv (the same sibling pairs as the JAX
+package) folds into the conv, scale into the weight and shift into the
+conv's bias (created where the conv had none), and the BN leaves the model.
+:func:`fuse_bn_mvit` folds the BatchNorm MViT's norms into its linear
+layers. Exact up to rounding.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from pytorchvideo_tpu_torch.layers.convolutions import Conv2plus1d
 
@@ -98,4 +102,80 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
                 norm[0] = nn.Identity()
             else:
                 setattr(module, norm_key, None)
+    return model
+
+
+@torch.no_grad()
+def _fold_before(bn: _BatchNorm, linear: nn.Linear) -> None:
+    """linear <- linear(bn(.)) in place: the BN's scale into the weight's
+    input columns, its shift through the weight into the bias."""
+    if linear.bias is None:
+        # upstream's fused linear always has a bias (vision_transformers.py:85)
+        raise ValueError("fuse_bn_mvit needs bias slots (qkv_bias=True, bias_on=True): the BN "
+                         "shift has nowhere to go")
+    scale, shift = bn_scale_shift(bn)
+    weight = linear.weight.double()
+    linear.bias.copy_((weight @ shift + linear.bias.double()).to(linear.bias.dtype))
+    linear.weight.copy_((weight * scale).to(linear.weight.dtype))
+
+
+@torch.no_grad()
+def _fold_after(linear: nn.Linear, bn: _BatchNorm, third: Optional[int]) -> None:
+    """linear <- bn(linear(.)) in place for a per-head BN of the head width
+    c: its scale and shift tiled head-major over the outputs (JAX
+    fuse.py:159-160), of the whole layer or of ``third`` of a fused qkv."""
+    scale, shift = bn_scale_shift(bn)
+    rows = linear.out_features if third is None else linear.out_features // 3
+    start = 0 if third is None else third * rows
+    scale, shift = scale.repeat(rows // len(scale)), shift.repeat(rows // len(shift))
+    if linear.bias is None:
+        linear.bias = nn.Parameter(torch.zeros_like(linear.weight[:, 0]), requires_grad=False)
+    weight, bias = linear.weight[start:start + rows], linear.bias[start:start + rows]
+    bias.copy_((bias.double() * scale + shift).to(bias.dtype))
+    weight.copy_((weight.double() * scale[:, None]).to(weight.dtype))
+
+
+def fuse_bn_mvit(model: nn.Module) -> nn.Module:
+    """The BatchNorm MViT with its norms folded (JAX fuse.py:121-218; upstream
+    vision_transformers.py:96-170): an eval-mode copy (``model`` is left
+    unchanged) in which each block's ``norm1`` folds into q, k and v (or the
+    fused qkv, whole) and ``norm2`` into ``mlp.fc1`` (and the block's ``proj``
+    where the width changes), each becoming ``nn.Identity``. Without a cls
+    token the per-head pool norms fold after the projections (into the
+    matching third of a fused qkv), their GELU kept; with one they stay, as
+    in the JAX package, since the pool norm skips the cls token that the
+    projection does not. ``dim_mul_in_att``'s ``proj`` reads ``norm1``'s output,
+    so ``norm1`` folds into it. ``pool_first`` raises: its pools' BN and GELU
+    sit between ``norm1`` and the projections, so no fold is exact. A
+    LayerNorm MViT comes back as an unchanged copy."""
+    model = copy.deepcopy(model).eval()
+    has_cls = model.cls_positional_encoding.has_cls
+    for block in model.blocks:
+        attn = block.attn
+        has_bn = isinstance(block.norm1, _BatchNorm) or isinstance(block.norm2, _BatchNorm)
+        if has_bn and attn.pool_first:
+            raise ValueError("fuse_bn_mvit: under pool_first norm1 reaches q, k and v through "
+                             "the pools' BN and GELU, so it does not fold")
+        if isinstance(block.norm1, _BatchNorm):
+            targets = [attn.q, attn.k, attn.v] if attn.separate_qkv else [attn.qkv]
+            if block.dim_mul_in_att and block.proj is not None:
+                targets.append(block.proj)
+            for linear in targets:
+                _fold_before(block.norm1, linear)
+            block.norm1 = nn.Identity()
+        for i, name in enumerate(() if has_cls else ("q", "k", "v")):
+            norm = getattr(attn, f"norm_{name}")
+            if isinstance(norm, _BatchNorm):
+                if attn.separate_qkv:
+                    _fold_after(getattr(attn, name), norm, None)
+                else:
+                    _fold_after(attn.qkv, norm, i)
+                setattr(attn, f"norm_{name}", nn.Identity())
+        if isinstance(block.norm2, _BatchNorm):
+            targets = [block.mlp.fc1]
+            if not block.dim_mul_in_att and block.proj is not None:
+                targets.append(block.proj)
+            for linear in targets:
+                _fold_before(block.norm2, linear)
+            block.norm2 = nn.Identity()
     return model

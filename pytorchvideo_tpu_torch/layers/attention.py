@@ -32,9 +32,16 @@ the same ``pool_k``/``norm_k``/``pool_v``/``norm_v`` parameters, so the
 ``state_dict`` is the same with the flag on or off; both paths compute the
 same function.
 
+With BatchNorm norms (``TokenBatchNorm``, the BatchNorm MViT of
+models/vision_transformers.py) a conv pool's norm comes before the pool:
+BN + GELU on the grid, the cls token left alone (JAX attention.py:154-163
+head-packed, :255-260 per-head), and no norm after the pool; the block's
+``norm1`` and ``norm2`` normalise the cls token and the grid in two calls, as
+the JAX package does. The fused kv-pool is never taken with BN.
+
 Modules keep upstream's ``state_dict`` keys (``attn.q``, ``attn.pool_q``,
-``attn.norm_q``, ``mlp.fc1``, ...). Not ported: the BatchNorm MViT variant
-(pool-before-norm), the non-depthwise pool conv and ``PVT_FUSED_QKV``.
+``attn.norm_q``, ``mlp.fc1``, ...). Not ported: the non-depthwise pool conv
+and ``PVT_FUSED_QKV``.
 """
 
 from __future__ import annotations
@@ -105,7 +112,9 @@ class TokenPool(nn.Module):
     """Pools tokens through their (T, H, W) geometry: depthwise conv (the
     ``weight`` (c, 1, kt, kh, kw), upstream's pool ``Conv3d``), max or avg,
     padding k // 2. ``forward(x, thw, norm)`` returns (pooled, thw');
-    ``norm`` (a LayerNorm over the head width c) follows the pool.
+    ``norm`` (a LayerNorm over the head width c) follows the pool, or with
+    ``norm_before`` (a BatchNorm, or what folded it) precedes it, followed
+    by GELU, on the grid only.
 
     ``x`` is either the head-packed pair (cls, grid (B, L, H*c)), whose grid
     is pooled as one (B, T, H, W, H*c) grid with the per-head weight shared
@@ -121,6 +130,7 @@ class TokenPool(nn.Module):
         stride: Union[int, Size3],
         channels: Optional[int] = None,
         has_cls_embed: bool = True,
+        norm_before: bool = False,
     ):
         super().__init__()
         if mode not in ("conv", "max", "avg"):
@@ -129,6 +139,7 @@ class TokenPool(nn.Module):
         self.kernel = triple(kernel)
         self.stride = triple(stride)
         self.has_cls_embed = has_cls_embed
+        self.norm_before = norm_before
         if mode == "conv":
             self.weight = nn.Parameter(torch.empty(channels, 1, *self.kernel))
             # nn.Conv3d's default initialisation.
@@ -142,15 +153,26 @@ class TokenPool(nn.Module):
             return max_token_pool(grid, self.kernel, self.stride)
         return avg_token_pool(grid, self.kernel, self.stride)
 
+    def _norm_before(self, grid: torch.Tensor, norm: Optional[nn.Module]) -> torch.Tensor:
+        """With ``norm_before``: BN over each channel of the head width c
+        (the conv weight's), then GELU; else ``grid`` as it is."""
+        if not self.norm_before:
+            return grid
+        shape, c = grid.shape, self.weight.shape[0]
+        if norm is not None:
+            grid = norm(grid.reshape(*shape[:-1], shape[-1] // c, c))
+        return gelu_tanh(grid).reshape(shape)
+
     def forward(self, x, thw: Size3, norm: Optional[nn.Module] = None):
         T, H, W = thw
         if isinstance(x, tuple):
             cls_x, grid = x
             B, _, HC = grid.shape
+            grid = self._norm_before(grid, norm)
             grid = self._pool(grid.reshape(B, T, H, W, HC))
             thw_out = tuple(grid.shape[1:4])
             grid = grid.reshape(B, -1, HC)
-            if norm is not None:
+            if norm is not None and not self.norm_before:
                 c = norm.normalized_shape[0]
                 grid = norm(grid.view(B, -1, HC // c, c)).view(B, -1, HC)
                 if cls_x is not None:
@@ -161,12 +183,13 @@ class TokenPool(nn.Module):
         if self.has_cls_embed:
             cls_x, x = x[:, :, :1], x[:, :, 1:]
         B, N, _, c = x.shape
-        grid = self._pool(x.reshape(B * N, T, H, W, c))
+        grid = self._norm_before(x.reshape(B * N, T, H, W, c), norm)
+        grid = self._pool(grid)
         thw_out = tuple(grid.shape[1:4])
         x = grid.reshape(B, N, -1, c)
         if cls_x is not None:
             x = torch.cat([cls_x, x], dim=2)
-        if norm is not None:
+        if norm is not None and not self.norm_before:
             x = norm(x)
         return x, thw_out
 
@@ -249,9 +272,10 @@ class MultiScaleAttention(nn.Module):
             kernel = _maybe_kernel(kernel, stride)
             pool = norm = None
             if kernel is not None:
-                pool = TokenPool(pool_mode, kernel, stride, pool_c, has_cls_embed)
                 if pool_mode == "conv":
                     norm = norm_layer(pool_c)
+                pool = TokenPool(pool_mode, kernel, stride, pool_c, has_cls_embed,
+                                 norm_before=isinstance(norm, nn.modules.batchnorm._BatchNorm))
             setattr(self, f"pool_{name}", pool)
             setattr(self, f"norm_{name}", norm)
 

@@ -89,6 +89,21 @@ class BatchNorm1d(BatchNorm):
             raise ValueError(f"expected 2D or 3D input (got {input.dim()}D input)")
 
 
+class TokenBatchNorm(BatchNorm):
+    """:class:`BatchNorm` over the trailing (channel) axis of an input of any
+    rank, viewed as (N, C): the JAX package's BatchNorm on MViT's (B, L, C)
+    tokens and (..., heads, c) per-head grids, the BatchNorm MViT's norms
+    (layers/attention.py). The ``state_dict`` is ``nn.BatchNorm3d``'s."""
+
+    def _check_input_dim(self, input: torch.Tensor) -> None:
+        if input.shape[-1] != self.num_features:
+            raise ValueError(f"expected {self.num_features} channels last, got shape "
+                             f"{tuple(input.shape)}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.reshape(-1, x.shape[-1])).view(x.shape)
+
+
 def make_norm(
     norm: Optional[Callable], num_features: int, eps: float = 1e-5, momentum: float = 0.1
 ) -> Optional[nn.Module]:

@@ -1,4 +1,5 @@
 from pytorchvideo_tpu_torch.models.hub.csn import csn_r101  # noqa: F401
+from pytorchvideo_tpu_torch.models.hub.efficient_x3d import efficient_x3d_s, efficient_x3d_xs  # noqa: F401
 from pytorchvideo_tpu_torch.models.hub.r2plus1d import r2plus1d_r50  # noqa: F401
 from pytorchvideo_tpu_torch.models.hub.resnet import (  # noqa: F401
     c2d_r50,

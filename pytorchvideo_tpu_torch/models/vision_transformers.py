@@ -5,8 +5,11 @@ models/vision_transformers.py: MultiscaleVisionTransformers :18-182,
 create_multiscale_vision_transformers :185-506). Takes NCTHW clips; modules
 keep upstream's ``state_dict`` keys, so a port ``state_dict`` maps onto the
 JAX tree through pytorchvideo_tpu/zoo/import_torch.py with
-``MVIT_RENAME_RULES``. Only the LayerNorm variant is ported: the BatchNorm
-one (and its ``fuse_bn``) is later work.
+``MVIT_RENAME_RULES``. ``norm="batchnorm"`` builds the BatchNorm
+variant (JAX vision_transformers.py:119-128): no final norm,
+``TokenBatchNorm`` in the blocks and before the conv pools
+(layers/attention.py); accelerate/fuse.py ``fuse_bn_mvit`` folds its norms
+for serving.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from pytorchvideo_tpu_torch.layers.attention import MultiScaleBlock
-from pytorchvideo_tpu_torch.layers.norms import LayerNorm
+from pytorchvideo_tpu_torch.layers.norms import LayerNorm, TokenBatchNorm
 from pytorchvideo_tpu_torch.layers.positional_encoding import SpatioTemporalClsPositionalEncoding
 from pytorchvideo_tpu_torch.layers.utils import round_width
 from pytorchvideo_tpu_torch.models.head import create_vit_basic_head
@@ -122,13 +125,16 @@ def create_multiscale_vision_transformers(
     attention through the fused op where its geometry allows
     (layers/attention.py), the counterpart of the JAX package's
     ``PVT_FUSED_KVPOOL=1``."""
-    if norm != "layernorm":
-        raise NotImplementedError("only the LayerNorm MViT is ported (norm='layernorm')")
+    if norm == "layernorm":
+        norm_layer = block_norm_layer = partial(LayerNorm, eps=1e-6)
+    elif norm == "batchnorm":
+        norm_layer, block_norm_layer = None, TokenBatchNorm
+    else:
+        raise NotImplementedError("only layernorm and batchnorm are supported")
     if use_2d_patch and temporal_size != 1:
         raise ValueError("use_2d_patch requires temporal_size == 1")
     if pool_kv_stride_adaptive is not None and pool_kv_stride_size is not None:
         raise ValueError("give pool_kv_stride_adaptive or pool_kv_stride_size, not both")
-    norm_layer = partial(LayerNorm, eps=1e-6)
     if isinstance(spatial_size, int):
         spatial_size = (spatial_size, spatial_size)
 
@@ -214,8 +220,8 @@ def create_multiscale_vision_transformers(
                     qkv_bias=qkv_bias,
                     dropout_rate=dropout_rate_block,
                     droppath_rate=float(dpr[i]),
-                    norm_layer=norm_layer,
-                    attn_norm_layer=norm_layer,
+                    norm_layer=block_norm_layer,
+                    attn_norm_layer=block_norm_layer,
                     dim_mul_in_att=dim_mul_in_att,
                     kernel_q=or_ones(pool_q[i]),
                     kernel_kv=or_ones(pool_kv[i]),
@@ -248,7 +254,7 @@ def create_multiscale_vision_transformers(
             patch_embed=patch_embed,
             cls_positional_encoding=cls_positional_encoding,
             blocks=blocks,
-            norm_embed=norm_layer(dim_in),
+            norm_embed=None if norm_layer is None else norm_layer(dim_in),
             head=head_model,
             pos_dropout_rate=dropout_rate_block,
             patch_embed_shape=patch_embed_shape,

@@ -25,6 +25,12 @@ pytorchvideo's key layout:
   ``pos_embed_temporal``, ``pos_embed_class``, ``pos_embed``) keep their
   names.
 
+The same rules carry the efficient blocks' trees (accelerate/conv_blocks.py:
+``conv``/``norm``, ``conv_a``..``conv_c``/``norm_a``..``norm_c``, ``se/fc1`` and
+``se/fc2`` as 5-D conv kernels, ``fc``) into their ``.model``, and the
+BatchNorm MViT's ``norm1``, ``norm2`` and pool norms (``attn/pool_q/norm`` ->
+``attn.norm_q``) with their running statistics.
+
 :func:`jax_ssl_state_to_state_dict` turns a JAX SSL state (the dict of
 pytorchvideo_tpu/models/byol.py, simclr.py, memory_bank.py or
 train/ssl.py's MoCoV2) into the port task's ``state_dict``: each variables

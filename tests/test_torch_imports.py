@@ -1,8 +1,9 @@
 """Every module of the port, and chip_smoke.py, imports on a machine like
 the card's: without jax, the JAX package, any video decoder or image
 library (OpenCV, PyAV, decord, PIL), torchvision or networkx. The data
-feed, the transforms, detection, the engine and self-supervised
-pretraining are among the modules imported."""
+feed, the transforms, detection, the engine, self-supervised pretraining,
+the efficient blocks, the transmuter, int8 serving and the utils are among
+the modules imported."""
 
 import subprocess
 import sys
@@ -20,7 +21,10 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "models.hub.utils", "models.hub.resnet", "models.hub.slowfast", "engine",
                "engine.engine", "engine.hook", "engine.detection_hook", "data.frame_video",
                "data.ava", "layers.mlp", "models.byol", "models.simclr", "models.memory_bank",
-               "train.ssl", "train.ssl_app")
+               "train.ssl", "train.ssl_app", "accelerate.efficient_blocks",
+               "accelerate.conv_blocks", "accelerate.transmuter", "accelerate.quantize",
+               "accelerate.int8", "models.hub.efficient_x3d", "utils", "utils.flops",
+               "utils.profiling")
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
