@@ -92,8 +92,15 @@ exits nonzero, printing no result, when a check fails or no card is present.
    pools with 35 dx and 35 dw, and 3 max pools, every pool launch on the
    tiled route (dw one launch each); a replay moves no counter. One eager
    step's gradients at B2 are held against the same step with every kernel
-   swapped for its plain version (in f32 and in bf16 compute), and the loss
-   must fall over 10 steps on one fixed batch.
+   swapped for its plain version (in f32 and in bf16 compute), on the seeded
+   weights (a snapshot taken before the timed steps, so every run checks
+   the same weights); in f32 both forms' skip max pools route their
+   gradients by PyTorch's argmax of the kernel form's input
+   (``SharedMaxRouting``; the kernel's output must be the maxima at those
+   positions, and at most ``MAX_POOL_FLIPS`` windows may have another argmax
+   in the plain form's input), so a window that ties within rounding cannot
+   send them apart. The loss must fall
+   over 10 steps on one fixed batch.
 10. ``pool_first`` training: four single steps at B2 of
     ``hub.mvit_base_16x4(pool_first=True)`` through ``app.train()``, the
     launches read over each (two warm-up updates, the capture, a replay);
@@ -367,10 +374,29 @@ exits nonzero, printing no result, when a check fails or no card is present.
     to the LayerNorm model's. (h) ``utils.time_jitted`` of (a)'s compiled B8
     forward within 25% of ``cuda_time_ms``; a ``utils.trace`` written to a
     temporary directory.
+24. Audio-visual SlowFast and the masked multistream, full width, seeded
+    random weights; no TPU kernel lies on this path, and every part's
+    kernel counters must read 0. (a) ``create_audio_visual_slowfast()``
+    (slow 8x224x224, fast 32x224x224, a (1, 128, 1, 80) spectrogram): the
+    f32 and bf16 deploy forms' logits at B8 against the plain f32 model
+    (phase 4's bounds), the BNs folded and kept (the acoustic stem's, after
+    a ``ConvReduce3D``); then served as phase 17 serves, eager and
+    compiled, at B1, B8, B32. (b) ``create_acoustic_resnet()`` the same at
+    B32. (c) The AV model trained through ``VideoClassificationTrainApp`` on
+    the SlowFast-R50 preset in bf16 at B8 on three-pathway batches
+    (``SyntheticAVClips``): three steps as the app runs them, the first's
+    gradients reaching every parameter, every BN's running stats moved,
+    then timed replays. (d) The masked multistream at B32 (video features
+    through ``PositionalEncoding`` and a 2-layer 8-head encoder, audio
+    features through a bidirectional LSTM, object features through 4-head
+    attention, max pooling and the learned default; concatenated): the
+    card's f32 output against the port's CPU float64 forward, padded tails
+    filled with 1e4 leaving it unchanged, the empty rows equal to the
+    learned default, ms a forward.
 
 Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase 23``
-runs the build and phase 23 alone (no kernels line, no ok line), a
-development run.
+(or ``--phase 24``) runs the build and that phase alone (no kernels line, no
+ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route; the
@@ -552,6 +578,11 @@ GRAD_TOL = {"float32": dict(rtol=1e-4, atol_rel=1e-4),
 # gradient is zero (norm_k's shift: one shift of every key leaves each
 # softmax as it was), where both sides hold only rounding noise.
 STEP_GRAD_TOL = {"float32": (1e-3, 1e-5), "bfloat16": (0.1, 0.01)}
+# Phase 9's f32 check: skip max-pool windows whose argmax in the plain
+# form's own input differs from the kernel form's (near-ties that rounding
+# breaks apart). The seeded weights give 7 at B2; a wrong forward would
+# move far more.
+MAX_POOL_FLIPS = 64
 # The bf16 attention backward (#3, #5) per training step against its first
 # version (the CUDA-core kernels on the same inputs), both on cuda_time_ms:
 # the run fails above this share.
@@ -966,6 +997,91 @@ def plain_kernels():
             setattr(attention, name, fn)
 
 
+def max_pool_indices(x, kernel_size, stride):
+    """Each window's argmax of the token max pool of x (B, T, H, W, C), as
+    ``F.max_pool3d`` (-inf padding k // 2) picks it: (B, C, T', H', W')
+    indices into the flattened (T, H, W) grid."""
+    import torch.nn.functional as F
+
+    return F.max_pool3d(x.detach().permute(0, 4, 1, 2, 3), kernel_size, stride,
+                        [k // 2 for k in kernel_size], return_indices=True)[1]
+
+
+def gather_at(x, indices):
+    """(B, T, H, W, C) -> the pooled (B, T', H', W', C) values at
+    ``indices`` (from :func:`max_pool_indices`), by a gather whose gradient
+    lands at those positions."""
+    flat = x.permute(0, 4, 1, 2, 3).flatten(2)
+    return flat.gather(2, indices.flatten(2)).view(indices.shape).permute(0, 2, 3, 4, 1)
+
+
+class SharedMaxRouting:
+    """Phase 9's f32 gradient check routes both forms' max-pool gradients
+    alike: under :meth:`record` (the kernel form) each float32 token max
+    pool (MViT's skip pools) keeps PyTorch's argmax of its input, and the
+    kernel's output must equal the values at those positions exactly, so
+    the kernel picked a maximum of each window; under :meth:`replay` (the
+    plain form, inside its own context) the pools, in the same order, take
+    those positions by a gather. A window whose two largest values tie
+    within rounding otherwise routes its token's gradient to different
+    places in the two forms, and the check fails on weights that hold such
+    a window. Only an exact tie, which the kernel's own backward may break
+    another way, is left to route apart. ``flips`` counts the windows whose
+    argmax in the plain form's own input differs; it must stay within
+    ``MAX_POOL_FLIPS``, so that a wrong forward cannot hide behind the
+    shared routing. bfloat16 pools run as they are."""
+
+    def __init__(self):
+        self.indices, self.flips = [], 0
+
+    @contextlib.contextmanager
+    def _wrapped(self, pool_fn):
+        from pytorchvideo_tpu_torch.layers import attention
+
+        saved = attention.max_token_pool
+        attention.max_token_pool = pool_fn(saved)
+        try:
+            yield
+        finally:
+            attention.max_token_pool = saved
+
+    def record(self):
+        import torch
+
+        self.indices = []
+
+        def recording(pool):
+            def forward(x, kernel_size, stride):
+                out = pool(x, kernel_size, stride)
+                if x.dtype == torch.float32:
+                    indices = max_pool_indices(x, kernel_size, stride)
+                    assert torch.equal(out, gather_at(x.detach(), indices)), (
+                        "max pool: the kernel's output is not the window maxima")
+                    self.indices.append(indices)
+                return out
+            return forward
+
+        return self._wrapped(recording)
+
+    @contextlib.contextmanager
+    def replay(self, context):
+        import torch
+
+        recorded = iter(self.indices)
+
+        def replaying(pool):
+            def forward(x, kernel_size, stride):
+                if x.dtype != torch.float32:
+                    return pool(x, kernel_size, stride)
+                indices = next(recorded)
+                self.flips += int((max_pool_indices(x, kernel_size, stride) != indices).sum())
+                return gather_at(x, indices)
+            return forward
+
+        with context(), self._wrapped(replaying):
+            yield
+
+
 def check_logits(label: str, got: dict, ref) -> None:
     """Logits of each form in ``got`` against ``ref``: max |err| within
     LOGIT_REL_TOL x max |ref|, and top-1 equal on every row whose top-two
@@ -1081,13 +1197,15 @@ def check_kernel(dw) -> dict:
 
 
 def clips(B: int, clip, generator, dtype=None):
-    """A seeded batch of B clips on the card: ``clip`` is one (T, H, W), or
-    a list of them, one per pathway (then a list of batches)."""
+    """A seeded batch of B clips on the card: ``clip`` is one (T, H, W) of 3
+    channels or one (C, T, H, W), or a list of them, one per pathway (then a
+    list of batches)."""
     import torch
 
     if isinstance(clip, list):
         return [clips(B, c, generator, dtype) for c in clip]
-    return torch.randn(B, 3, *clip, generator=generator).to("cuda", dtype)
+    shape = tuple(clip) if len(clip) == 4 else (3, *clip)
+    return torch.randn(B, *shape, generator=generator).to("cuda", dtype)
 
 
 def cast(x, dtype):
@@ -1475,45 +1593,59 @@ def check_export(label: str, deploy, clip, gen, per_forward_counts: dict) -> dic
     return {"bytes": len(data), "seconds": seconds, "nodes": nodes, "max_abs_diff_vs_eager": err}
 
 
+def serve_compiled_model(convert_to_deployable_form, label: str, model, clip, batches, gen,
+                         per_forward_counts: dict):
+    """One model of phase 17: its bf16 deploy form captured at each of
+    ``batches`` (the first by ``convert_to_deployable_form(example_input=)``,
+    which drops ``model``, the others by ``CompiledForward`` in its pool),
+    each capture's launches checked and each batch served by
+    :func:`serve_compiled`. Returns (the report entry, the eager deploy
+    form)."""
+    import torch
+    from pytorchvideo_tpu_torch.accelerate import CompiledForward
+    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
+
+    rows, compiled, pool_bytes = [], None, 0
+    for i, B in enumerate(batches):
+        x = clips(B, clip, gen, torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reserved, base = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        reset_counts()
+        if compiled is None:
+            compiled = convert_to_deployable_form(model, dtype=torch.bfloat16, example_input=x)
+            del model
+            graphs = [compiled]
+        else:
+            graphs.append(CompiledForward(compiled.module, x, pool=compiled.pool))
+        torch.cuda.synchronize()
+        capture_peak = torch.cuda.max_memory_allocated() - base
+        pool_bytes += torch.cuda.memory_reserved() - reserved
+        check_path_counts(f"{label} B{B} capture", read_counts(), per_forward_counts,
+                          WARMUP_FORWARDS + 1, unit="forwards (warm-up and capture)")
+        rows.append(serve_compiled(label, graphs[-1], i, B, clip, gen, per_forward_counts,
+                                   capture_peak))
+    entry = {"rows": rows, "reserved_growth_bytes": pool_bytes}
+    print(f"{label}: {len(graphs)} graphs in one pool; the device memory reserved grew by "
+          f"{pool_bytes} bytes while they were built (the deploy copy, warm-up, capture)")
+    deploy = compiled.module
+    del graphs, compiled
+    torch.cuda.empty_cache()
+    return entry, deploy
+
+
 def compiled_slice(hub, convert_to_deployable_form) -> dict:
     """Phase 17: every deploy form served compiled (``example_input``: one
     CUDA graph per batch, the batches of one model in one memory pool)
     beside its eager form, and four of them exported and loaded back."""
     import torch
-    from pytorchvideo_tpu_torch.accelerate import CompiledForward
-    from pytorchvideo_tpu_torch.accelerate.deploy import WARMUP_FORWARDS
 
     gen = torch.Generator().manual_seed(17)
     report = {}
     for label, name, kwargs, clip, batches, per_forward_counts in COMPILED_SERVED:
-        model = compiled_model(hub, name, kwargs, clip, gen)
-        rows, compiled, pool_bytes = [], None, 0
-        for i, B in enumerate(batches):
-            x = clips(B, clip, gen, torch.bfloat16)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reserved, base = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
-            reset_counts()
-            if compiled is None:
-                compiled = convert_to_deployable_form(model, dtype=torch.bfloat16,
-                                                      example_input=x)
-                del model
-                graphs = [compiled]
-            else:
-                graphs.append(CompiledForward(compiled.module, x, pool=compiled.pool))
-            torch.cuda.synchronize()
-            capture_peak = torch.cuda.max_memory_allocated() - base
-            pool_bytes += torch.cuda.memory_reserved() - reserved
-            check_path_counts(f"{label} B{B} capture", read_counts(), per_forward_counts,
-                              WARMUP_FORWARDS + 1, unit="forwards (warm-up and capture)")
-            rows.append(serve_compiled(label, graphs[-1], i, B, clip, gen, per_forward_counts,
-                                       capture_peak))
-        entry = {"rows": rows, "reserved_growth_bytes": pool_bytes}
-        print(f"{label}: {len(graphs)} graphs in one pool; the device memory reserved grew by "
-              f"{pool_bytes} bytes while they were built (the deploy copy, warm-up, capture)")
-        deploy = compiled.module
-        del graphs, compiled
-        torch.cuda.empty_cache()
+        entry, deploy = serve_compiled_model(convert_to_deployable_form, label,
+                                             compiled_model(hub, name, kwargs, clip, gen), clip,
+                                             batches, gen, per_forward_counts)
         if label in EXPORTED:
             entry["export"] = check_export(label, deploy, clip, gen, per_forward_counts)
         del deploy
@@ -2651,13 +2783,31 @@ def train_slice(train) -> dict:
 
     app = train_app(train, TRAIN_BATCH, seed=21)
     model = app.model
+    # The seeded weights, before any step: the gradient check runs on them,
+    # so that it sees the same weights (as well as the same batch and
+    # dropout masks) in every run; the timed steps' updates do not repeat
+    # from run to run (the max-pool backward adds with atomics). The seeded
+    # weights hold near-ties in the skip pools too, so the f32 check routes
+    # both forms' max-pool gradients alike (SharedMaxRouting).
+    # Kept on the host, so that the peak device memory of the steps below
+    # is the program's alone.
+    seeded = {name: t.detach().to("cpu", copy=True) for name, t in model.state_dict().items()}
     counts, peak = first_step_grads(app, "mvit_base_16x4", MVIT_PER_STEP)
     rates, counts = timed_steps(app, MVIT_PER_STEP, "mvit_base_16x4", counts, peak)
     app._drop_graphs()
+    model.load_state_dict(seeded)
+    del seeded
     batch = preset_batch(23)
+    routing = SharedMaxRouting()
     grad_report = check_step_grads(
-        train, [("kernels", model, contextlib.nullcontext, MVIT_PER_STEP),
-                ("plain", model, plain_kernels, None)], batch, "mvit_base_16x4")
+        train, [("kernels", model, routing.record, MVIT_PER_STEP),
+                ("plain", model, functools.partial(routing.replay, plain_kernels), None)],
+        batch, "mvit_base_16x4")
+    grad_report["max_pool_flips"] = routing.flips
+    print(f"mvit_base_16x4 grad check: {routing.flips} skip max-pool windows whose argmax the "
+          f"plain f32 form placed elsewhere than the kernel form (bound {MAX_POOL_FLIPS}); "
+          f"both routed by PyTorch's argmax of the kernel form's input")
+    assert routing.flips <= MAX_POOL_FLIPS, f"{routing.flips} max-pool windows flipped"
 
     # The loss falls on one fixed batch: hard labels, no warmup, an LR of
     # 1e-4 (cosine over the preset's 200 epochs, flat over these steps).
@@ -5468,6 +5618,239 @@ def deploy_extras_slice(hub, card: str, compiled_report: dict) -> dict:
     return report
 
 
+# Phase 24: audio-visual SlowFast, the acoustic ResNet and the masked
+# multistream, at full width. No TPU kernel lies on this path.
+AV_CLIPS = [(3, 8, 224, 224), (3, 32, 224, 224), (1, 128, 1, 80)]  # (C, T, H, W) a pathway
+AV_BATCHES = (1, 8, 32)
+AV_CHECK_BATCH = 8
+ACOUSTIC_CLIP = AV_CLIPS[2]
+ACOUSTIC_BATCH = 32
+AV_TRAIN_BATCH = 8
+AV_TIMED_STEPS = 4  # captured replays after the three steps
+STREAM_BATCH = 32
+# (stream, sequence length, width): video features through PositionalEncoding
+# and a 2-layer, 8-head encoder; audio through a bidirectional LSTM of 512;
+# objects through 4-head attention, max pooling and the learned default.
+STREAMS = (("video", 64, 1024), ("audio", 128, 512), ("objects", 16, 256))
+STREAM_EMPTY_ROWS = 2  # object rows with no valid entry
+STREAM_TOL = (5e-3, 5e-4)  # rtol, and atol as a share of max |y| (the slice rule)
+STREAM_PAD = 1e4
+STREAM_ITERS = 10
+
+
+class SyntheticAVClips(SyntheticClips):
+    """:class:`SyntheticClips`' ``[slow, fast]`` batches (alpha 4 over 32 x
+    224 x 224) with a seeded (B, 1, 128, 1, 80) spectrogram as the third
+    pathway: audio-visual SlowFast's input."""
+
+    def __init__(self, batch: int, seed: int):
+        super().__init__(batch, seed, clip=AV_CLIPS[1][1:], alpha=4)
+
+    def _batch(self, gen, per_label: int = 1, **extra):
+        import torch
+
+        batch = super()._batch(gen, per_label, **extra)
+        audio = torch.randn(self.batch, *AV_CLIPS[2], device="cuda", generator=gen)
+        return {**batch, "video": [*batch["video"], audio]}
+
+
+def av_deploy_check(convert_to_deployable_form, label: str, model, clip, B: int, gen) -> dict:
+    """The f32 and bf16 deploy forms' logits against the plain f32 eval
+    model's at B (``check_logits``: LOGIT_REL_TOL of max |logit|), with no
+    kernel launched, and how many BNs the fold took and left."""
+    import torch
+    from torch.nn.modules.batchnorm import _BatchNorm
+
+    x = clips(B, clip, gen)
+    forms = {"float32": (convert_to_deployable_form(model, dtype=None), x),
+             "bfloat16": (convert_to_deployable_form(model, dtype=torch.bfloat16),
+                          cast(x, torch.bfloat16))}
+    with torch.no_grad():
+        reset_counts()
+        ref = model(x).float()
+        got = {name: form(xs).float() for name, (form, xs) in forms.items()}
+        check_path_counts(f"{label} logit check", read_counts(), {}, 1 + len(forms))
+    check_logits(f"{label} deploy", got, ref)
+    norms = sum(isinstance(m, _BatchNorm) for m in model.modules())
+    kept = [n for n, m in forms["bfloat16"][0].named_modules() if isinstance(m, _BatchNorm)]
+    print(f"{label} deploy: {norms - len(kept)} of {norms} BNs folded, {len(kept)} kept "
+          f"(after a ConvReduce3D, in eval mode): {kept}")
+    return {"bn_folded": norms - len(kept), "bn_kept": kept,
+            "max_abs_err": {name: (got[name] - ref).abs().max().item() for name in got},
+            "max_abs_logit": ref.abs().max().item()}
+
+
+def av_train_check(train, card: str) -> dict:
+    """Phase 24 (c): audio-visual SlowFast-R50 through
+    ``VideoClassificationTrainApp(model=...)`` on the SlowFast-R50 preset in
+    bf16 at B8, three-pathway batches: three steps as ``app.train()`` runs
+    them (two eager warm-up updates, then the capture), the first with
+    every parameter's gradient checked (``first_step_grads``), then
+    ``AV_TIMED_STEPS`` replays timed. Every BN's running stats moved."""
+    import torch
+    from torch.nn.modules.batchnorm import _BatchNorm
+
+    from pytorchvideo_tpu_torch.models import create_audio_visual_slowfast, init_net_weights
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    label = "av_slowfast_r50"
+    model = create_audio_visual_slowfast()
+    assert all(p.is_cuda for p in model.parameters()), "the AV model was built off the card"
+    init_net_weights(model, generator=torch.Generator(device="cuda").manual_seed(241))
+    app = bn_app(train, "classification_slowfast_8x8_r50", SyntheticAVClips(AV_TRAIN_BATCH, 241),
+                 model=model, seed=241, **{"trainer.compute_dtype": "bfloat16"})
+    norms = {n: m for n, m in model.named_modules() if isinstance(m, _BatchNorm)}
+    before = {n: (m.running_mean.clone(), m.running_var.clone()) for n, m in norms.items()}
+    _, first_peak = first_step_grads(app, label, {})
+    losses, _, _, warm_peak = captured_run(app, WARMUP_STEPS, {}, f"{label} warm-up and capture")
+    still = [n for n, m in norms.items() if torch.equal(m.running_mean, before[n][0])
+             or torch.equal(m.running_var, before[n][1])]
+    assert not still, f"{label}: running stats that did not move: {still}"
+    history, ms, _, run_peak = captured_run(app, AV_TIMED_STEPS, {}, f"{label} timed")
+    losses = losses + history
+    bad = [n for n, p in model.named_parameters() if not torch.isfinite(p).all()]
+    assert not bad and all(map(math.isfinite, losses)), f"{label}: non-finite {bad} {losses}"
+    peak = max(first_peak, warm_peak, run_peak)
+    print(f"{label} train bf16 B{AV_TRAIN_BATCH} (slow 8x224x224, fast 32x224x224, audio "
+          f"128x80): {AV_TRAIN_BATCH * 1000.0 / ms!r} clips/s ({ms!r} ms/step over "
+          f"{AV_TIMED_STEPS} captured replays); peak device memory {peak!r} bytes; all "
+          f"{len(norms)} BNs' running stats moved over the first {WARMUP_STEPS + 1} steps; "
+          f"losses {losses}; on {card}")
+    return {"ms_per_step": ms, "clips_per_s": AV_TRAIN_BATCH * 1000.0 / ms, "peak_bytes": peak,
+            "losses": losses, "norms": len(norms)}
+
+
+def multistream_model(generator):
+    """Three masked streams fused by concatenation (``STREAMS``), with
+    seeded weights (``randomize_mvit_``'s: linear and LSTM weights normal
+    with std 1/sqrt(fan_in), biases and the learned default std 0.02,
+    LayerNorm gains in [0.9, 1.1])."""
+    import torch
+
+    from pytorchvideo_tpu_torch.layers import PositionalEncoding, make_fusion_layer
+    from pytorchvideo_tpu_torch.models import masked_multistream as mm
+
+    (_, video_len, video_dim), (_, _, audio_dim), (_, _, object_dim) = STREAMS
+    model = mm.MaskedMultiPathWay(
+        [mm.MaskedSequential([PositionalEncoding(video_dim, seq_len=video_len),
+                              mm.TransposeTransformerEncoder(video_dim, num_heads=8,
+                                                             num_layers=2)]),
+         mm.MaskedSequential([mm.LSTM(audio_dim, 512, bidirectional=True)]),
+         mm.MaskedSequential([mm.TransposeMultiheadAttention(object_dim, num_heads=4),
+                              mm.MaskedTemporalPooling("max"),
+                              mm.LearnMaskedDefault(object_dim, generator=generator)])],
+        make_fusion_layer("concat", [video_dim, 2 * 512, object_dim]))
+    randomize_mvit_(model, generator)
+    return model
+
+
+def multistream_inputs(generator):
+    """(x, mask) per stream at STREAM_BATCH, on the card: x normal, masks
+    valid prefixes of seeded lengths in [1, L], the objects' first
+    STREAM_EMPTY_ROWS rows empty."""
+    import torch
+
+    pairs = []
+    for name, length, dim in STREAMS:
+        x = torch.randn(STREAM_BATCH, length, dim, generator=generator)
+        lengths = torch.randint(1, length + 1, (STREAM_BATCH,), generator=generator)
+        if name == "objects":
+            lengths[:STREAM_EMPTY_ROWS] = 0
+        mask = torch.arange(length)[None, :] < lengths[:, None]
+        pairs.append((x.cuda(), mask.cuda()))
+    return pairs
+
+
+def multistream_check(card: str) -> dict:
+    """Phase 24 (d): the masked multistream at B32 on the card in f32 against
+    the port's CPU float64 forward on the same weights (within STREAM_TOL);
+    padded tails, from position max(length, 1) on, filled with STREAM_PAD
+    leave the output as it was; the empty object rows give the learned
+    default; ms a forward."""
+    import copy
+
+    import torch
+
+    gen = torch.Generator().manual_seed(244)
+    model = multistream_model(gen)
+    pairs = multistream_inputs(gen)
+    reference = copy.deepcopy(model).cpu().double()
+    with torch.no_grad():
+        reset_counts()
+        out = model(pairs)
+        ref = reference([(x.cpu().double(), m.cpu()) for x, m in pairs])
+        padded = []
+        for x, m in pairs:
+            first = m.sum(1).clamp(min=1)[:, None]  # the tail starts at max(length, 1)
+            tail = torch.arange(x.shape[1], device=x.device)[None, :] >= first
+            padded.append((x.masked_fill(tail[..., None], STREAM_PAD), m))
+        out_padded = model(padded)
+        ms = cuda_time_ms(lambda: model(pairs), STREAM_ITERS)
+        check_path_counts("masked multistream", read_counts(), {}, 4 + STREAM_ITERS)
+    rtol, atol_rel = STREAM_TOL
+    scale = ref.abs().max().item()
+    err = (out.double().cpu() - ref).abs()
+    share = (err / (rtol * ref.abs() + atol_rel * scale)).max().item()
+    width = sum(2 * 512 if name == "audio" else dim for name, _, dim in STREAMS)
+    assert out.shape == (STREAM_BATCH, width) and bool(out.isfinite().all())
+    assert share <= 1.0, f"masked multistream: card f32 off the CPU f64 by {err.max().item()}"
+    pad_delta = (out_padded - out).abs().max().item()
+    assert pad_delta == 0.0, f"masked multistream: padded tails moved the output by {pad_delta}"
+    default = model.multipathway_blocks[2].layers[2]._learned_defaults
+    empty = out[:STREAM_EMPTY_ROWS, -default.numel():]
+    assert torch.equal(empty, default.expand_as(empty)), "the empty rows missed the default"
+    print(f"masked multistream B{STREAM_BATCH} f32 (video 64x1024 encoder 2x8 heads, audio "
+          f"128x512 bidirectional LSTM 512, objects 16x256 attention 4 heads -> max -> default; "
+          f"concat {width}): card vs CPU f64 max |err| {err.max().item()!r} ({share!r} of the "
+          f"bound {rtol} x |y| + {atol_rel} x max |y| {scale!r}); padded tails ({STREAM_PAD}) "
+          f"max |delta| {pad_delta!r}; the {STREAM_EMPTY_ROWS} empty object rows equal the "
+          f"learned default; {ms!r} ms/forward on {card}")
+    return {"max_abs_err": err.max().item(), "share_of_bound": share, "pad_max_delta": pad_delta,
+            "ms": ms}
+
+
+def av_slice(convert_to_deployable_form, train, card: str) -> dict:
+    """Phase 24: audio-visual SlowFast-R50 and the acoustic ResNet-50 served
+    in their bf16 deploy forms (eager and compiled, phase 17's way), the AV
+    model's training through the app, and the masked multistream; no
+    kernel launches in any of them."""
+    import torch
+
+    from pytorchvideo_tpu_torch.models import create_acoustic_resnet, create_audio_visual_slowfast
+
+    report, t_part = {}, [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 24 {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    gen = torch.Generator().manual_seed(240)
+    for key, build, clip, batches, check_batch in (
+            ("av_slowfast_r50", create_audio_visual_slowfast, AV_CLIPS, AV_BATCHES,
+             AV_CHECK_BATCH),
+            ("acoustic_resnet50", create_acoustic_resnet, ACOUSTIC_CLIP, (ACOUSTIC_BATCH,),
+             ACOUSTIC_BATCH)):
+        model = build()
+        assert all(p.is_cuda for p in model.parameters()), f"{key} was built off the card"
+        randomize_(model, gen, clips(2, clip, gen))
+        checks = av_deploy_check(convert_to_deployable_form, key, model, clip, check_batch, gen)
+        entry, deploy = serve_compiled_model(convert_to_deployable_form, key, model, clip,
+                                             batches, gen, {})
+        del model, deploy
+        torch.cuda.empty_cache()
+        report[key] = {**checks, **entry}
+        part("(a)" if key.startswith("av") else "(b)")
+    report["av_train"] = av_train_check(train, card)
+    torch.cuda.empty_cache()
+    part("(c)")
+    report["multistream"] = multistream_check(card)
+    part("(d)")
+    print("phase 24 (e): every part read its kernel counters and found 0 launches (no TPU "
+          "kernel lies on this path)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -5504,8 +5887,16 @@ def main() -> None:
         print(f"phase 23 (the deploy extras): {time.perf_counter() - t_phase:.1f} s")
         print("deploy extras report: " + json.dumps(extras, default=str))
         return
+    if sys.argv[1:] == ["--phase", "24"]:  # a development run: phase 24 alone
+        t_phase = time.perf_counter()
+        audio = av_slice(convert_to_deployable_form, train, card)
+        print(f"phase 24 (audio-visual SlowFast and the masked multistream): "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        print("audio report: " + json.dumps(audio, default=str))
+        return
     if sys.argv[1:]:
-        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, or --phase 23")
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, --phase 23 "
+                 f"or --phase 24")
 
     kernel_report = check_kernel(dw)
 
@@ -5589,6 +5980,11 @@ def main() -> None:
     extras = deploy_extras_slice(hub, card, compiled)
     print(f"phase 23 (the deploy extras): {time.perf_counter() - t_phase:.1f} s")
     print("deploy extras report: " + json.dumps(extras, default=str))
+    t_phase = time.perf_counter()
+    audio = av_slice(convert_to_deployable_form, train, card)
+    print(f"phase 24 (audio-visual SlowFast and the masked multistream): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print("audio report: " + json.dumps(audio, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

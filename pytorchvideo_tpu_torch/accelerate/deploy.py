@@ -6,7 +6,9 @@ the JAX forward, and of its ``export_stablehlo``. Here the conversion
 rewrites a copy of the module tree in three passes, the ``"cuda"`` target of
 the transmuter (accelerate/transmuter.py), which runs them:
 
-- :func:`fold_bn_pass`: every conv+BN pair is folded (accelerate/fuse.py);
+- :func:`fold_bn_pass`: every conv+BN pair is folded (accelerate/fuse.py); a
+  BN after anything else (the acoustic stem's ``ConvReduce3D``) stays, in
+  eval mode;
 - :func:`kernel_pass`: each stride-1 depthwise 3x3x3 ``conv_b`` of a
   bottleneck whose BN folded into it (X3D's, and CSN's) becomes
   :class:`DepthwiseConv3x3x3BnAct`, one call of the fused kernel
@@ -50,6 +52,7 @@ from typing import List, Optional, Union
 
 import torch
 import torch.nn as nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from pytorchvideo_tpu_torch.accelerate.fuse import fold_conv_bn
 from pytorchvideo_tpu_torch.layers.stochastic import Swish
@@ -123,7 +126,7 @@ def _swap_in_kernel(block: BottleneckBlock) -> None:
 def fold_bn_pass(model: nn.Module, fold_bn: bool = True, **kwargs) -> Optional[nn.Module]:
     """Folds every conv+BN pair of an eval-mode ``model`` in place; None (no
     change) where ``fold_bn`` is off or the model holds no BN."""
-    if not fold_bn or not any(isinstance(m, nn.BatchNorm3d) for m in model.modules()):
+    if not fold_bn or not any(isinstance(m, _BatchNorm) for m in model.modules()):
         return None
     return fold_conv_bn(model)
 

@@ -3,8 +3,12 @@
 Counterpart of pytorchvideo_tpu/accelerate/fuse.py ``fold_conv_bn`` and
 ``fuse_bn_mvit``, which rewrite a JAX variables tree. Here the rewrite is on
 modules: each eval BN that follows a conv (the same sibling pairs as the JAX
-package) folds into the conv, scale into the weight and shift into the
-conv's bias (created where the conv had none), and the BN leaves the model.
+package, 3D or 2D) folds into the conv, scale into the weight and shift into
+the conv's bias (created where the conv had none), and the BN leaves the
+model. A pair of ``nn.ModuleList``s (the separable bottleneck's ``conv_b``
+and ``norm_b``, the JAX package's ``conv_b_0``/``norm_b_0`` ...) folds branch
+by branch. A conv that is not one ``nn.Conv3d`` or ``nn.Conv2d`` (the
+acoustic stem's ``ConvReduce3D``) keeps its BN, as in the JAX package.
 :func:`fuse_bn_mvit` folds the BatchNorm MViT's norms into its linear
 layers. Exact up to rounding.
 """
@@ -20,7 +24,9 @@ from torch.nn.modules.batchnorm import _BatchNorm
 
 from pytorchvideo_tpu_torch.layers.convolutions import Conv2plus1d
 
-# (conv attribute, norm attribute) sibling pairs used across the model families.
+# (conv attribute, norm attribute) sibling pairs used across the model
+# families. The JAX package's separable branches ("conv_b_0", "norm_b_0"),
+# which it lists too, are entries of the ("conv_b", "norm_b") lists here.
 CONV_BN_PAIRS = [
     ("conv_a", "norm_a"),
     ("conv_b", "norm_b"),
@@ -30,12 +36,11 @@ CONV_BN_PAIRS = [
     ("pre_conv", "pre_norm"),
     ("post_conv", "post_norm"),
     ("conv_fast_to_slow", "norm"),
-    ("conv_b_0", "norm_b_0"),
-    ("conv_b_1", "norm_b_1"),
 ]
+_CONVS = (nn.Conv3d, nn.Conv2d)
 
 
-def bn_scale_shift(bn: nn.BatchNorm3d) -> Tuple[torch.Tensor, torch.Tensor]:
+def bn_scale_shift(bn: _BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BN as y = x * scale + shift, in float64."""
     var = bn.running_var.double()
     mean = bn.running_mean.double()
@@ -46,11 +51,11 @@ def bn_scale_shift(bn: nn.BatchNorm3d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 @torch.no_grad()
-def fold_bn_into_conv(conv: nn.Conv3d, bn: nn.BatchNorm3d) -> None:
-    """conv <- bn(conv(.)) in place. Where the conv had no bias, the BN's
-    shift becomes its new bias."""
+def fold_bn_into_conv(conv: nn.Module, bn: _BatchNorm) -> None:
+    """conv <- bn(conv(.)) in place, for an ``nn.Conv3d`` or ``nn.Conv2d``.
+    Where the conv had no bias, the BN's shift becomes its new bias."""
     scale, shift = bn_scale_shift(bn)
-    weight = conv.weight.double() * scale.view(-1, 1, 1, 1, 1)
+    weight = conv.weight.double() * scale.view(-1, *(1,) * (conv.weight.dim() - 1))
     bias = shift if conv.bias is None else conv.bias.double() * scale + shift
     conv.weight.copy_(weight.to(conv.weight.dtype))
     if conv.bias is None:
@@ -59,28 +64,49 @@ def fold_bn_into_conv(conv: nn.Conv3d, bn: nn.BatchNorm3d) -> None:
         conv.bias.copy_(bias.to(conv.bias.dtype))
 
 
-def _final_conv(conv: nn.Module) -> Optional[nn.Conv3d]:
+def _final_conv(conv: nn.Module) -> Optional[nn.Module]:
     """The conv whose output the sibling norm sees (of a Conv2plus1d, the
     one that runs last: conv_xy, or conv_t when ``conv_xy_first``)."""
     if isinstance(conv, Conv2plus1d):
         conv = conv.conv_t if conv.conv_xy_first else conv.conv_xy
-    return conv if isinstance(conv, nn.Conv3d) else None
+    return conv if isinstance(conv, _CONVS) else None
 
 
 def _fold_inner(module: Conv2plus1d) -> None:
     """A Conv2plus1d's own BN, between its convs, into the one that runs first."""
     first = module.conv_xy if module.conv_xy_first else module.conv_t
     bn = module.norm
-    if (isinstance(bn, nn.BatchNorm3d) and isinstance(first, nn.Conv3d)
+    if (isinstance(bn, _BatchNorm) and isinstance(first, nn.Conv3d)
             and bn.num_features == first.out_channels):
         fold_bn_into_conv(first, bn)
         module.norm = None
 
 
+def _fold_pair(owner: nn.Module, key: str, conv: Optional[nn.Module],
+               norm: Optional[nn.Module]) -> None:
+    """Folds ``norm`` (``owner``'s attribute ``key``: a name, or the index of
+    a ``nn.ModuleList``'s entry) into ``conv`` where it is a BN of the conv's
+    width: the entry becomes None, or, at the head of upstream's ``norm_b =
+    Sequential(BN, SE)``, ``nn.Identity``."""
+    conv = _final_conv(conv)
+    if conv is None or norm is None:
+        return
+    head_of_sequential = isinstance(norm, nn.Sequential) and len(norm) > 0
+    bn = norm[0] if head_of_sequential else norm
+    if not isinstance(bn, _BatchNorm) or bn.num_features != conv.out_channels:
+        return
+    fold_bn_into_conv(conv, bn)
+    if head_of_sequential:
+        norm[0] = nn.Identity()
+    else:
+        setattr(owner, key, None)
+
+
 def fold_conv_bn(model: nn.Module) -> nn.Module:
     """Fold every known conv+BN sibling pair in ``model`` (in place; returns
-    it), and the BN inside each Conv2plus1d (R(2+1)D's conv_b), which the
-    JAX package's fold leaves in place. A folded BN attribute becomes None;
+    it), branch by branch where the pair is two ``nn.ModuleList``s, and the
+    BN inside each Conv2plus1d (R(2+1)D's conv_b), which the JAX package's
+    fold leaves in place. A folded BN attribute or list entry becomes None;
     the BN at the head of upstream's ``norm_b = Sequential(BN, SE)`` becomes
     ``nn.Identity``."""
     if model.training:
@@ -89,19 +115,12 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
         if isinstance(module, Conv2plus1d):
             _fold_inner(module)
         for conv_key, norm_key in CONV_BN_PAIRS:
-            conv = _final_conv(getattr(module, conv_key, None))
-            norm = getattr(module, norm_key, None)
-            if conv is None or norm is None:
-                continue
-            head_of_sequential = isinstance(norm, nn.Sequential) and len(norm) > 0
-            bn = norm[0] if head_of_sequential else norm
-            if not isinstance(bn, nn.BatchNorm3d) or bn.num_features != conv.out_channels:
-                continue
-            fold_bn_into_conv(conv, bn)
-            if head_of_sequential:
-                norm[0] = nn.Identity()
+            conv, norm = getattr(module, conv_key, None), getattr(module, norm_key, None)
+            if isinstance(conv, nn.ModuleList) and isinstance(norm, nn.ModuleList):
+                for i, (branch_conv, branch_norm) in enumerate(zip(conv, norm)):
+                    _fold_pair(norm, str(i), branch_conv, branch_norm)
             else:
-                setattr(module, norm_key, None)
+                _fold_pair(module, norm_key, conv, norm)
     return model
 
 

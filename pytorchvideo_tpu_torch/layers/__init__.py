@@ -14,6 +14,7 @@ from pytorchvideo_tpu_torch.layers.common import (  # noqa: F401
 )
 from pytorchvideo_tpu_torch.layers.convolutions import (  # noqa: F401
     Conv2plus1d,
+    ConvReduce3D,
     create_conv_2plus1d,
 )
 from pytorchvideo_tpu_torch.layers.fusion import (  # noqa: F401
@@ -30,6 +31,7 @@ from pytorchvideo_tpu_torch.layers.nonlocal_net import NonLocal, create_nonlocal
 from pytorchvideo_tpu_torch.layers.norms import (  # noqa: F401
     BatchNorm,
     BatchNorm1d,
+    BatchNorm2d,
     LayerNorm,
     make_act,
     make_norm,
@@ -40,9 +42,19 @@ from pytorchvideo_tpu_torch.layers.pooling import (  # noqa: F401
     MaxPool3d,
 )
 from pytorchvideo_tpu_torch.layers.positional_encoding import (  # noqa: F401
+    PositionalEncoding,
     SpatioTemporalClsPositionalEncoding,
+    get_1d_sincos_pos_embed_from_grid,
+    get_2d_sincos_pos_embed,
+    get_2d_sincos_pos_embed_from_grid,
+    get_3d_sincos_pos_embed,
 )
-from pytorchvideo_tpu_torch.layers.squeeze_excitation import SqueezeExcitation  # noqa: F401
+from pytorchvideo_tpu_torch.layers.squeeze_excitation import (  # noqa: F401
+    SqueezeAndExcitationLayer2D,
+    SqueezeExcitation,
+    SqueezeExcitation2d,
+    create_audio_2d_squeeze_excitation_block,
+)
 from pytorchvideo_tpu_torch.layers.stochastic import (  # noqa: F401
     DropPath,
     Swish,

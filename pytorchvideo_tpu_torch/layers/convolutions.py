@@ -1,7 +1,8 @@
-"""Factorized (2+1)D conv.
+"""Parallel-reduce and factorized (2+1)D convs.
 
-Counterpart of pytorchvideo_tpu/layers/convolutions.py ``Conv2plus1d`` and
-``create_conv_2plus1d`` (upstream layers/convolutions.py:88-237). The X3D
+Counterpart of pytorchvideo_tpu/layers/convolutions.py ``ConvReduce3D``,
+``Conv2plus1d`` and ``create_conv_2plus1d`` (upstream
+layers/convolutions.py:11-85, :88-237). The X3D
 stem stores its spatial conv in the ``conv_t`` slot and its temporal
 depthwise conv in ``conv_xy`` (upstream x3d.py:19-102); the slots keep those
 names for ``state_dict`` parity.
@@ -9,13 +10,66 @@ names for ``state_dict`` parity.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from pytorchvideo_tpu_torch.layers.common import Conv3d, triple
 from pytorchvideo_tpu_torch.layers.norms import BatchNorm, make_act, make_norm
+
+
+def _nth(values: Optional[Sequence], i: int, default):
+    """The i-th conv's setting: ``values[i]``, or ``default`` where the
+    sequence or its entry is None."""
+    if values is None or values[i] is None:
+        return default
+    return values[i]
+
+
+class ConvReduce3D(nn.Module):
+    """N parallel ``nn.Conv3d``s over one input (``convs``, one per entry of
+    ``kernel_size``), their outputs summed (``"sum"``) or concatenated on the
+    channel axis (``"cat"``): the acoustic stem's temporal and spatial convs.
+    ``stride``, ``padding``, ``dilation``, ``groups`` and ``bias`` hold one
+    entry per conv; a None sequence or entry takes 1, 0, 1, 1 and True."""
+
+    def __init__(
+        self,
+        *,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Sequence[Tuple[int, int, int]],
+        stride: Optional[Sequence] = None,
+        padding: Optional[Sequence] = None,
+        dilation: Optional[Sequence] = None,
+        groups: Optional[Sequence[int]] = None,
+        bias: Optional[Sequence[bool]] = None,
+        reduction_method: str = "sum",
+    ):
+        super().__init__()
+        if reduction_method not in ("sum", "cat"):
+            raise ValueError(f"reduction_method must be 'sum' or 'cat', got {reduction_method!r}")
+        self.reduction_method = reduction_method
+        self.convs = nn.ModuleList(
+            Conv3d(
+                in_channels=in_channels,
+                out_channels=out_channels,
+                kernel_size=kernel,
+                stride=_nth(stride, i, (1, 1, 1)),
+                padding=_nth(padding, i, (0, 0, 0)),
+                dilation=_nth(dilation, i, (1, 1, 1)),
+                groups=_nth(groups, i, 1),
+                bias=_nth(bias, i, True),
+            )
+            for i, kernel in enumerate(kernel_size)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outputs = [conv(x) for conv in self.convs]
+        if self.reduction_method == "cat":
+            return torch.cat(outputs, dim=1)
+        return sum(outputs[1:], outputs[0])
 
 
 class Conv2plus1d(nn.Module):

@@ -89,6 +89,15 @@ class BatchNorm1d(BatchNorm):
             raise ValueError(f"expected 2D or 3D input (got {input.dim()}D input)")
 
 
+class BatchNorm2d(BatchNorm):
+    """:class:`BatchNorm` over (B, C, H, W) maps: the JAX package's one
+    BatchNorm on the 2D squeeze-excitation block (layers/squeeze_excitation.py)."""
+
+    def _check_input_dim(self, input: torch.Tensor) -> None:
+        if input.dim() != 4:
+            raise ValueError(f"expected 4D input (got {input.dim()}D input)")
+
+
 class TokenBatchNorm(BatchNorm):
     """:class:`BatchNorm` over the trailing (channel) axis of an input of any
     rank, viewed as (N, C): the JAX package's BatchNorm on MViT's (B, L, C)

@@ -1,6 +1,11 @@
 """Models of the port (counterpart of pytorchvideo_tpu/models)."""
 
 from pytorchvideo_tpu_torch.models import hub  # noqa: F401
+from pytorchvideo_tpu_torch.models.audio_visual_slowfast import (  # noqa: F401
+    AudioToSlowFastFusionBuilder,
+    FuseAudioToFastSlow,
+    create_audio_visual_slowfast,
+)
 from pytorchvideo_tpu_torch.models.byol import BYOL  # noqa: F401
 from pytorchvideo_tpu_torch.models.csn import create_csn  # noqa: F401
 from pytorchvideo_tpu_torch.models.detection import (  # noqa: F401
@@ -16,6 +21,15 @@ from pytorchvideo_tpu_torch.models.head import (  # noqa: F401
     create_res_basic_head,
     create_vit_basic_head,
 )
+from pytorchvideo_tpu_torch.models.masked_multistream import (  # noqa: F401
+    LSTM,
+    LearnMaskedDefault,
+    MaskedMultiPathWay,
+    MaskedSequential,
+    MaskedTemporalPooling,
+    TransposeMultiheadAttention,
+    TransposeTransformerEncoder,
+)
 from pytorchvideo_tpu_torch.models.memory_bank import MemoryBank  # noqa: F401
 from pytorchvideo_tpu_torch.models.net import (  # noqa: F401
     DetectionBBoxNetwork,
@@ -30,6 +44,9 @@ from pytorchvideo_tpu_torch.models.resnet import (  # noqa: F401
     BottleneckBlock,
     ResBlock,
     ResStage,
+    SeparableBottleneckBlock,
+    create_acoustic_bottleneck_block,
+    create_acoustic_resnet,
     create_bottleneck_block,
     create_res_block,
     create_res_stage,
@@ -45,6 +62,7 @@ from pytorchvideo_tpu_torch.models.slowfast import (  # noqa: F401
 from pytorchvideo_tpu_torch.models.stem import (  # noqa: F401
     PatchEmbed,
     ResNetBasicStem,
+    create_acoustic_res_basic_stem,
     create_conv_patch_embed,
     create_res_basic_stem,
 )

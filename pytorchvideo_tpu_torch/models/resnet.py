@@ -1,10 +1,12 @@
-"""ResNet-family blocks and builders: Slow, C2D and I3D backbones.
+"""ResNet-family blocks and builders: Slow, C2D and I3D backbones, and the
+acoustic ResNet over (B, C, T, 1, F) spectrograms.
 
 Counterpart of pytorchvideo_tpu/models/resnet.py (upstream models/resnet.py:
-create_bottleneck_block :17-148, create_res_block :326-462, create_res_stage
-:465-594, create_resnet :601-841, ResBlock :1137, BottleneckBlock :1288,
-ResStage :1368). Modules keep upstream's ``state_dict`` key layout. The
-acoustic builders and ``SeparableBottleneckBlock`` are not ported yet.
+create_bottleneck_block :17-148, create_acoustic_bottleneck_block :151-316,
+create_res_block :326-462, create_res_stage :465-594, create_resnet
+:601-841, create_acoustic_resnet :1022-1134, ResBlock :1137,
+SeparableBottleneckBlock :1192, BottleneckBlock :1288, ResStage :1368).
+Modules keep upstream's ``state_dict`` key layout.
 
 Every builder creates its parameters on ``device``: the card ("cuda")
 unless the caller asks for the CPU. Without a card, "cuda" raises.
@@ -12,6 +14,7 @@ unless the caller asks for the CPU. Without a card, "cuda" raises.
 
 from __future__ import annotations
 
+import operator
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -23,7 +26,10 @@ from pytorchvideo_tpu_torch.layers.norms import BatchNorm, make_act, make_norm
 from pytorchvideo_tpu_torch.layers.pooling import AvgPool3d, MaxPool3d
 from pytorchvideo_tpu_torch.models.head import create_res_basic_head
 from pytorchvideo_tpu_torch.models.net import Net
-from pytorchvideo_tpu_torch.models.stem import create_res_basic_stem
+from pytorchvideo_tpu_torch.models.stem import (
+    create_acoustic_res_basic_stem,
+    create_res_basic_stem,
+)
 
 MODEL_STAGE_DEPTH = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -72,8 +78,70 @@ class BottleneckBlock(nn.Module):
         return x
 
 
+class SeparableBottleneckBlock(nn.Module):
+    """conv_a -> norm_a -> act_a -> parallel branches (conv_b[i] -> norm_b[i]
+    -> act_b[i]) reduced by ``reduce_method`` ("sum", or "cat" on the channel
+    axis) -> conv_c -> norm_c: the acoustic bottleneck. ``conv_b``,
+    ``norm_b`` and ``act_b`` are ``nn.ModuleList``s, one entry per branch;
+    a norm or activation entry may be None (the deploy form drops folded
+    BNs)."""
+
+    def __init__(
+        self,
+        *,
+        conv_a: nn.Module,
+        norm_a: Optional[nn.Module] = None,
+        act_a: Optional[Callable] = None,
+        conv_b: Sequence[nn.Module],
+        norm_b: Sequence[Optional[nn.Module]],
+        act_b: Sequence[Optional[Callable]],
+        conv_c: nn.Module,
+        norm_c: Optional[nn.Module] = None,
+        reduce_method: str = "sum",
+    ):
+        super().__init__()
+        if reduce_method not in ("sum", "cat"):
+            raise ValueError(f"reduce_method must be 'sum' or 'cat', got {reduce_method!r}")
+        if not len(conv_b) == len(norm_b) == len(act_b):
+            raise ValueError("conv_b, norm_b and act_b need one entry per branch")
+        self.conv_a = conv_a
+        self.norm_a = norm_a
+        self.act_a = act_a
+        self.conv_b = nn.ModuleList(conv_b)
+        self.norm_b = nn.ModuleList(norm_b)
+        self.act_b = nn.ModuleList(act_b)
+        self.conv_c = conv_c
+        self.norm_c = norm_c
+        self.reduce_method = reduce_method
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv_a(x)
+        if self.norm_a is not None:
+            x = self.norm_a(x)
+        if self.act_a is not None:
+            x = self.act_a(x)
+        outputs = []
+        for conv, norm, act in zip(self.conv_b, self.norm_b, self.act_b):
+            branch = conv(x)
+            if norm is not None:
+                branch = norm(branch)
+            if act is not None:
+                branch = act(branch)
+            outputs.append(branch)
+        if self.reduce_method == "cat":
+            x = torch.cat(outputs, dim=1)
+        else:
+            x = sum(outputs[1:], outputs[0])
+        x = self.conv_c(x)
+        if self.norm_c is not None:
+            x = self.norm_c(x)
+        return x
+
+
 class ResBlock(nn.Module):
-    """shortcut (optionally projected) + branch2 -> activation."""
+    """shortcut (optionally projected) and branch2, fused by
+    ``branch_fusion(shortcut, branch2)`` (their sum by default) ->
+    activation."""
 
     def __init__(
         self,
@@ -82,12 +150,14 @@ class ResBlock(nn.Module):
         branch1_norm: Optional[nn.Module] = None,
         branch2: nn.Module,
         activation: Optional[Callable] = None,
+        branch_fusion: Callable = operator.add,
     ):
         super().__init__()
         self.branch1_conv = branch1_conv
         self.branch1_norm = branch1_norm
         self.branch2 = branch2
         self.activation = activation
+        self.branch_fusion = branch_fusion
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
@@ -95,7 +165,7 @@ class ResBlock(nn.Module):
             shortcut = self.branch1_conv(x)
             if self.branch1_norm is not None:
                 shortcut = self.branch1_norm(shortcut)
-        x = shortcut + self.branch2(x)
+        x = self.branch_fusion(shortcut, self.branch2(x))
         if self.activation is not None:
             x = self.activation(x)
         return x
@@ -174,6 +244,59 @@ def create_bottleneck_block(
         )
 
 
+def create_acoustic_bottleneck_block(
+    *,
+    dim_in: int,
+    dim_inner: int,
+    dim_out: int,
+    conv_a_kernel_size: Tuple[int, int, int] = (3, 1, 1),
+    conv_a_stride: Tuple[int, int, int] = (2, 1, 1),
+    conv_a_padding: Tuple[int, int, int] = (1, 0, 0),
+    conv_a: Callable = Conv3d,
+    conv_b_kernel_size: Tuple[int, int, int] = (1, 1, 1),
+    conv_b_stride: Tuple[int, int, int] = (1, 1, 1),
+    conv_b_padding: Tuple[int, int, int] = (0, 0, 0),
+    conv_b_num_groups: int = 1,
+    conv_b_dilation: Tuple[int, int, int] = (1, 1, 1),
+    conv_b: Callable = Conv3d,
+    conv_c: Callable = Conv3d,
+    norm: Optional[Callable] = BatchNorm,
+    norm_eps: float = 1e-5,
+    norm_momentum: float = 0.1,
+    activation: Optional[Callable] = nn.ReLU,
+    device: Union[str, torch.device] = "cuda",
+) -> SeparableBottleneckBlock:
+    """Acoustic bottleneck builder (upstream resnet.py:151-316): conv_b
+    splits into a spatial (1, kh, kw) and a temporal (kt, 1, 1) branch at
+    conv_b's stride, summed. The branches are in upstream's order, spatial
+    first (``ModuleList([conv_b_2, conv_b_1])``): ``conv_b.0`` holds the JAX
+    package's ``conv_b_0``, the (1, kh, kw) conv."""
+    kt, kh, kw = conv_b_kernel_size
+    pt, ph, pw = conv_b_padding
+    dt, dh, dw = conv_b_dilation
+
+    def branch(kernel, padding, dilation):
+        return conv_b(in_channels=dim_inner, out_channels=dim_inner, kernel_size=kernel,
+                      stride=conv_b_stride, padding=padding, bias=False,
+                      groups=conv_b_num_groups, dilation=dilation)
+
+    with torch.device(device):
+        return SeparableBottleneckBlock(
+            conv_a=conv_a(in_channels=dim_in, out_channels=dim_inner,
+                          kernel_size=conv_a_kernel_size, stride=conv_a_stride,
+                          padding=conv_a_padding, bias=False),
+            norm_a=make_norm(norm, dim_inner, norm_eps, norm_momentum),
+            act_a=make_act(activation),
+            conv_b=[branch((1, kh, kw), (0, ph, pw), (1, dh, dw)),
+                    branch((kt, 1, 1), (pt, 0, 0), (dt, 1, 1))],
+            norm_b=[make_norm(norm, dim_inner, norm_eps, norm_momentum) for _ in range(2)],
+            act_b=[make_act(activation) for _ in range(2)],
+            conv_c=conv_c(in_channels=dim_inner, out_channels=dim_out, kernel_size=(1, 1, 1),
+                          bias=False),
+            norm_c=make_norm(norm, dim_out, norm_eps, norm_momentum),
+        )
+
+
 def create_res_block(
     *,
     dim_in: int,
@@ -181,6 +304,7 @@ def create_res_block(
     dim_out: int,
     bottleneck: Callable,
     use_shortcut: bool = False,
+    branch_fusion: Callable = operator.add,
     conv_a_kernel_size: Tuple[int, int, int] = (3, 1, 1),
     conv_a_stride: Tuple[int, int, int] = (2, 1, 1),
     conv_a_padding: Tuple[int, int, int] = (1, 0, 0),
@@ -202,7 +326,8 @@ def create_res_block(
 ) -> ResBlock:
     """Residual block builder (upstream resnet.py:326-462): the shortcut is
     projected where the width or the combined stride of conv_a and conv_b
-    changes (or ``use_shortcut``)."""
+    changes (or ``use_shortcut``); ``branch_fusion(shortcut, branch2)``
+    joins the two."""
     branch1_stride = tuple(a * b for a, b in zip(conv_a_stride, conv_b_stride))
     needs_proj = dim_in != dim_out or int(np.prod(branch1_stride)) != 1
     with torch.device(device):
@@ -240,6 +365,7 @@ def create_res_block(
                 device=device,
             ),
             activation=make_act(activation_block),
+            branch_fusion=branch_fusion,
         )
 
 
@@ -440,3 +566,77 @@ def create_resnet(
             )
         )
     return Net(blocks=blocks)
+
+
+def create_acoustic_resnet(
+    *,
+    input_channel: int = 1,
+    model_depth: int = 50,
+    model_num_class: int = 400,
+    dropout_rate: float = 0.5,
+    norm: Optional[Callable] = BatchNorm,
+    activation: Optional[Callable] = nn.ReLU,
+    stem_dim_out: int = 64,
+    stem_conv_kernel_size: Tuple[int, int, int] = (9, 1, 9),
+    stem_conv_stride: Tuple[int, int, int] = (1, 1, 3),
+    stem_pool: Optional[Callable] = None,
+    stem_pool_kernel_size: Tuple[int, int, int] = (3, 1, 3),
+    stem_pool_stride: Tuple[int, int, int] = (2, 1, 2),
+    stem: Callable = create_acoustic_res_basic_stem,
+    stage1_pool: Optional[Callable] = None,
+    stage1_pool_kernel_size: Tuple[int, int, int] = (2, 1, 1),
+    stage_conv_a_kernel_size: Union[Tuple, List] = (3, 1, 1),
+    stage_conv_b_kernel_size: Union[Tuple, List] = (3, 1, 3),
+    stage_conv_b_num_groups: Tuple[int, ...] = (1, 1, 1, 1),
+    stage_conv_b_dilation: Union[Tuple, List] = (1, 1, 1),
+    stage_spatial_h_stride: Tuple[int, ...] = (1, 1, 1, 1),
+    stage_spatial_w_stride: Tuple[int, ...] = (1, 2, 2, 2),
+    stage_temporal_stride: Tuple[int, ...] = (1, 2, 2, 2),
+    bottleneck: Union[Tuple[Callable, ...], Callable] = (
+        create_acoustic_bottleneck_block,
+        create_acoustic_bottleneck_block,
+        create_bottleneck_block,
+        create_bottleneck_block,
+    ),
+    head_pool: Optional[Callable] = AvgPool3d,
+    head_pool_kernel_size: Tuple[int, int, int] = (4, 1, 2),
+    head_output_size: Tuple[int, int, int] = (1, 1, 1),
+    head_activation: Optional[Callable] = None,
+    head_output_with_global_average: bool = True,
+    device: Union[str, torch.device] = "cuda",
+) -> Net:
+    """Acoustic ResNet builder (upstream resnet.py:1022-1134): ``create_resnet``
+    over (B, 1, T, 1, F) log-mel spectrograms, with the acoustic stem (no
+    pool), two acoustic stages then two plain ones, and time and frequency
+    halved at each stage after the first."""
+    return create_resnet(
+        input_channel=input_channel,
+        model_depth=model_depth,
+        model_num_class=model_num_class,
+        dropout_rate=dropout_rate,
+        norm=norm,
+        activation=activation,
+        stem_dim_out=stem_dim_out,
+        stem_conv_kernel_size=stem_conv_kernel_size,
+        stem_conv_stride=stem_conv_stride,
+        stem_pool=stem_pool,
+        stem_pool_kernel_size=stem_pool_kernel_size,
+        stem_pool_stride=stem_pool_stride,
+        stem=stem,
+        stage1_pool=stage1_pool,
+        stage1_pool_kernel_size=stage1_pool_kernel_size,
+        stage_conv_a_kernel_size=stage_conv_a_kernel_size,
+        stage_conv_b_kernel_size=stage_conv_b_kernel_size,
+        stage_conv_b_num_groups=stage_conv_b_num_groups,
+        stage_conv_b_dilation=stage_conv_b_dilation,
+        stage_spatial_h_stride=stage_spatial_h_stride,
+        stage_spatial_w_stride=stage_spatial_w_stride,
+        stage_temporal_stride=stage_temporal_stride,
+        bottleneck=bottleneck,
+        head_pool=head_pool,
+        head_pool_kernel_size=head_pool_kernel_size,
+        head_output_size=head_output_size,
+        head_activation=head_activation,
+        head_output_with_global_average=head_output_with_global_average,
+        device=device,
+    )

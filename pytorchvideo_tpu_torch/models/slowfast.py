@@ -3,8 +3,10 @@
 Counterpart of pytorchvideo_tpu/models/slowfast.py (upstream
 models/slowfast.py: create_slowfast :20-363, PoolConcatPathway :586-620,
 FastToSlowFusionBuilder :623-696, FuseFastToSlow :699-729). The model takes
-a list ``[slow, fast]`` of NCTHW clips; the fusions concatenate on the
-channel axis, dim 1. The JAX package's packed-channel pathways
+a list ``[slow, fast]`` of NCTHW clips (audio-visual SlowFast, built on
+:func:`create_slowfast` by models/audio_visual_slowfast.py, a third, the
+spectrogram); the fusions concatenate on the channel axis, dim 1. The JAX
+package's packed-channel pathways
 (``pathway_packs``, ``packed_stages``) are a TPU layout rewrite with the
 same parameters and are not ported: every port build is the plain one.
 """

@@ -22,8 +22,33 @@ pytorchvideo's key layout:
   {mean, var} -> weight, bias, running_mean, running_var and a zero
   num_batches_tracked; LayerNorm ``ln/{scale, bias}`` -> weight, bias;
 - bare parameters (MViT's ``cls_token``, ``pos_embed_spatial``,
-  ``pos_embed_temporal``, ``pos_embed_class``, ``pos_embed``) keep their
-  names.
+  ``pos_embed_temporal``, ``pos_embed_class``, ``pos_embed``, the masked
+  multistream's ``_learned_defaults``) keep their names.
+
+The audio models and the masked multistream add these rules:
+
+- a 2D conv kernel (kh, kw, Cin, Cout) -> weight (Cout, Cin, kh, kw);
+- the 2D SE layers' Dense kernels (``se/fc1``, ``se/fc2`` anywhere but under
+  X3D's ``norm_b``: ``SqueezeAndExcitationLayer2D``'s and the 2D SE
+  block's, at the root of a tree too) -> 1x1 ``Conv2d`` weights (out, in,
+  1, 1);
+- flax attention's DenseGeneral kernels: ``query``/``key``/``value`` (C,
+  heads, head_dim) -> ``nn.Linear`` weight (heads * head_dim, C) and their
+  (heads, head_dim) biases flattened; ``out`` (heads, head_dim, C) -> (C,
+  heads * head_dim);
+- a flax ``LayerNorm`` node ``{scale, bias}`` without an ``ln`` wrapper (the
+  encoder's ``norm1_{i}``, ``norm2_{i}``) -> weight, bias;
+- flax's LSTM cells ``OptimizedLSTMCell_0`` (the forward pass) and
+  ``OptimizedLSTMCell_1`` (the reverse one) of a module at path P -> P's
+  ``nn.LSTM`` ``P.lstm``: ``weight_ih_l0`` stacks the input kernels ``ii``,
+  ``if``, ``ig``, ``io`` transposed (torch's gate order i, f, g, o),
+  ``weight_hh_l0`` the hidden kernels ``hi``..``ho``, ``bias_hh_l0`` their
+  biases, and ``bias_ih_l0`` is zero (flax's input kernels have none); the
+  reverse cell fills the ``*_reverse`` entries;
+- ``ConvReduce3D``'s ``convs_{i}``, the separable bottleneck's ``conv_b_{i}``
+  and ``norm_b_{i}``, the encoder's ``attn_{i}``, ``ff1_{i}``, ``ff2_{i}`` and
+  the audio fusion's ``block_audio_to_fastslow/stages_{i}`` map by the
+  dotted-path rule (``convs.0``, ``conv_b.0`` ...).
 
 The same rules carry the efficient blocks' trees (accelerate/conv_blocks.py:
 ``conv``/``norm``, ``conv_a``..``conv_c``/``norm_a``..``norm_c``, ``se/fc1`` and
@@ -61,8 +86,12 @@ MVIT_INVERSE_RENAME_RULES = [
     (r"attn\.pool_(q|k|v)\.norm$", r"attn.norm_\1"),
 ]
 
-# Dense layers (JAX path, before renaming) that the port holds as 1x1x1 convs.
-_DENSE_AS_CONV = re.compile(r"\.se\.fc[12]$")
+# Dense layers (JAX path, before renaming) that the port holds as convs:
+# X3D's SE (under norm_b) as 1x1x1 convs, the 2D SE's as 1x1 convs.
+_DENSE_AS_CONV3D = re.compile(r"\.norm_b\.se\.fc[12]$")
+_DENSE_AS_CONV2D = re.compile(r"(^|\.)se\.fc[12]$")
+_LSTM_CELL = re.compile(r"^OptimizedLSTMCell_([01])$")
+_LSTM_GATES = ("i", "f", "g", "o")
 
 
 def _dotted(path: Sequence[str]) -> str:
@@ -70,11 +99,17 @@ def _dotted(path: Sequence[str]) -> str:
     return ".".join(re.sub(r"_(\d+)$", r".\1", token) for token in path)
 
 
+def _is_layer_norm(tree: Mapping) -> bool:
+    """A flax LayerNorm's own node: a scale and a bias, nothing else."""
+    return set(tree) == {"scale", "bias"}
+
+
 def _modules(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
     """Yield (path, node) for every leaf module: a node holding "kernel",
-    "bn" or "ln". A bare array elsewhere is a parameter of its own, yielded
-    as (path + (name,), array)."""
-    if "kernel" in tree or "bn" in tree or "ln" in tree:
+    "bn" or "ln", a flax LayerNorm node or an LSTM cell. A bare array
+    elsewhere is a parameter of its own, yielded as (path + (name,), array)."""
+    if ("kernel" in tree or "bn" in tree or "ln" in tree or _is_layer_norm(tree)
+            or (path and _LSTM_CELL.match(path[-1]))):
         yield path, tree
         return
     for key, child in tree.items():
@@ -94,6 +129,19 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
 
+def _lstm_cell(state_dict: Dict[str, torch.Tensor], path: Tuple[str, ...], cell: Mapping) -> None:
+    """One flax ``OptimizedLSTMCell`` into its ``nn.LSTM``'s layer-0 entries."""
+    prefix = ".".join(filter(None, (_dotted(path[:-1]), "lstm")))
+    suffix = "_reverse" if _LSTM_CELL.match(path[-1]).group(1) == "1" else ""
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]).T for g in _LSTM_GATES])
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]).T for g in _LSTM_GATES])
+    b_hh = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _LSTM_GATES])
+    state_dict[f"{prefix}.weight_ih_l0{suffix}"] = _tensor(w_ih)
+    state_dict[f"{prefix}.weight_hh_l0{suffix}"] = _tensor(w_hh)
+    state_dict[f"{prefix}.bias_ih_l0{suffix}"] = _tensor(np.zeros_like(b_hh))
+    state_dict[f"{prefix}.bias_hh_l0{suffix}"] = _tensor(b_hh)
+
+
 def jax_variables_to_state_dict(
     params: Mapping, batch_stats: Mapping
 ) -> Dict[str, torch.Tensor]:
@@ -106,12 +154,16 @@ def jax_variables_to_state_dict(
         if not isinstance(node, Mapping):
             state_dict[jax_name] = _tensor(node)
             continue
+        if _LSTM_CELL.match(path[-1]):
+            _lstm_cell(state_dict, path, node)
+            continue
         name = jax_name
         for pattern, replacement in X3D_INVERSE_RENAME_RULES + MVIT_INVERSE_RENAME_RULES:
             name = re.sub(pattern, replacement, name)
-        if "ln" in node:
-            state_dict[f"{name}.weight"] = _tensor(node["ln"]["scale"])
-            state_dict[f"{name}.bias"] = _tensor(node["ln"]["bias"])
+        if "ln" in node or _is_layer_norm(node):
+            ln = node.get("ln", node)
+            state_dict[f"{name}.weight"] = _tensor(ln["scale"])
+            state_dict[f"{name}.bias"] = _tensor(ln["bias"])
             continue
         if "bn" in node:
             stats = _lookup(batch_stats, path + ("bn",))
@@ -124,15 +176,23 @@ def jax_variables_to_state_dict(
         kernel = np.asarray(node["kernel"])
         if kernel.ndim == 5:
             weight = np.transpose(kernel, (4, 3, 0, 1, 2))
-        elif kernel.ndim == 2 and _DENSE_AS_CONV.search(jax_name):
+        elif kernel.ndim == 4:
+            weight = np.transpose(kernel, (3, 2, 0, 1))
+        elif kernel.ndim == 3 and path[-1] == "out":
+            weight = kernel.reshape(-1, kernel.shape[-1]).T
+        elif kernel.ndim == 3:
+            weight = kernel.reshape(kernel.shape[0], -1).T
+        elif kernel.ndim == 2 and _DENSE_AS_CONV3D.search(jax_name):
             weight = np.transpose(kernel)[:, :, None, None, None]
+        elif kernel.ndim == 2 and _DENSE_AS_CONV2D.search(jax_name):
+            weight = np.transpose(kernel)[:, :, None, None]
         elif kernel.ndim == 2:
             weight = np.transpose(kernel)
         else:
             raise ValueError(f"unhandled kernel rank at {jax_name}: {kernel.shape}")
         state_dict[f"{name}.weight"] = _tensor(weight)
         if "bias" in node:
-            state_dict[f"{name}.bias"] = _tensor(node["bias"])
+            state_dict[f"{name}.bias"] = _tensor(np.asarray(node["bias"]).reshape(-1))
     return state_dict
 
 

@@ -2,8 +2,8 @@
 the card's: without jax, the JAX package, any video decoder or image
 library (OpenCV, PyAV, decord, PIL), torchvision or networkx. The data
 feed, the transforms, detection, the engine, self-supervised pretraining,
-the efficient blocks, the transmuter, int8 serving and the utils are among
-the modules imported."""
+the efficient blocks, the transmuter, int8 serving, the utils, audio-visual
+SlowFast and the masked multistream are among the modules imported."""
 
 import subprocess
 import sys
@@ -24,7 +24,7 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "train.ssl", "train.ssl_app", "accelerate.efficient_blocks",
                "accelerate.conv_blocks", "accelerate.transmuter", "accelerate.quantize",
                "accelerate.int8", "models.hub.efficient_x3d", "utils", "utils.flops",
-               "utils.profiling")
+               "utils.profiling", "models.audio_visual_slowfast", "models.masked_multistream")
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
