@@ -34,6 +34,7 @@ batch and time, each side's median over the pairs, the parent's own spread
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -74,7 +75,7 @@ def dispatch_us(calls: int = 500):
     custom op, and per tracing test (None where the checkout has no
     ``pvt::`` ops); the faster of two runs each, in turns."""
     import torch
-    from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+    pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
     if not hasattr(pa, "_packed_op"):
         return None

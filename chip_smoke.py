@@ -393,10 +393,42 @@ exits nonzero, printing no result, when a check fails or no card is present.
     card's f32 output against the port's CPU float64 forward, padded tails
     filled with 1e4 leaving it unchanged, the empty rows equal to the
     learned default, ms a forward.
+25. The data-parallel layer (parallel/, the synced BatchNorm, the app's
+    data-parallel step) on a one-rank NCCL group made through an in-memory
+    store (no TCP port) and destroyed after each part; a card's machine has
+    one card, so what differs across ranks is held on four gloo ranks by the
+    CPU tests. (a) ``mvit_base_16x4`` (seeded random weights) at B8 through
+    the classification app in bf16: the app made before the group and the
+    app made on it (its mesh, its step averaging the gradients over the
+    group), from the same weights and batches, each through its captured
+    step for its two warm-up updates, the capture and two replays; the
+    step's all-reduce called eagerly at each warm-up update and while the
+    stream captures (so the graph holds it) and never at a replay; the
+    losses, and every parameter after the five updates, within phase 9's
+    bf16 bound (the share of its f32 bound printed); #4-#7's launches per
+    update as phase 19 reads them; the NCCL kernels a replay's trace shows.
+    (b) ``x3d_s`` at B16 in f32 on the X3D-S recipe, every BatchNorm synced
+    over the group, against the local-BN app the same way: parameters,
+    running stats and ``num_batches_tracked``. (c) ``sequence_parallel_body``
+    at MViT-B 32x3's first-stage shape (B4, Lq 16x56x56 = 50176 grid tokens,
+    kv pooled to 16x7x7 = 784, one head of 96), shard by shard for four
+    simulated ranks (Lq 12544 each), kv replicated and kv gathered (the
+    shards' concatenation), f32 and bf16: each shard one #4 and one #5
+    launch on the route its shape and alignment give (printed), the
+    concatenated output against one call and the plain version (phase 5's
+    bound), the gradients against one call's and the plain backward's
+    (phase 8's); then ``sequence_parallel_attention`` with kv sharded
+    through ``all_gather_with_grad`` on the group, forward and backward,
+    against one call. (d) ``ntxent_loss`` and ``SimCLR.loss`` with the group
+    against none: losses and gradients. (e) Times beside the card's name and
+    power limit: each captured data-parallel step against the captured plain
+    one in turns (``cuda_time_ms``, host ms, busy share), and the four
+    shards' #4 calls against one call over all rows, the plain version,
+    SDPA and the bound.
 
 Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase 23``
-(or ``--phase 24``) runs the build and that phase alone (no kernels line, no
-ok line), a development run.
+(or ``--phase 24``, ``--phase 25``) runs the build and that phase alone (no
+kernels line, no ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route; the
@@ -404,7 +436,9 @@ MViT kernels also at a capture of the training step, ``captured_step``), its
 errors, its time per forward or per step beside its plain version's, the
 library call's and its bound (the attention forwards and backwards also
 by route and the first version's; the depthwise kernel's also on
-``csn_r101``, under that key); the last line is
+``csn_r101``, under that key; the MViT kernels' launches in phase 25's
+data-parallel step, ``data_parallel_step``, and #4's and #5's in its
+sequence-parallel shards, ``sequence_parallel``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -412,6 +446,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import math
 import os
@@ -844,7 +879,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count is read under."""
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
     from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-    from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+    pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
     from pytorchvideo_tpu_torch.ops import token_pool as tp
 
     return {
@@ -976,7 +1011,7 @@ def plain_kernels():
     gradient checks."""
     from pytorchvideo_tpu_torch.layers import attention
     from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-    from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+    pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
     from pytorchvideo_tpu_torch.ops import token_pool as tp
 
     plain = {
@@ -3177,13 +3212,15 @@ def eager_run(app, steps: int):
     return losses, (time.perf_counter() - t0) * 1000.0 / steps
 
 
-def tensors_close(label: str, got: dict, ref: dict) -> float:
-    """Each tensor of ``got`` against ``ref`` within phase 9's bf16 bound
-    (STEP_GRAD_TOL: rel x its max |ref| + floor x its module's); integer
-    buffers exactly. Returns the max |diff|."""
+def tensors_close(label: str, got: dict, ref: dict, compute: str = "bfloat16",
+                  share: float = 1.0) -> float:
+    """Each tensor of ``got`` against ``ref`` within ``share`` of phase 9's
+    bound for ``compute`` (STEP_GRAD_TOL: rel x its max |ref| + floor x its
+    module's; bf16's by default); integer buffers exactly. Returns the max
+    |diff|."""
     import torch
 
-    rel, floor = STEP_GRAD_TOL["bfloat16"]
+    rel, floor = STEP_GRAD_TOL[compute]
     module_max = {}
     for n, r in ref.items():
         if r.is_floating_point():
@@ -3197,7 +3234,7 @@ def tensors_close(label: str, got: dict, ref: dict) -> float:
             assert torch.equal(g, r), f"{label}: {n} {g} != {r}"
             continue
         err = (g.double() - r.double()).abs().max().item() if r.numel() else 0.0
-        bound = rel * r.abs().max().item() + floor * module_max[_module_of(n)]
+        bound = share * (rel * r.abs().max().item() + floor * module_max[_module_of(n)])
         assert err <= bound, f"{label}: {n} off by {err} > {bound}"
         worst = max(worst, err)
     return worst
@@ -5851,6 +5888,451 @@ def av_slice(convert_to_deployable_form, train, card: str) -> dict:
     return report
 
 
+# Phase 25, the data-parallel layer on a one-rank NCCL group. (c) runs the
+# sequence-parallel body at MViT-B 32x3's first stage: the grid tokens of a
+# 16x224x224 clip at patch stride (2, 4, 4) (no cls row), kv pooled by
+# stride (1, 8, 8), one head of 96.
+DP_MVIT_BATCH = 8
+DP_X3D_BATCH = 16
+DP_CAPTURED_UPDATES = 2  # replays after the warm-up updates and the capture's
+# (b)'s state limit, in shares of phase 9's f32 bound, on the state after
+# five updates against the local-BN step's: between the synced step's
+# reading (1.30 on an H100) and its control's, the statistics rounded to
+# bf16 (18.97), which must exceed it.
+DP_X3D_STATE_SHARE = 4.0
+SP_SHAPE = (4, 16 * 56 * 56, 16 * 7 * 7, 96, 1)  # B, Lq, Lk, H*c, heads
+SP_RANKS = 4
+SP_TIMED_ITERS = 3
+NTXENT_SHAPE = (256, 128)
+SIMCLR_DIMS = [2048, 2048, 128]
+SIMCLR_BATCH = 64
+# The card's all-gather of one rank is a copy: the grouped losses and
+# gradients equal the ungrouped ones up to the order of float sums.
+GROUP_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+@contextlib.contextmanager
+def one_rank_nccl_group():
+    """A default NCCL process group of this process alone, on the current
+    card, through an in-memory store (no TCP port); destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+class _RecordedAllReduce:
+    """``torch.distributed`` as train/train_loop.py sees it, with each
+    ``all_reduce`` call recording whether the current stream was capturing a
+    CUDA graph (the step's gradient all-reduce is then a node of the graph,
+    replayed without a Python call)."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        import torch.distributed
+
+        return getattr(torch.distributed, name)
+
+    def all_reduce(self, *args, **kwargs):
+        import torch
+
+        self.calls.append(torch.cuda.is_current_stream_capturing())
+        return torch.distributed.all_reduce(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def step_all_reduce_calls(calls: list):
+    """Records the train step's all-reduce calls (``_RecordedAllReduce``);
+    the BatchNorms' statistics all-reduces (parallel/collectives.py) are not
+    among them."""
+    from pytorchvideo_tpu_torch.train import train_loop
+
+    original = train_loop.dist
+    train_loop.dist = _RecordedAllReduce(calls)
+    try:
+        yield
+    finally:
+        train_loop.dist = original
+
+
+def bound_share(got: dict, ref: dict, compute: str) -> float:
+    """The largest share of phase 9's per-tensor bound (STEP_GRAD_TOL of
+    ``compute``: rel x its max |ref| + floor x its module's) that a
+    floating tensor of ``got`` is off ``ref``."""
+    rel, floor = STEP_GRAD_TOL[compute]
+    module_max = {}
+    for n, r in ref.items():
+        if r.is_floating_point() and r.numel():
+            module_max[_module_of(n)] = max(module_max.get(_module_of(n), 0.0),
+                                            r.abs().max().item())
+    worst = max((got[n].double() - r.double()).abs().max().item()
+                / (rel * r.abs().max().item() + floor * module_max[_module_of(n)])
+                for n, r in ref.items() if r.is_floating_point() and r.numel())
+    return worst if math.isfinite(worst) else math.inf
+
+
+def dp_updates(app, batches, per_step, label: str) -> dict:
+    """Every batch of ``batches`` through the app's captured step
+    (``counted_update``: ``per_step`` launches at each warm-up update and
+    at the capture, none at a replay); the losses and the launch reading."""
+    losses, calls = [], []
+    for i, batch in enumerate(batches):
+        metrics, counts = counted_update(app, app._device_batch(batch), per_step,
+                                         f"{label} update {i + 1}")
+        losses.append(metrics["loss"].item())
+        calls.append(counts)
+    return {"losses": losses, "reading": capture_reading(calls)}
+
+
+def dp_against_plain(label: str, make_app, per_step: dict, B: int, card: str,
+                     state_of, compute: str = "bfloat16", share: float = 1.0,
+                     control=None) -> dict:
+    """Phase 25 (a, b) for one model: the app made before the group (no
+    mesh) and the app made on the one-rank group (``make_app(model)``), from
+    the same weights and batches, each through its captured step for
+    ``WARMUP_STEPS`` + 1 + ``DP_CAPTURED_UPDATES`` updates; the all-reduce's
+    calls recorded; the losses within LOGIT_REL_TOL of ``compute`` and
+    ``state_of(app)`` of both within ``share`` of phase 9's bound for it
+    (``tensors_close``); then both steps timed in turns. ``control``: a
+    context in which the synced step is wrong by a fault the check must
+    see; its app's state must lie outside that bound."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorchvideo_tpu_torch.train.compiled_step import WARMUP_STEPS
+
+    plain = make_app(None)
+    model = copy.deepcopy(plain.model)
+    control_model = copy.deepcopy(model) if control is not None else None
+    updates = WARMUP_STEPS + 1 + DP_CAPTURED_UPDATES
+    batches = list(plain.datamodule.train_dataloader(updates))
+    runs = {"plain": dp_updates(plain, batches, per_step, f"{label} plain")}
+    with one_rank_nccl_group() as group:
+        dp = make_app(model)
+        assert dp.mesh is not None and dp._group() is not None, f"{label}: the app built no mesh"
+        synced = [m for m in dp.model.modules() if getattr(m, "process_group", None) is not None]
+        calls = []
+        with step_all_reduce_calls(calls):
+            runs["data_parallel"] = dp_updates(dp, batches, per_step, f"{label} data-parallel")
+        # The warm-up updates call it eagerly, the capture records it into
+        # the graph, and the replays run it with no Python call.
+        assert calls == [False] * WARMUP_STEPS + [True], f"{label}: all_reduce calls {calls}"
+        rel = LOGIT_REL_TOL[compute]
+        for a, b in zip(runs["data_parallel"]["losses"], runs["plain"]["losses"]):
+            assert abs(a - b) <= rel * abs(b), f"{label}: losses {runs}"
+        got, ref = state_of(dp), state_of(plain)
+        f32_share = bound_share(got, ref, "float32")
+        control_share = None
+        if control is not None:
+            with control():
+                wrong = make_app(control_model)
+                dp_updates(wrong, batches, per_step, f"{label} control")
+            control_share = bound_share(state_of(wrong), ref, compute)
+            del wrong
+            print(f"{label}: state against the app without a group, in shares of phase 9's "
+                  f"{compute} bound: synced {bound_share(got, ref, compute)!r}, the control "
+                  f"{control_share!r}, limit {share!r}")
+            assert control_share > share, f"{label}: the control passes the check"
+        err = tensors_close(f"{label} state after {updates} updates", got, ref, compute, share)
+        batch = dp._device_batch(batches[0])
+        plain_batch = plain._device_batch(batches[0])
+        trace = device_trace(lambda: dp._step(batch))
+        nccl = sorted({e.name for e in trace.events() if "nccl" in e.name.lower()})
+        timings = step_timings({"plain": lambda: plain._step(plain_batch),
+                                "data_parallel": lambda: dp._step(batch)}, B, 2)
+        world = dist.get_world_size(group)
+        del dp, got, batch, trace  # the graphs go before the communicator
+        torch.cuda.synchronize()
+    p, d = timings["plain"], timings["data_parallel"]
+    print(f"{label} B{B}: {updates} captured-app updates on a {world}-rank NCCL group against "
+          f"the app without one: losses {runs['data_parallel']['losses']} / "
+          f"{runs['plain']['losses']}; state max |diff| {err!r} (held within {share!r}x phase "
+          f"9's {compute} bound; "
+          f"{f32_share!r} of its f32 bound at worst); {len(synced)} BatchNorms synced; "
+          f"all_reduce calls (capturing?) {calls}; NCCL kernels in a replay's trace {nccl}")
+    print(f"{label} B{B} captured plain / data-parallel: {p['ms_per_step']!r} / "
+          f"{d['ms_per_step']!r} ms/step (cuda_time_ms), host {p['host_ms']!r} / "
+          f"{d['host_ms']!r} ms/step, busy {p['busy']!r} / {d['busy']!r}; on {card}")
+    del plain, model, batches, plain_batch, ref
+    torch.cuda.empty_cache()
+    return {"losses": {k: r["losses"] for k, r in runs.items()}, "max_abs_diff": err,
+            "f32_bound_share": f32_share, "control_bound_share": control_share,
+            "all_reduce_capturing": calls,
+            "nccl_kernels_in_replay": nccl, "synced_batchnorms": len(synced),
+            "reading": runs["data_parallel"]["reading"], **timings}
+
+
+def mvit_dp_case(train, hub, card: str) -> dict:
+    """Phase 25 (a): MViT-B 16x4 at B8, bf16, the recipe's MixUp/CutMix."""
+    import copy
+
+    weights = mvit_weights(hub, 70, head_dropout_rate=0.0)
+
+    def make_app(model):
+        return train_app(train, DP_MVIT_BATCH, 70,
+                         model=copy.deepcopy(weights) if model is None else model)
+
+    return dp_against_plain("mvit_base_16x4 (a)", make_app, MVIT_PER_STEP,
+                            DP_MVIT_BATCH, card,
+                            lambda app: dict(app.model.named_parameters()))
+
+
+@contextlib.contextmanager
+def bf16_synced_statistics():
+    """Phase 25 (b)'s control: the synced BatchNorms' statistics rounded to
+    bf16 before the all-reduce, a fault the f32 check must see."""
+    from pytorchvideo_tpu_torch.layers import norms
+
+    original = norms.all_reduce_with_grad
+    norms.all_reduce_with_grad = lambda stats, group: original(stats.bfloat16().float(), group)
+    try:
+        yield
+    finally:
+        norms.all_reduce_with_grad = original
+
+
+def x3d_dp_case(train, card: str) -> dict:
+    """Phase 25 (b): X3D-S at B16 in f32, every BatchNorm synced over the
+    group, against the local-BN step: losses at the f32 bound, parameters
+    and running stats within DP_X3D_STATE_SHARE of phase 9's f32 bound,
+    which the control (``bf16_synced_statistics``) must exceed."""
+    overrides = {**x3d_s_bench_overrides(), "trainer.compute_dtype": "float32",
+                 "model.kwargs": {"dropout_rate": 0.0}}
+
+    def make_app(model):
+        return bn_app(train, "classification_x3d_xs",
+                      SyntheticClips(DP_X3D_BATCH, seed=71, clip=X3D_S_CLIP), model=model,
+                      seed=71, **overrides)
+
+    report = dp_against_plain("x3d_s (b)", make_app, {}, DP_X3D_BATCH, card,
+                              lambda app: dict(app.model.state_dict()), "float32",
+                              DP_X3D_STATE_SHARE, bf16_synced_statistics)
+    assert report["synced_batchnorms"] > 0, "x3d_s (b): no BatchNorm synced"
+    return report
+
+
+def sequence_shards_check(pa, card: str) -> dict:
+    """Phase 25 (c): ``sequence_parallel_body`` shard by shard for
+    ``SP_RANKS`` simulated ranks at MViT-B 32x3's first-stage shape, kv
+    replicated and kv gathered (the shards' concatenation, as the all-gather
+    gives it), forward (#4) and backward (#5), f32 and bf16; concatenated
+    against one call and the plain version at phase 5's and phase 8's bounds;
+    then ``sequence_parallel_attention`` through ``all_gather_with_grad`` on
+    the one-rank group; the shards timed against one call."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorchvideo_tpu_torch.parallel import (
+        sequence_parallel_attention,
+        sequence_parallel_body,
+        sequence_shard,
+    )
+
+    B, Lq, Lk, HC, H = SP_SHAPE
+    c = HC // H
+    scale = c**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    report = {"errs": {}, "routes": {}, "launches": {}, "launches_by_route": {}}
+    total = {"pooled_attention_packed": 0, "pooled_attention_packed_bwd": 0}
+    by_route_total = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, g = (torch.randn(B, L, HC, device="cuda", generator=gen).to(dtype)
+                      for L in (Lq, Lk, Lk, Lq))
+        # The plain versions in f32 (the backward's given the kernel's
+        # output and row lse, as phase 8's), and one call of each kernel.
+        ref = pa.pooled_attention_packed_torch(q.float(), k.float(), v.float(), H, scale)
+        o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, return_lse=True)
+        ref_grads = pa.pooled_attention_packed_bwd_torch(*(t.float() for t in (q, k, v, o)), lse,
+                                                         g.float(), H, scale)
+        del o, lse
+        one_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        one = pa.pooled_attention_packed(*one_leaves, H, scale)
+        one_grads = torch.autograd.grad(one, one_leaves, g)
+        one = one.detach()
+        for kv_sharded in (False, True):
+            outs, dqs, dkv, routes = [], [], [], []
+            shard_err, dkv_bound = (0.0, 0.0), [0.0, 0.0]
+            for r in range(SP_RANKS):
+                q_r = sequence_shard(q, SP_RANKS, r).requires_grad_()
+                g_r = sequence_shard(g, SP_RANKS, r)
+                kv = [t.detach().clone().requires_grad_() for t in (k, v)]
+                if kv_sharded:  # each rank's kv rows, gathered in rank order
+                    k_r, v_r = (torch.cat([sequence_shard(t, SP_RANKS, j)
+                                           for j in range(SP_RANKS)], dim=1) for t in kv)
+                else:
+                    k_r, v_r = kv
+                reset_counts()
+                out_r = sequence_parallel_body(q_r, k_r, v_r, H, scale)
+                grads_r = torch.autograd.grad(out_r, (q_r, *kv), g_r)
+                counts = read_counts()
+                assert counts["pooled_attention_packed"] == 1, counts
+                assert counts["pooled_attention_packed_bwd"] == 1, counts
+                fwd_route = [rt for rt, n in by_route(counts, "pooled_attention_packed").items()
+                             if n]
+                bwd_route = [rt for rt, n in by_route(counts,
+                                                      "pooled_attention_packed_bwd").items() if n]
+                assert fwd_route == [pa.forward_route(dtype, q_r.shape[1], c,
+                                                      pa._aligned(q_r, k_r, v_r))], counts
+                routes.append({"forward": fwd_route[0], "backward": bwd_route[0],
+                               "q_rows": q_r.shape[1], "q_16_byte_aligned":
+                               q_r.data_ptr() % 16 == 0})
+                for key in total:
+                    total[key] += counts[key]
+                for key, n in counts.items():
+                    if "." in key and key.split(".")[0] in total:
+                        by_route_total[key] = by_route_total.get(key, 0) + n
+                # This rank's gradients against the plain backward of its
+                # rows (given the kernel's output and lse, as phase 8's).
+                o_r, lse_r = pa.pooled_attention_packed_cuda(q_r.detach(), k, v, H, scale,
+                                                             return_lse=True)
+                ref_r = pa.pooled_attention_packed_bwd_torch(
+                    *(t.float() for t in (q_r.detach(), k, v, o_r)), lse_r, g_r.float(), H,
+                    scale)
+                for got, want in zip(grads_r, ref_r):
+                    shard_err = worse(shard_err, close_rel(got, want, **GRAD_TOL[name]))
+                # k's and v's gradients are the ranks' partial sums: their
+                # bound is the sum of each rank's.
+                tol = GRAD_TOL[name]
+                for i, want in enumerate(ref_r[1:]):
+                    dkv_bound[i] = (dkv_bound[i] + tol["atol_rel"] * want.abs().max()
+                                    + tol["rtol"] * want.abs())
+                outs.append(out_r.detach())
+                dqs.append(grads_r[0])
+                dkv.append([t.float() for t in grads_r[1:]])
+                del o_r, lse_r, ref_r, grads_r, kv
+            out = torch.cat(outs, dim=1)
+            torch.testing.assert_close(out.float(), ref, **ATTENTION_TOL[name])
+            torch.testing.assert_close(out.float(), one.float(), **ATTENTION_TOL[name])
+            dq_err = close_rel(torch.cat(dqs, dim=1), one_grads[0].float(), **GRAD_TOL[name])
+            summed = [sum(parts[i] for parts in dkv) for i in range(2)]
+            sum_err = 0.0
+            for i, (got, want) in enumerate(zip(summed, ref_grads[1:])):
+                excess = ((got - want).abs() - dkv_bound[i]).max().item()
+                assert excess <= 0.0, f"{name} summed d{'kv'[i]} off its bound by {excess}"
+                sum_err = max(sum_err, (got - want).abs().max().item())
+            bwd = worse(shard_err, dq_err)
+            key = f"{name} kv_sharded={kv_sharded}"
+            report["errs"][key] = {
+                "forward_vs_plain": (out.float() - ref).abs().max().item(),
+                "forward_vs_one_call": (out.float() - one.float()).abs().max().item(),
+                "backward_abs_rel": bwd, "summed_dkv_vs_plain": sum_err}
+            report["routes"][key] = routes
+            print(f"sequence-parallel body B{B} Lq {Lq} ({SP_RANKS} shards of {Lq // SP_RANKS}) "
+                  f"Lk {Lk} H*c {HC} {name}, kv_sharded={kv_sharded}: routes {routes}; "
+                  f"errors {report['errs'][key]}")
+            del outs, dqs, dkv, out, summed
+        # Through the collectives on the one-rank group: the all-gather of
+        # k and v with grad (its backward a reduce-scatter), then #4 and #5.
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sequence_parallel_attention(*leaves, H, scale, kv_sharded=True)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.testing.assert_close(out.float(), one.float(), **ATTENTION_TOL[name])
+        group_err = (0.0, 0.0)
+        for a, o in zip(grads, one_grads):
+            group_err = worse(group_err, close_rel(a, o.float(), **GRAD_TOL[name]))
+        report["errs"][f"{name} through the group"] = group_err
+        del leaves, out, grads, ref, ref_grads, one, one_grads, q, k, v, g
+        torch.cuda.empty_cache()
+    report["launches"] = total
+    report["launches_by_route"] = by_route_total
+
+    # Timed in bf16: the four ranks' bodies on their (already cut) shards,
+    # one call over all rows, the plain version and the library call.
+    q, k, v = (torch.randn(B, L, HC, device="cuda", generator=gen).bfloat16()
+               for L in (Lq, Lk, Lk))
+    shards = [sequence_shard(q, SP_RANKS, r) for r in range(SP_RANKS)]
+    q4, k4, v4 = (t.view(B, -1, H, c).transpose(1, 2) for t in (q, k, v))
+    bound, bound_by = bound_ms(4 * B * Lq * Lk * HC, 2 * B * HC * (2 * Lq + 2 * Lk))
+    timed = time_turns({
+        "ms": lambda: [pa.pooled_attention_packed_cuda(s, k, v, H, scale) for s in shards],
+        "one_call_ms": lambda: pa.pooled_attention_packed_cuda(q, k, v, H, scale),
+        "plain_ms": lambda: pa.pooled_attention_packed_torch(q, k, v, H, scale),
+        "library_ms": lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)},
+        iters=SP_TIMED_ITERS)
+    report["timing"] = {**timed, "bound_ms": bound, "bound_by": bound_by}
+    print(f"sequence-parallel body bf16 B{B} Lq {Lq} Lk {Lk} H*c {HC}: {SP_RANKS} shards "
+          f"{timed['ms']!r} ms, one #4 call {timed['one_call_ms']!r} ms, plain "
+          f"{timed['plain_ms']!r} ms, SDPA {timed['library_ms']!r} ms, bound {bound!r} ms "
+          f"({bound_by}); on {card}")
+    del q, k, v, shards, q4, k4, v4
+    torch.cuda.empty_cache()
+    return report
+
+
+def ntxent_group_check(train) -> dict:
+    """Phase 25 (d): ``ntxent_loss`` and ``SimCLR.loss`` with the one-rank
+    group against no group: losses and gradients within GROUP_TOL."""
+    import torch
+
+    from pytorchvideo_tpu_torch.layers import MultilayerPerceptron
+    from pytorchvideo_tpu_torch.models import SimCLR
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    z1, z2 = (torch.randn(*NTXENT_SHAPE, device="cuda", generator=gen) for _ in range(2))
+    runs = {}
+    for form, group in (("alone", None), ("group", torch.distributed.group.WORLD)):
+        leaves = [z1.clone().requires_grad_(), z2.clone().requires_grad_()]
+        loss = train.ntxent_loss(*leaves, 0.1, group=group)
+        runs[form] = (loss.detach(), *torch.autograd.grad(loss, leaves))
+    errs = {"ntxent": max((a - b).abs().max().item() for a, b in zip(runs["group"],
+                                                                     runs["alone"]))}
+    for a, b in zip(runs["group"], runs["alone"]):
+        torch.testing.assert_close(a, b, **GROUP_TOL)
+    torch.manual_seed(73)
+    simclr = SimCLR(MultilayerPerceptron(SIMCLR_DIMS, final_activation=None, device="cuda"),
+                    temperature=0.1)
+    x1, x2 = (torch.randn(SIMCLR_BATCH, SIMCLR_DIMS[0], device="cuda", generator=gen)
+              for _ in range(2))
+    grads = {}
+    for form, group in (("alone", None), ("group", torch.distributed.group.WORLD)):
+        simclr.zero_grad(set_to_none=True)
+        loss = simclr.loss(x1, x2, group=group)
+        loss.backward()
+        grads[form] = {"loss": loss.detach(),
+                       **{n: p.grad.clone() for n, p in simclr.named_parameters()}}
+    for n, ref in grads["alone"].items():
+        torch.testing.assert_close(grads["group"][n], ref, **GROUP_TOL, msg=n)
+    errs["simclr"] = max((grads["group"][n] - r).abs().max().item()
+                         for n, r in grads["alone"].items())
+    print(f"NT-Xent ({NTXENT_SHAPE}) and SimCLR.loss (MLP {SIMCLR_DIMS}, B{SIMCLR_BATCH}) with "
+          f"the one-rank group against none: max |diff| of losses and gradients {errs}")
+    return errs
+
+
+def data_parallel_slice(train, hub, pa, card: str) -> dict:
+    """Phase 25: (a) MViT-B in the data-parallel app, (b) X3D-S with synced
+    BatchNorm, (c) the sequence-parallel body, (d) the grouped NT-Xent; the
+    group made and destroyed by each part that needs it; (e) the times,
+    printed by each part. Each part's seconds printed."""
+    t_part = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 25 {part}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    report = {"mvit": mvit_dp_case(train, hub, card)}
+    lap("(a)")
+    report["x3d_s"] = x3d_dp_case(train, card)
+    lap("(b)")
+    with one_rank_nccl_group():
+        report["sequence"] = sequence_shards_check(pa, card)
+        lap("(c)")
+        report["ntxent"] = ntxent_group_check(train)
+        lap("(d)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -5865,7 +6347,7 @@ def main() -> None:
     from pytorchvideo_tpu_torch.ops import _build
     from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
     from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-    from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+    pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
     from pytorchvideo_tpu_torch.ops import token_pool as tp
     from pytorchvideo_tpu_torch import train
 
@@ -5894,9 +6376,15 @@ def main() -> None:
               f"{time.perf_counter() - t_phase:.1f} s")
         print("audio report: " + json.dumps(audio, default=str))
         return
+    if sys.argv[1:] == ["--phase", "25"]:  # a development run: phase 25 alone
+        t_phase = time.perf_counter()
+        parallel = data_parallel_slice(train, hub, pa, card)
+        print(f"phase 25 (the data-parallel layer): {time.perf_counter() - t_phase:.1f} s")
+        print("data parallel report: " + json.dumps(parallel, default=str))
+        return
     if sys.argv[1:]:
-        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, --phase 23 "
-                 f"or --phase 24")
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, --phase 23, "
+                 f"--phase 24 or --phase 25")
 
     kernel_report = check_kernel(dw)
 
@@ -5985,6 +6473,10 @@ def main() -> None:
     print(f"phase 24 (audio-visual SlowFast and the masked multistream): "
           f"{time.perf_counter() - t_phase:.1f} s")
     print("audio report: " + json.dumps(audio, default=str))
+    t_phase = time.perf_counter()
+    parallel = data_parallel_slice(train, hub, pa, card)
+    print(f"phase 25 (the data-parallel layer): {time.perf_counter() - t_phase:.1f} s")
+    print("data parallel report: " + json.dumps(parallel, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -6320,6 +6812,37 @@ def main() -> None:
             if entry["name"] in phase23_wrappers:
                 entry[key] = {"launches": sum(counts[n] for n in phase23_wrappers[entry["name"]]),
                               "path": path}
+    # Phase 25: the data-parallel MViT-B step's launches (a), and the
+    # sequence-parallel body's shards (c).
+    dp_reading = parallel["mvit"]["reading"]
+    sequence = parallel["sequence"]
+    B, Lq, Lk, HC, H = SP_SHAPE
+    sp_path = (f"phase 25 (c): sequence_parallel_body, {SP_RANKS} shards of Lq {Lq // SP_RANKS} "
+               f"(MViT-B 32x3's first stage, B{B} Lq {Lq} Lk {Lk} H*c {HC}, {H} head), kv "
+               f"replicated and gathered, f32 and bf16")
+    for entry in entries:
+        if entry["name"] in ssl_wrappers:
+            names = ssl_wrappers[entry["name"]]
+            entry["data_parallel_step"] = {
+                "launches_per_warmup_update": sum(dp_reading["warm_up"][n] for n in names),
+                "launches_at_capture": sum(dp_reading["capture"][n] for n in names),
+                "launches_per_replay": [sum(r[n] for n in names) for r in dp_reading["replays"]],
+                "path": f"phase 25 (a): mvit_base_16x4 train bf16 B{DP_MVIT_BATCH} through the "
+                        f"data-parallel app on a one-rank NCCL group, the all-reduce captured"}
+        if entry["name"] in ("pooled_attention_packed", "pooled_attention_packed_bwd"):
+            errs = sequence["errs"]
+            entry["sequence_parallel"] = {
+                "launches": sequence["launches"][entry["name"]],
+                "launches_by_route": by_route(sequence["launches_by_route"], entry["name"]),
+                "path": sp_path,
+                "routes": sequence["routes"],
+                "max_abs_err": max(
+                    max(e["forward_vs_plain"], e["forward_vs_one_call"])
+                    if entry["name"] == "pooled_attention_packed" else e["backward_abs_rel"][0]
+                    for key, e in errs.items() if isinstance(e, dict)),
+                **({"timing": f"bf16, the {SP_RANKS} shards' calls summed (ms) against one "
+                              f"call over all rows (one_call_ms)", **sequence["timing"]}
+                   if entry["name"] == "pooled_attention_packed" else {})}
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

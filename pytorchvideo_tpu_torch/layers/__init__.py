@@ -5,6 +5,7 @@ from pytorchvideo_tpu_torch.layers.attention import (  # noqa: F401
     MultiScaleAttention,
     MultiScaleBlock,
     TokenPool,
+    scaled_dot_product_attention,
 )
 from pytorchvideo_tpu_torch.layers.common import (  # noqa: F401
     Conv3d,
@@ -28,10 +29,18 @@ from pytorchvideo_tpu_torch.layers.mlp import (  # noqa: F401
     make_multilayer_perceptron,
 )
 from pytorchvideo_tpu_torch.layers.nonlocal_net import NonLocal, create_nonlocal  # noqa: F401
+from pytorchvideo_tpu_torch.layers.batch_norm import (  # noqa: F401
+    BatchNorm3d,
+    NaiveSyncBatchNorm1d,
+    NaiveSyncBatchNorm2d,
+    NaiveSyncBatchNorm3d,
+    set_sync_group,
+)
 from pytorchvideo_tpu_torch.layers.norms import (  # noqa: F401
     BatchNorm,
     BatchNorm1d,
     BatchNorm2d,
+    Identity,
     LayerNorm,
     make_act,
     make_norm,

@@ -197,6 +197,15 @@ class TokenPool(nn.Module):
         return f"mode={self.mode}, kernel={self.kernel}, stride={self.stride}"
 
 
+def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: float, residual_pool: bool) -> torch.Tensor:
+    """softmax(q * scale @ k^T) @ v (+ q with ``residual_pool``) over per-head
+    (B, heads, L, c) tensors: the JAX package's attention core (upstream
+    attention.py:531-537), here :func:`pooled_attention` (kernel #2 on the
+    card, its plain version on the CPU)."""
+    return pooled_attention(q, k, v, scale, residual_pool)
+
+
 def _maybe_kernel(kernel, stride) -> Optional[Size3]:
     """No pooling where kernel and stride are all ones (upstream attention.py:327-339)."""
     if kernel is None:

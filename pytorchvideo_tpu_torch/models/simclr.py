@@ -1,10 +1,9 @@
 """SimCLR NT-Xent (https://arxiv.org/abs/2002.05709); counterpart of
 pytorchvideo_tpu/models/simclr.py (upstream pytorchvideo/models/simclr.py:13-66).
 
-Single-device only: the JAX package's ``axis_name`` (negatives all-gathered
-across the devices of a ``shard_map``) maps to a ``torch.distributed``
-process group, which waits for the parallel slice (ROADMAP queue 1 item 8);
-passing one raises ``NotImplementedError``, as train/losses.py does.
+The JAX package's ``axis_name`` (negatives all-gathered across the devices
+of a ``shard_map``) is a ``torch.distributed`` process group here:
+``SimCLR.loss(..., group=...)``, as train/losses.py's ``ntxent_loss``.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorchvideo_tpu_torch.models.byol import l2_normalize
+from pytorchvideo_tpu_torch.parallel.collectives import contrast_targets
 
 
 class SimCLR(nn.Module):
@@ -34,18 +34,16 @@ class SimCLR(nn.Module):
             x = self.backbone(x)
         return l2_normalize(self.mlp(x))
 
-    def nt_xent(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+    def nt_xent(self, z1: torch.Tensor, z2: torch.Tensor, group=None) -> torch.Tensor:
         """The loss of normalised embeddings: row i of ``z1`` against every
-        row of ``z2``, its positive on the diagonal."""
-        logits = (z1 @ z2.T) / self.temperature
-        return F.cross_entropy(logits, torch.arange(z1.shape[0], device=z1.device))
+        row of ``z2``, its positive on the diagonal; with ``group`` against
+        every rank's ``z2``, gathered with grad
+        (``parallel.collectives.contrast_targets``)."""
+        keys, targets = contrast_targets(z1, z2, group)
+        return F.cross_entropy((z1 @ keys.T) / self.temperature, targets)
 
     def loss(self, x1: torch.Tensor, x2: torch.Tensor,
-             group: Optional[object] = None) -> torch.Tensor:
-        """NT-Xent of the two views, in the module's mode. ``group`` (the
-        JAX package's ``axis_name``) is not ported yet."""
-        if group is not None:
-            raise NotImplementedError("SimCLR over a torch.distributed group (all-gathered "
-                                      "negatives) waits for the parallel slice, ROADMAP queue 1 "
-                                      "item 8")
-        return self.nt_xent(self.embed(x1), self.embed(x2))
+             group: Optional[torch.distributed.ProcessGroup] = None) -> torch.Tensor:
+        """NT-Xent of the two views, in the module's mode; ``group`` (the
+        JAX package's ``axis_name``) all-gathers the negatives."""
+        return self.nt_xent(self.embed(x1), self.embed(x2), group)

@@ -569,7 +569,8 @@ def pooled_attention_packed(
 ) -> torch.Tensor:
     """Attention over head-packed tokens (B, L, H*c); returns (B, Lq, H*c).
     CPU tensors take the plain versions; CUDA tensors the kernels, the
-    backward included where autograd needs it."""
+    backward included where autograd needs it. The JAX package's function
+    also takes ``use_pallas``; here the tensors' device picks the path."""
     if _needs_grad(q, k, v):
         return _PackedAttention.apply(q, k, v, num_heads, scale, residual_pool)
     if torch.compiler.is_compiling():
@@ -585,7 +586,8 @@ def pooled_attention(
 ) -> torch.Tensor:
     """Attention over per-head tokens (B, H, L, c); returns (B, H, Lq, c).
     CPU tensors take the plain versions; CUDA tensors the kernels, the
-    backward included where autograd needs it."""
+    backward included where autograd needs it. The JAX package's function
+    also takes ``use_pallas``; here the tensors' device picks the path."""
     if _needs_grad(q, k, v):
         return _PerHeadAttention.apply(q, k, v, scale, residual_pool)
     if torch.compiler.is_compiling():

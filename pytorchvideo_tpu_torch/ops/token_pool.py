@@ -888,7 +888,11 @@ def _needs_grad(*tensors) -> bool:
 def depthwise_token_pool(x: torch.Tensor, weight: torch.Tensor, stride) -> torch.Tensor:
     """Depthwise conv pool of x (B, T, H, W, C) by weight (Cw, 1, kt, kh, kw),
     padding k // 2. CPU tensors take the plain versions; CUDA tensors the
-    kernels, the backward included where autograd needs it."""
+    kernels, the backward included where autograd needs it. The JAX
+    package's function takes its packed (kt, kh, kw, 1, C) weight, an
+    explicit padding and ``use_pallas``; here the weight is the conv's, the
+    padding is always k // 2 (MViT's pools) and the tensor's device picks
+    the path."""
     if _needs_grad(x, weight):
         return _ConvPool.apply(x, weight, _triple(stride))
     if torch.compiler.is_compiling():
@@ -900,7 +904,9 @@ def depthwise_token_pool(x: torch.Tensor, weight: torch.Tensor, stride) -> torch
 
 def max_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
     """Max pool of x (B, T, H, W, C), padding k // 2 with -inf (MaxPool3d).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel. The JAX
+    package's function also takes ``padding`` and ``use_pallas``: here the
+    padding is always k // 2 and the tensor's device picks the path."""
     if torch.compiler.is_compiling() and not _needs_grad(x):
         return torch.ops.pvt.token_pool_max(x, list(_triple(kernel_size)), list(_triple(stride)))
     if x.device.type == "cpu":
@@ -912,7 +918,9 @@ def max_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
 
 def avg_token_pool(x: torch.Tensor, kernel_size, stride) -> torch.Tensor:
     """Average pool of x (B, T, H, W, C), padding k // 2, count_include_pad.
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel. The JAX
+    package's function also takes ``padding`` and ``use_pallas``: here the
+    padding is always k // 2 and the tensor's device picks the path."""
     if torch.compiler.is_compiling() and not _needs_grad(x):
         return torch.ops.pvt.token_pool_avg(x, list(_triple(kernel_size)), list(_triple(stride)))
     if x.device.type == "cpu":

@@ -1,0 +1,30 @@
+"""The data-parallel layer of the port (counterpart of pytorchvideo_tpu/parallel):
+process groups, the mesh and batch sharding, differentiable collectives
+and sequence-parallel attention. The JAX package's tensor parallelism and
+FSDP (parallel/sharding.py) wait; see ROADMAP.md."""
+
+from pytorchvideo_tpu_torch.parallel.collectives import (  # noqa: F401
+    all_gather_with_grad,
+    all_reduce_with_grad,
+    cat_all_gather,
+)
+from pytorchvideo_tpu_torch.parallel.distributed import (  # noqa: F401
+    get_local_size,
+    get_rank,
+    get_world_size,
+    init_distributed_training,
+    local_sync_groups,
+    new_local_sync_groups,
+)
+from pytorchvideo_tpu_torch.parallel.mesh import (  # noqa: F401
+    batch_rows,
+    batch_sharding,
+    make_mesh,
+    replicated,
+    shard_batch,
+)
+from pytorchvideo_tpu_torch.parallel.sequence import (  # noqa: F401
+    sequence_parallel_attention,
+    sequence_parallel_body,
+    sequence_shard,
+)

@@ -1,0 +1,85 @@
+"""Differentiable collectives (counterpart of pytorchvideo_tpu/parallel/collectives.py;
+upstream fvcore differentiable_all_gather in models/simclr.py:192,
+AllGatherWithGradient in the trainer's module/distributed_utils.py:303-323,
+cat_all_gather in layers/distributed.py:25-39).
+
+``lax.all_gather`` is differentiable in JAX; here each collective is a
+``torch.autograd.Function`` whose backward is the transpose of its
+forward. ``group`` is a ``torch.distributed`` process group (None: the
+default one), the JAX package's ``axis_name``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        # Flat buffers: every backend takes the concatenated layout.
+        out = x.new_empty(dist.get_world_size(group) * x.numel())
+        dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
+        return out.view(-1, *x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank's slice of the sum over ranks of the gradient.
+        grad = g.new_empty(g[0].numel())
+        dist.reduce_scatter_tensor(grad, g.contiguous().view(-1), op=dist.ReduceOp.SUM,
+                                   group=ctx.group)
+        return grad.view(g.shape[1:]), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grad = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+def all_gather_with_grad(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None
+                         ) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a leading rank axis, (world, *x.shape),
+    as ``lax.all_gather``; the gradient reaching each rank's ``x`` is its
+    slice of the gradients' sum over ranks (a reduce-scatter)."""
+    return _AllGather.apply(x, group)
+
+
+def cat_all_gather(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order
+    (``lax.all_gather(..., axis=0, tiled=True)``), with gradients as
+    :func:`all_gather_with_grad`."""
+    return all_gather_with_grad(x, group).flatten(0, 1)
+
+
+def all_reduce_with_grad(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None
+                         ) -> torch.Tensor:
+    """The sum over ranks of ``x`` (``lax.psum``); its gradient is the sum
+    over ranks of the output's gradient."""
+    return _AllReduceSum.apply(x, group)
+
+
+def contrast_targets(z1: torch.Tensor, z2: torch.Tensor,
+                     group: Optional[dist.ProcessGroup] = None):
+    """(the keys, the target column of each row of ``z1``) of NT-Xent:
+    ``z2`` and its diagonal; with a ``group``, every rank's ``z2`` gathered
+    with grad (:func:`cat_all_gather`), the targets offset by this
+    rank's index times the rows (the JAX package's ``axis_index * n``)."""
+    n = z1.shape[0]
+    targets = torch.arange(n, device=z1.device)
+    if group is None:
+        return z2, targets
+    return cat_all_gather(z2, group), targets + dist.get_rank(group) * n

@@ -38,6 +38,7 @@ from pytorchvideo_tpu_torch.train.metrics import (  # noqa: F401
 )
 from pytorchvideo_tpu_torch.train.lr_policy import (  # noqa: F401
     LRSchedulerConfig,
+    get_epoch_lr,
     get_lr_at_epoch,
 )
 from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
@@ -73,6 +74,7 @@ from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
     REMAT_POLICIES,
     TrainState,
     TrainStep,
+    create_train_state,
     ensemble_video_level,
     forward_backward,
     make_eval_step,

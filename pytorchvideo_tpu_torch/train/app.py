@@ -34,6 +34,25 @@ T, H, W), or the list [slow, fast] of them, "label": (B,)}`` (tensors or
 numpy arrays, on the device or the host) and whose
 ``val_dataloader(None)`` yields such dicts with a ``"video_index"`` (and
 optionally a ``"clip_index"``) per clip.
+
+Data parallelism. Where a default ``torch.distributed`` process group is
+initialised when the app is made (one process per GPU,
+``parallel.init_distributed_training``), the app builds a data mesh over
+it (``self.mesh``), as the JAX app builds one over every device, and runs
+the JAX app's global-batch semantics on it: every rank reads the same
+global batches (the datamodule's, seeded alike) and steps on its rows
+(``parallel.shard_batch``); its BatchNorms take the world group, so their
+statistics are the global batch's; the step averages the gradients and
+metrics over the group before the clip (train/train_loop.py), inside the
+captured graph on the card. MixUp and CutMix flip the global batch, so
+under MixUp each rank's rows are the mirrored layout
+(``parallel.batch_rows``) whose local flip pairs each row with its global
+partner; every rank draws lambda and the box from its generator, seeded
+alike. A batch that the ranks do not divide is replicated (each rank
+steps on all of it, the JAX app's fallback); one they divide whose
+microbatches or mirrored shares do not split raises ValueError, naming
+the constraint. The eval pass runs each rank's rows and gathers the
+logits. Every rank must run the same calls.
 """
 
 from __future__ import annotations
@@ -45,8 +64,11 @@ import time
 from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from pytorchvideo_tpu_torch.accelerate.deploy import CompiledForward
+from pytorchvideo_tpu_torch.layers.batch_norm import set_sync_group
+from pytorchvideo_tpu_torch.parallel import cat_all_gather, make_mesh, shard_batch
 from pytorchvideo_tpu_torch.train.compiled_step import CapturedSteps
 from pytorchvideo_tpu_torch.train.config import VideoClassificationTrainConfig, save_config
 from pytorchvideo_tpu_torch.train.datamodule import VideoClassificationDataModule
@@ -93,10 +115,17 @@ class VideoClassificationTrainApp:
         self.datamodule = datamodule if datamodule is not None else VideoClassificationDataModule(
             config.data, config.model, device=self.device, seed=seed)
         self.generator = torch.Generator().manual_seed(seed)
+        self.mesh = make_mesh((-1,), ("data",)) if dist.is_initialized() else None
+        if self.mesh is not None:
+            set_sync_group(self.model, self._group())
         self.state: Optional[TrainState] = None
         self._train_step = None
         self._eval_step = make_eval_step()
         self._drop_graphs()
+
+    def _group(self):
+        """The data axis's process group (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.get_group("data")
 
     def _drop_graphs(self) -> None:
         """Forget every captured graph (the card's train steps by batch
@@ -163,16 +192,32 @@ class VideoClassificationTrainApp:
             compute_dtype=compute_dtype,
             remat_policy=trainer.remat_policy,
             grad_accum_steps=trainer.grad_accum_steps,
+            process_group=self._group(),
         )
         return self.state
 
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def _on_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's clip (each pathway of a list), labels and, where
         present, video and clip indices, on the app's device: a tensor
         already there (the datamodule's prefetch put it there) as it is,
         anything else copied."""
         return {key: map_video(lambda a: torch.as_tensor(a).to(self.device), batch[key])
                 for key in ("video", "label", "video_index", "clip_index") if key in batch}
+
+    def _rows(self, batch: Dict[str, Any], train: bool) -> Dict[str, Any]:
+        """This rank's rows of a device batch: for a training batch split
+        as the step splits it into microbatches, mirrored under MixUp (see
+        the module docstring); the whole batch where the ranks do not
+        divide it, or without a mesh."""
+        if self.mesh is None or len(batch["label"]) % self.mesh.size():
+            return batch  # replicated: correct, just not data-parallel
+        kwargs = dict(microbatches=self.cfg.trainer.grad_accum_steps,
+                      mirrored=self.cfg.mix.enabled) if train else {}
+        return shard_batch(batch, self.mesh, **kwargs)
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a training batch, on the app's device."""
+        return self._rows(self._on_device(batch), train=True)
 
     def train(self):
         """Runs ``trainer.max_epochs`` epochs of ``steps_per_epoch`` steps;
@@ -208,14 +253,19 @@ class VideoClassificationTrainApp:
         return history
 
     def _val_batches(self, max_batches: Optional[int] = None):
-        """(device batch, eval logits) over ``datamodule.val_dataloader(None)``."""
+        """(device batch, eval logits) over ``datamodule.val_dataloader(None)``;
+        with a mesh each rank evaluates its rows and the logits are gathered."""
         if self.state is None:
             raise RuntimeError("call setup() or train() first")
         for n, batch in enumerate(self.datamodule.val_dataloader(None)):
             if max_batches is not None and n >= max_batches:
                 return
-            batch = self._device_batch(batch)
-            yield batch, self._evaluate(batch)
+            whole = self._on_device(batch)
+            rows = self._rows(whole, train=False)
+            logits = self._evaluate(rows)
+            if rows is not whole:
+                logits = cat_all_gather(logits, self._group())
+            yield whole, logits
 
     def test(self, num_videos: Optional[int] = None) -> Dict[str, float]:
         """Multi-clip test (upstream module/video_classification.py:275-311):

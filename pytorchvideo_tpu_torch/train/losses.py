@@ -1,12 +1,11 @@
 """Trainer-level losses (counterpart of pytorchvideo_tpu/train/losses.py;
 upstream pytorchvideo_trainer/module/losses.py:12-134): NT-Xent,
-similarity (BYOL) and contrastive (MoCo) losses, single-device, and the
-soft-target cross entropy re-exported.
+similarity (BYOL) and contrastive (MoCo) losses, and the soft-target cross
+entropy re-exported.
 
 The JAX package's ``axis_name`` (NT-Xent's negatives all-gathered across
-the devices of a ``shard_map``) maps to a ``torch.distributed`` process
-group, which waits for the parallel slice of the port (ROADMAP queue 1
-item 8): passing one raises ``NotImplementedError``.
+the devices of a ``shard_map``) is a ``torch.distributed`` process group
+here: ``ntxent_loss(..., group=...)``.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorchvideo_tpu_torch.losses import soft_target_cross_entropy  # noqa: F401
+from pytorchvideo_tpu_torch.parallel.collectives import contrast_targets
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -24,17 +24,14 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def ntxent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.07,
-                group: Optional[object] = None) -> torch.Tensor:
+                group: Optional[torch.distributed.ProcessGroup] = None) -> torch.Tensor:
     """NT-Xent: each row of ``z1`` against every row of ``z2``, its positive
-    on the diagonal, over the batch of this device. ``group`` (the JAX
-    package's ``axis_name``) is not ported yet."""
-    if group is not None:
-        raise NotImplementedError("NT-Xent over a torch.distributed group (all-gathered "
-                                  "negatives) waits for the parallel slice, ROADMAP queue 1 "
-                                  "item 8")
+    on the diagonal. With ``group`` (the JAX package's ``axis_name``) the
+    negatives are every rank's ``z2``, gathered with grad
+    (:func:`contrast_targets`); the loss is this rank's rows' mean."""
     z1, z2 = _l2_normalize(z1), _l2_normalize(z2)
-    logits = (z1 @ z2.T) / temperature
-    return F.cross_entropy(logits, torch.arange(z1.shape[0], device=z1.device))
+    keys, targets = contrast_targets(z1, z2, group)
+    return F.cross_entropy((z1 @ keys.T) / temperature, targets)
 
 
 def similarity_loss(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -62,3 +62,6 @@ def get_lr_at_epoch(cfg: LRSchedulerConfig, cur_epoch: float) -> float:
         alpha = (lr_end - lr_start) / cfg.warmup_iters
         lr = cur_epoch * alpha + lr_start
     return lr
+
+
+get_epoch_lr = get_lr_at_epoch

@@ -39,6 +39,18 @@ The step's device work (:meth:`TrainStep.update`) reads nothing back to the
 host, so train/compiled_step.py can capture it in a CUDA graph; the host's
 part (the batch transform, the LR written into the optimizer's LR tensor,
 the update count) stays outside.
+
+Data parallelism (``process_group``): each rank steps on its rows of the
+global batch (parallel/mesh.py ``shard_batch``) and the step averages the
+gradients, the loss and the accuracy over the group, so that, as the JAX
+step jitted over a data mesh, the update is the global batch's. The
+average is one all-reduce of every gradient and the metrics flattened
+together, after the backward and the zero fill of the gradients the loss
+does not reach (every rank then reduces the same tensors) and before the
+clip, whose norm is then the global batch's. It runs on the step's own
+stream, so a CUDA graph of the update holds it, as the jitted step holds
+its ``psum``. BatchNorm statistics are the group's where the model's norms
+carry the group (layers/batch_norm.py ``set_sync_group``).
 """
 
 from __future__ import annotations
@@ -50,7 +62,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -119,6 +133,15 @@ def _remat_contexts(policy: Callable):
     return forward, _recompute_context(recompute)
 
 
+def average_over_group_(tensors: List[torch.Tensor], group) -> None:
+    """Replaces each of ``tensors`` (of one dtype) in place by its mean over
+    the ranks of ``group``: one all-reduce of them flattened together."""
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(dist.get_world_size(group))
+    torch._foreach_copy_(tensors, _unflatten_dense_tensors(flat, tensors))
+
+
 @dataclass
 class TrainState:
     """What a step updates: the model (f32 master parameters), its optimizer,
@@ -129,6 +152,15 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     lr_schedule: Optional[Callable[[int], float]] = None
     step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       lr_schedule: Optional[Callable[[int], float]] = None) -> TrainState:
+    """A :class:`TrainState` at update 0 (the JAX package's
+    ``create_train_state(variables, tx)``: here the model holds its
+    parameters and buffers and the optimizer its state, so they take the
+    place of the variables and the optax transformation)."""
+    return TrainState(model, optimizer, lr_schedule)
 
 
 Video = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -221,7 +253,7 @@ class TrainStep:
     def __init__(self, loss_fn: Callable, batch_transform: Optional[Callable],
                  clip_grad_norm: Optional[float], input_key: str, label_key: str,
                  compute_dtype: Optional[torch.dtype], remat_policy: Optional[str],
-                 grad_accum_steps: int):
+                 grad_accum_steps: int, process_group=None):
         checkpoint_policy(remat_policy)  # refuses an unknown name here
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -230,6 +262,7 @@ class TrainStep:
         self.input_key, self.label_key = input_key, label_key
         self.compute_dtype, self.remat_policy = compute_dtype, remat_policy
         self.grad_accum_steps = grad_accum_steps
+        self.process_group = process_group
 
     def signature(self, batch: Dict[str, Any]) -> tuple:
         """What one CUDA graph of this step is captured for: the clip's (or
@@ -258,9 +291,10 @@ class TrainStep:
 
     def update(self, state: TrainState, video: Video, labels: torch.Tensor) -> Dict[str, Any]:
         """The forward and backward of every microbatch, the zero gradients
-        of parameters the loss does not reach, the clip and the optimizer's
-        update at the LR it holds; returns the metrics as 0-d device
-        tensors. No value is read back to the host."""
+        of parameters the loss does not reach, with a ``process_group`` the
+        average of the gradients and metrics over it, the clip and the
+        optimizer's update at the LR it holds; returns the metrics as 0-d
+        device tensors. No value is read back to the host."""
         model = state.model
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
@@ -278,12 +312,17 @@ class TrainStep:
         for p in params:
             if p.grad is None:  # a parameter the loss does not reach: zero, as in JAX
                 p.grad = torch.zeros_like(p)
-        if self.clip_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
-        state.optimizer.step()
         metrics = {"loss": loss_sum / chunks}
         if hard_labels:
             metrics["accuracy"] = accuracy_sum / chunks
+        if self.process_group is not None:
+            grads = [p.grad for p in params]
+            scalars = torch.stack(list(metrics.values())).to(grads[0].dtype)
+            average_over_group_([*grads, scalars], self.process_group)
+            metrics = dict(zip(metrics, scalars.unbind()))
+        if self.clip_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
+        state.optimizer.step()
         return metrics
 
     def __call__(self, state: TrainState, batch: Dict[str, Any],
@@ -304,6 +343,7 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     remat_policy: Optional[str] = None,
     grad_accum_steps: int = 1,
+    process_group=None,
 ) -> TrainStep:
     """Build the eager step ``step(state, batch, generator=None) -> (state,
     metrics)`` (a :class:`TrainStep`).
@@ -317,11 +357,14 @@ def make_train_step(
     microbatches whose gradients are averaged before ONE optimizer update;
     the BatchNorm running stats go through the microbatches in order, as
     the JAX step's ``lax.scan`` threads them.
+    ``process_group``: a ``torch.distributed`` group over which the
+    gradients and metrics are averaged (see the module docstring); each
+    rank passes its rows of the global batch, every rank the same number.
     Metrics: "loss" (the microbatches' mean) and, on hard labels, top-1
     "accuracy", both as 0-d tensors on the device (reading them waits for the
     step)."""
     return TrainStep(loss_fn, batch_transform, clip_grad_norm, input_key, label_key,
-                     compute_dtype, remat_policy, grad_accum_steps)
+                     compute_dtype, remat_policy, grad_accum_steps, process_group)
 
 
 def make_eval_step(input_key: str = "video"):

@@ -18,6 +18,7 @@ graph, ``CompiledForward``'s refusals) is in ``test_torch_kernels_cuda.py``.
 """
 
 import collections
+import importlib
 import io
 
 import numpy as np
@@ -32,7 +33,6 @@ from pytorchvideo_tpu_torch.accelerate import convert_to_deployable_form, export
 from pytorchvideo_tpu_torch.models import create_csn, create_multiscale_vision_transformers, hub
 from pytorchvideo_tpu_torch.ops import depthwise_conv as dc
 from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
 from torch_port_helpers import (
@@ -43,6 +43,9 @@ from torch_port_helpers import (
     random_variables,
     small_mvit_pair,
 )
+
+# The module (the package exports the JAX package's function under its name).
+pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
 # The loaded program against the eager deploy form: the same plain versions
 # on the same f32 inputs, up to the order of a few sums.

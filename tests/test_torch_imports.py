@@ -24,7 +24,22 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "train.ssl", "train.ssl_app", "accelerate.efficient_blocks",
                "accelerate.conv_blocks", "accelerate.transmuter", "accelerate.quantize",
                "accelerate.int8", "models.hub.efficient_x3d", "utils", "utils.flops",
-               "utils.profiling", "models.audio_visual_slowfast", "models.masked_multistream")
+               "utils.profiling", "models.audio_visual_slowfast", "models.masked_multistream",
+               "parallel", "parallel.distributed", "parallel.collectives", "parallel.mesh",
+               "parallel.sequence", "layers.batch_norm")
+# Names the JAX package's packages export, which the port's export under the
+# same names (its sharding.py's tensor parallelism and FSDP wait).
+JAX_EXPORTS = {
+    "layers": ("NaiveSyncBatchNorm1d", "NaiveSyncBatchNorm2d", "NaiveSyncBatchNorm3d",
+               "BatchNorm3d", "Identity", "scaled_dot_product_attention"),
+    "ops": ("pooled_attention", "pooled_attention_packed", "depthwise_token_pool",
+            "max_token_pool", "avg_token_pool"),
+    "train": ("create_train_state", "get_epoch_lr"),
+    "parallel": ("make_mesh", "batch_sharding", "replicated", "shard_batch",
+                 "all_gather_with_grad", "cat_all_gather", "sequence_parallel_attention"),
+    "parallel.distributed": ("get_world_size", "get_local_size", "get_rank",
+                             "init_distributed_training", "local_sync_groups"),
+}
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
@@ -45,3 +60,14 @@ def test_every_port_module_imports_without_jax_or_a_decoder():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_the_jax_package_exports_are_the_port_s_too():
+    import importlib
+
+    for module, names in JAX_EXPORTS.items():
+        jax_module = importlib.import_module(f"pytorchvideo_tpu.{module}")
+        port = importlib.import_module(f"pytorchvideo_tpu_torch.{module}")
+        for name in names:
+            assert hasattr(jax_module, name), f"pytorchvideo_tpu.{module}.{name}"
+            assert callable(getattr(port, name, None)), f"pytorchvideo_tpu_torch.{module}.{name}"

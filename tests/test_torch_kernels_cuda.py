@@ -7,6 +7,7 @@ from the repository root:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import importlib
 import math
 
 import pytest
@@ -14,7 +15,6 @@ import torch
 
 from pytorchvideo_tpu_torch.accelerate import DepthwiseConv3x3x3BnAct
 from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
 from pytorchvideo_tpu_torch.ops import depthwise_conv as dc
 from pytorchvideo_tpu_torch.ops.depthwise_conv import (
@@ -22,6 +22,9 @@ from pytorchvideo_tpu_torch.ops.depthwise_conv import (
     depthwise3x3x3_bn_swish_cuda,
     depthwise3x3x3_bn_swish_torch,
 )
+
+# The module (the package exports the JAX package's function under its name).
+pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
 # X3D-S stride-1 conv_b shapes at 13x160x160: (T, H=W, C) per stage.
 X3D_S_SHAPES = [(13, 40, 54), (13, 20, 108), (13, 10, 216), (13, 5, 432)]

@@ -4,6 +4,8 @@ tests/test_ops_pooled_attention.py runs them) and the XLA paths, in both
 layouts, plus the CUDA wrappers' checks that run without a card. The kernel
 itself is tested on the card by tests/test_torch_kernels_cuda.py."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,9 @@ from pytorchvideo_tpu.ops.pooled_attention import (
     pooled_attention_pallas,
     pooled_attention_xla,
 )
-from pytorchvideo_tpu_torch.ops import pooled_attention as pa
+
+# The module (the package exports the JAX package's function under its name).
+pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
 # f32 throughout: the plain version and the JAX paths differ in summation
 # order only (softmax over at most a few hundred keys of O(1) scores).

@@ -54,6 +54,7 @@ from pytorchvideo_tpu_torch.train import (
 )
 from pytorchvideo_tpu_torch.train import transforms as port_transforms
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_ssl_state_to_state_dict
+from torch_parallel_worker import one_rank_group
 from torch_port_helpers import TOL, random_variables
 
 B, D, F = 4, 10, 16
@@ -186,7 +187,7 @@ def test_byol_refuses_a_projector():
         BYOL(BnEncoder(), projector=torch.nn.Identity(), device="cpu")
 
 
-def test_simclr_loss_matches_jax_and_refuses_a_group():
+def test_simclr_loss_matches_jax_and_refuses_a_group(tmp_path):
     dims = [F, 12, 6]
     jax_simclr = JaxSimCLR(JaxMlp(fully_connected_dims=dims, final_activation=None),
                            backbone=JaxBnEncoder(), temperature=0.1)
@@ -199,8 +200,12 @@ def test_simclr_loss_matches_jax_and_refuses_a_group():
     ref = jax_simclr.loss(state, jnp.asarray(x1), jnp.asarray(x2), train=False)
     simclr.eval()
     _close(simclr.loss(torch.from_numpy(x1), torch.from_numpy(x2)).detach(), ref)
-    with pytest.raises(NotImplementedError):
-        simclr.loss(torch.from_numpy(x1), torch.from_numpy(x2), group=object())
+    # A process group is taken now (tests/test_torch_parallel.py holds four
+    # ranks against the JAX axis_name branch): over one rank the negatives
+    # are this rank's own.
+    with one_rank_group(str(tmp_path)) as group:
+        grouped = simclr.loss(torch.from_numpy(x1), torch.from_numpy(x2), group=group)
+    _close(grouped.detach(), ref)
 
 
 def test_memory_bank_loss_and_update_match_jax_at_the_jax_draw():

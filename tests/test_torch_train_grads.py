@@ -20,6 +20,8 @@ one-pass plain backward and ``jax.vjp`` of the JAX package's XLA paths, and
 an emulation of the tensor-core route's roundings against the f32 plain
 backward, which pins down which of its operands carry a lo term."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -34,9 +36,11 @@ from pytorchvideo_tpu.ops.pooled_attention import (
     pooled_attention_xla,
 )
 from pytorchvideo_tpu.ops.token_pool import _token_pool_ad
-from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
 from torch_port_helpers import TOL
+
+# The module (the package exports the JAX package's function under its name).
+pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
 # The plain backward against autograd of the plain forward: both f32, one
 # function differentiated two ways (summation order only).

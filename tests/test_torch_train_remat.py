@@ -19,6 +19,7 @@ weights.
 
 import copy
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -33,7 +34,6 @@ from pytorchvideo_tpu.train.train_loop import create_train_state as jax_create_t
 from pytorchvideo_tpu.train.train_loop import make_train_step as jax_make_train_step
 from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
 from pytorchvideo_tpu_torch.models.x3d import create_x3d
-from pytorchvideo_tpu_torch.ops import pooled_attention as pa
 from pytorchvideo_tpu_torch.ops import token_pool as tp
 from pytorchvideo_tpu_torch.train import (
     REMAT_POLICIES,
@@ -46,6 +46,9 @@ from pytorchvideo_tpu_torch.train import (
 from pytorchvideo_tpu_torch.train import train_loop
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
 from torch_port_helpers import SMALL_MVIT, TOL, build_pair, small_mvit_pair
+
+# The module (the package exports the JAX package's function under its name).
+pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
 
 CLASSES = 7
 X3D = dict(input_clip_length=4, input_crop_size=32, model_num_class=CLASSES, width_factor=1.0,

@@ -41,6 +41,7 @@ from pytorchvideo_tpu_torch.train import (
 from pytorchvideo_tpu_torch.train import losses
 from pytorchvideo_tpu_torch.train.lr_policy import LRSchedulerConfig
 from pytorchvideo_tpu_torch.zoo.from_jax import jax_variables_to_state_dict
+from torch_parallel_worker import one_rank_group
 from torch_port_helpers import random_variables
 
 CLASSES = 7
@@ -175,13 +176,16 @@ def _embeddings(*shapes, seed=0):
 
 
 @pytest.mark.parametrize("temperature", [0.07, 0.5])
-def test_ntxent_loss_matches_jax(temperature):
+def test_ntxent_loss_matches_jax(temperature, tmp_path):
     z1, z2 = _embeddings((6, 16), (6, 16))
     ours = ntxent_loss(torch.from_numpy(z1), torch.from_numpy(z2), temperature)
     ref = jax_losses.ntxent_loss(jnp.asarray(z1), jnp.asarray(z2), temperature)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **LOSS_TOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ntxent_loss(torch.from_numpy(z1), torch.from_numpy(z2), group=object())
+    # Over a group of one rank the gathered negatives are this rank's own
+    # (tests/test_torch_parallel.py holds four ranks against JAX's axis_name).
+    with one_rank_group(str(tmp_path)) as group:
+        grouped = ntxent_loss(torch.from_numpy(z1), torch.from_numpy(z2), temperature, group=group)
+    np.testing.assert_allclose(grouped.numpy(), ours.numpy(), rtol=1e-6)
 
 
 def test_similarity_and_contrastive_losses_match_jax():
