@@ -140,7 +140,9 @@ exits nonzero, printing no result, when a check fails or no card is present.
     recomputes), 32 attention backwards (16 tensor-core, 16 split-key), 35
     conv pools with 35 dx and 35 dw, 3 max pools; none per replay), and one
     B2 eager step's gradients against the unfused kernel step of the same
-    weights.
+    weights: the seeded ones, as in phase 9, with the f32 skip max pools
+    routed by ``SharedMaxRouting`` (the fused form records, the unfused
+    form replays; at most ``MAX_POOL_FLIPS`` windows may flip).
 15. The depthwise kernel (#1) at CSN-R101's four stride-1 ``conv_b`` shapes (T32 S112 C64,
     T16 S56 C128, T8 S28 C256, T4 S14 C512) at B2: f32 and bf16, bias only
     (as CSN's deploy form calls it) and with scale, bias and swish, against
@@ -425,10 +427,36 @@ exits nonzero, printing no result, when a check fails or no card is present.
     one in turns (``cuda_time_ms``, host ms, busy share), and the four
     shards' #4 calls against one call over all rows, the plain version,
     SDPA and the bound.
+26. Tensor parallelism and FSDP (parallel/sharding.py, parallel/tensor.py,
+    train/sharded.py). NCCL refuses two ranks on one device, so (a, b) run
+    in two processes that share the card, joined by a gloo group over CUDA
+    tensors (the Megatron layers need only all_reduce, which gloo carries
+    for CUDA tensors by staging them through the host; a file store under
+    ``build/``): ``mvit_base_16x4`` (seeded random weights, no dropout) on a
+    (1, 2) (data, model) mesh, block 0's one-head attention replicated by a
+    rule ahead of ``MEGATRON_ATTENTION_RULES``, every other q, k, v, proj,
+    fc1 and fc2 split. (a) The f32 and bf16 forwards at B8, and with
+    ``fused_kvpool``, against the one-process unsharded f32 forward (phase
+    4's bounds), and ``pool_first``'s bf16 training forward at B2 against
+    its f32 forward; each read from zeroed counters: the unsharded counts
+    and routes per forward (32 attention, 35 + 3 pools; fused: 16 pool-LN)
+    and per step. (b) One bf16 step at B8 (the dry run's SGD, the clip at
+    1.0): the full state against the unsharded step's within phase 9's bf16
+    bound, the region's replicated parameters equal on both ranks. (c) #2/#3
+    (per-head), #4/#5, #6, #7's dx and dw and #8's pool-LN at the tp = 2
+    local shapes of blocks 1-15, f32 and bf16 at B2, against their plain
+    versions, each call on its route. (d) ``run_sharded_step`` on a
+    one-rank NCCL group (FSDP over data, each shard the whole parameter) on
+    the dry run's BatchNorm MViT-tiny (MixUp) and SlowFast-tiny in f32:
+    placements, shard and momentum numel, the loss and state against the
+    unsharded step. (e) Times beside the card's name and power limit: the
+    tp forward and step (rank 0, the ranks sharing the card, gloo's
+    host-staged all-reduces) against one process unsharded; #4-#8 at the
+    local shapes against the same blocks at whole heads.
 
 Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase 23``
-(or ``--phase 24``, ``--phase 25``) runs the build and that phase alone (no
-kernels line, no ok line), a development run.
+(or ``--phase 24`` to ``--phase 26``) runs the build and that phase alone
+(no kernels line, no ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route; the
@@ -438,7 +466,9 @@ library call's and its bound (the attention forwards and backwards also
 by route and the first version's; the depthwise kernel's also on
 ``csn_r101``, under that key; the MViT kernels' launches in phase 25's
 data-parallel step, ``data_parallel_step``, and #4's and #5's in its
-sequence-parallel shards, ``sequence_parallel``); the last line is
+sequence-parallel shards, ``sequence_parallel``; each MViT kernel's launches
+on phase 26's tensor-parallel path, by route, and its errors, launches and
+times at the local shapes, ``tensor_parallel``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1051,13 +1081,15 @@ def gather_at(x, indices):
 
 
 class SharedMaxRouting:
-    """Phase 9's f32 gradient check routes both forms' max-pool gradients
-    alike: under :meth:`record` (the kernel form) each float32 token max
-    pool (MViT's skip pools) keeps PyTorch's argmax of its input, and the
-    kernel's output must equal the values at those positions exactly, so
-    the kernel picked a maximum of each window; under :meth:`replay` (the
-    plain form, inside its own context) the pools, in the same order, take
-    those positions by a gather. A window whose two largest values tie
+    """Phase 9's and phase 14's f32 gradient checks route both forms'
+    max-pool gradients alike: under :meth:`record` (the first form) each
+    float32 token max pool (MViT's skip pools) keeps PyTorch's argmax of its
+    input, and the kernel's output must equal the values at those positions
+    exactly, so the kernel picked a maximum of each window; under
+    :meth:`replay` (the second form, inside its own context) the pools, in
+    the same order, take those positions by a gather (the form's own pool
+    still runs, so its launches count as the form's; its output is
+    dropped). A window whose two largest values tie
     within rounding otherwise routes its token's gradient to different
     places in the two forms, and the check fails on weights that hold such
     a window. Only an exact tie, which the kernel's own backward may break
@@ -1110,6 +1142,7 @@ class SharedMaxRouting:
                     return pool(x, kernel_size, stride)
                 indices = next(recorded)
                 self.flips += int((max_pool_indices(x, kernel_size, stride) != indices).sum())
+                pool(x, kernel_size, stride)
                 return gather_at(x, indices)
             return forward
 
@@ -2885,7 +2918,9 @@ def train_slice(train) -> dict:
 def train_fused_slice(train, unfused_rates: dict) -> dict:
     """Phase 14: the recipe with ``fused_kvpool=True``: gradients through
     autograd, timed steps beside the unfused ones of phase 9, and one step's
-    gradients against the unfused kernel step of the same weights."""
+    gradients against the unfused kernel step of the same weights: the
+    seeded ones, with both forms' max-pool gradients routed alike, as in
+    phase 9."""
     import copy
 
     import torch
@@ -2894,9 +2929,15 @@ def train_fused_slice(train, unfused_rates: dict) -> dict:
     app = train_app(train, TRAIN_BATCH, seed=31, **{"model.kwargs": {"fused_kvpool": True}})
     model = app.model
     assert all(block.attn.fused_kvpool for block in model.blocks)
+    # The timed steps' updates do not repeat from run to run, and the two
+    # forms' rounding breaks the skip pools' near-ties apart: the check runs
+    # on the seeded weights (kept on the host) under SharedMaxRouting.
+    seeded = {name: t.detach().to("cpu", copy=True) for name, t in model.state_dict().items()}
     counts, peak = first_step_grads(app, label, FUSED_PER_STEP)
     rates, counts = timed_steps(app, FUSED_PER_STEP, label, counts, peak)
     app._drop_graphs()
+    model.load_state_dict(seeded)
+    del seeded
     for B, r in rates.items():
         u = unfused_rates[B]
         print(f"{label} train B{B}: {r['ms_per_step']!r} ms/step, peak {r['peak_bytes']!r} bytes; "
@@ -2904,10 +2945,17 @@ def train_fused_slice(train, unfused_rates: dict) -> dict:
     unfused = copy.deepcopy(model)
     for block in unfused.blocks:
         block.attn.fused_kvpool = False
+    routing = SharedMaxRouting()
     grad_report = check_step_grads(
-        train, [("fused", model, contextlib.nullcontext, FUSED_PER_STEP),
-                ("unfused", unfused, contextlib.nullcontext, MVIT_PER_STEP)],
+        train, [("fused", model, routing.record, FUSED_PER_STEP),
+                ("unfused", unfused, functools.partial(routing.replay, contextlib.nullcontext),
+                 MVIT_PER_STEP)],
         preset_batch(32), label)
+    grad_report["max_pool_flips"] = routing.flips
+    print(f"{label} grad check: {routing.flips} skip max-pool windows whose argmax the unfused "
+          f"f32 form placed elsewhere than the fused form (bound {MAX_POOL_FLIPS}); both routed "
+          f"by PyTorch's argmax of the fused form's input")
+    assert routing.flips <= MAX_POOL_FLIPS, f"{label}: {routing.flips} max-pool windows flipped"
     del app, model, unfused
     torch.cuda.empty_cache()
     return {"rates": rates, "counts": counts, "grads": grad_report}
@@ -6333,6 +6381,625 @@ def data_parallel_slice(train, hub, pa, card: str) -> dict:
     return report
 
 
+# Phase 26, tensor parallelism and FSDP. (a, b) run MViT-B 16x4 on a (1,
+# TP_RANKS) (data, model) mesh in TP_RANKS processes that share the card,
+# joined by a gloo group over CUDA tensors: NCCL refuses two ranks on one
+# device, and the Megatron layers need only all_reduce, which gloo carries
+# for CUDA tensors by staging them through the host. Block 0 has one head,
+# so a rule replicates its attention ahead of the Megatron rules.
+TP_RANKS = 2
+TP_BATCH = 8
+TP_POOL_FIRST_BATCH = 2
+TP_SEED = 80
+TP_RULES_HEAD = [(r"blocks\.0\.attn\..*", ())]
+TP_TIMED_ITERS = 3
+TP_DEADLINE_S = 600
+# (d): the dry run's models (__graft_entry__.py:186-229, dropout 0) at the
+# batch it gives one device, max(1, 2).
+FSDP_BATCH = 2
+FSDP_MVIT_BN = dict(spatial_size=32, temporal_size=4, depth=2, num_heads=2, patch_embed_dim=32,
+                    norm="batchnorm", pool_q_stride_size=[[1, 1, 2, 2]],
+                    pool_kv_stride_adaptive=[1, 2, 2], pool_kvq_kernel=[3, 3, 3],
+                    head_num_classes=10, head_dropout_rate=0.0)
+FSDP_SLOWFAST = dict(model_num_class=10, stage_depths=(1, 1, 1, 1),
+                     head_pool_kernel_sizes=((4, 1, 1), (16, 1, 1)), dropout_rate=0.0)
+# The kernels line's tensor_parallel entries: each MViT kernel's wrappers.
+TP_WRAPPERS = {
+    "pooled_attention_packed": ("pooled_attention_packed",),
+    "pooled_attention": ("pooled_attention",),
+    "token_pool": ("token_pool_conv", "token_pool_max"),
+    "pooled_attention_packed_bwd": ("pooled_attention_packed_bwd",),
+    "pooled_attention_bwd": ("pooled_attention_bwd",),
+    "token_pool_dw": ("token_pool_dw",),
+    "token_pool_dx": ("token_pool_dx",),
+    "fused_kvpool_attention": ("fused_kvpool_attention",),
+    "fused_kvpool_ln": ("fused_kvpool_attention.tiled",),
+    "attention_nopad": ("pooled_attention",),
+}
+
+
+def tp_local_shapes():
+    """MViT-B 16x4's kernel shapes at tp = TP_RANKS, every block but block 0
+    (replicated) at its local heads: (attention rows (H*c, heads, Lq, Lk,
+    blocks), conv pool rows (grid, kernel, stride, launches), fused rows as
+    MVIT_FUSED's), and the same blocks' whole-head rows."""
+    split = [r for r in MVIT_ATTENTION if r[1] > 1]
+    pools = [(grid, kernel, stride, n) for i, (grid, kernel, stride, mode, n)
+             in enumerate(MVIT_POOLS) if mode == "conv" and i > 0]
+    fused = [r for r in MVIT_FUSED if r[2] > 1]
+    local = ([(hc // TP_RANKS, h // TP_RANKS, lq, lk, n) for hc, h, lq, lk, n in split],
+             [((*g[:3], g[3] // TP_RANKS), k, s, n) for g, k, s, n in pools],
+             [(thw, hc // TP_RANKS, h // TP_RANKS, s, lq, n) for thw, hc, h, s, lq, n in fused])
+    return local, (split, pools, fused)
+
+
+def tp_model(hub, **kwargs):
+    """Phase 26's MViT-B 16x4: seeded random weights, no dropout."""
+    return mvit_weights(hub, TP_SEED, head_dropout_rate=0.0, **kwargs)
+
+
+def tp_batch(B: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 1)
+    return (torch.randn(B, 3, *MVIT_CLIP, device="cuda", generator=gen),
+            torch.arange(B, device="cuda") % 400)
+
+
+def tp_step(train, model, sharding=None):
+    """The step of (b): the dry run's SGD, bf16 compute, the clip at 1.0."""
+    import torch
+
+    from pytorchvideo_tpu_torch.train.sharded import SHARDED_STEP_OPTIMIZER
+
+    state = train.create_train_state(model, train.construct_optimizer(
+        model, train.OptimizerConfig(**SHARDED_STEP_OPTIMIZER)))
+    step = train.make_train_step(clip_grad_norm=1.0, compute_dtype=torch.bfloat16,
+                                 sharding=sharding)
+    return state, step
+
+
+def tp_forwards(model, x, fused: bool) -> tuple:
+    """(logits by dtype, launches by dtype) of ``model`` at ``x``, f32 and
+    bf16 (a bf16 copy), the blocks' ``fused_kvpool`` set to ``fused``."""
+    import copy
+
+    import torch
+
+    logits, counts = {}, {}
+    for block in model.blocks:
+        block.attn.fused_kvpool = fused
+    for name in ("float32", "bfloat16"):
+        form = model if name == "float32" else copy.deepcopy(model).to(torch.bfloat16)
+        with torch.no_grad():
+            reset_counts()
+            logits[name] = form.eval()(x.to(getattr(torch, name))).float()
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+        del form
+    for block in model.blocks:
+        block.attn.fused_kvpool = False
+    return logits, counts
+
+
+def tp_rank_main(rank: int, world: int, directory: str) -> None:
+    """One rank of phase 26 (a, b): joins the gloo group through a file store
+    in ``directory`` on the card, runs :func:`tp_rank_run` and writes
+    ``directory/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pytorchvideo_tpu_torch.ops import _build
+
+    _build.load_library()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(directory, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        torch.save(tp_rank_run(world), os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_run(world: int) -> dict:
+    """Phase 26 (a, b) on this rank: MViT-B on its placements, the forwards
+    (f32, bf16, fused) and one step at TP_BATCH, a pool_first forward and
+    backward at TP_POOL_FIRST_BATCH, each read from zeroed counters; the
+    full state after the step, the region's replicated parameters, and the
+    times (e)."""
+    import copy
+
+    import torch
+
+    from pytorchvideo_tpu_torch import parallel, train
+    from pytorchvideo_tpu_torch.models import hub
+    from pytorchvideo_tpu_torch.train import train_loop
+
+    mesh = parallel.make_mesh((1, world), ("data", "model"))
+    rules = [*TP_RULES_HEAD, *parallel.MEGATRON_ATTENTION_RULES]
+    model = tp_model(hub)
+    plan = parallel.shard_model_(model, parallel.infer_param_shardings(model, mesh, rules), mesh)
+    x, labels = tp_batch(TP_BATCH)
+    out = {"split": sorted(plan.tensor_parallel), "region": {}}
+    out["logits"], out["counts"] = tp_forwards(model, x, False)
+    fused_logits, fused_counts = tp_forwards(model, x, True)
+    out["logits"].update({f"fused {k}": v for k, v in fused_logits.items()})
+    out["counts"].update({f"fused {k}": v for k, v in fused_counts.items()})
+    bf16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    xb = x.bfloat16()
+    with torch.no_grad():
+        out["forward_ms"] = cuda_time_ms(lambda: bf16(xb), TP_TIMED_ITERS)
+    del bf16, xb
+    state, step = tp_step(train, model, plan)
+    batch = {"video": x, "label": labels}
+    reset_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    out["counts"]["step"] = read_counts()
+    out["loss"] = metrics["loss"].item()
+    out["state"] = {k: v.cpu() for k, v in plan.full_state_dict(model).items()}
+    out["region"] = {n: p.detach().cpu() for n, p in model.named_parameters() if n in plan.region}
+    out["step_ms"] = cuda_time_ms(lambda: step(state, batch), TP_TIMED_ITERS, warmup=1)
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+
+    model = tp_model(hub, pool_first=True).train()
+    plan = parallel.shard_model_(model, parallel.infer_param_shardings(model, mesh, rules), mesh)
+    x, labels = tp_batch(TP_POOL_FIRST_BATCH)
+    reset_counts()
+    _, logits = train_loop.forward_backward(model, x, labels, compute_dtype=torch.bfloat16,
+                                            sharding=plan)
+    torch.cuda.synchronize()
+    out["counts"]["pool_first"] = read_counts()
+    out["logits"]["pool_first bfloat16"] = logits.float()
+    return {k: ({n: t.cpu() for n, t in v.items()} if k == "logits" else v)
+            for k, v in out.items()}
+
+
+def run_tp_ranks(directory: str) -> list:
+    """Starts TP_RANKS processes of :func:`tp_rank_main` on the card and
+    waits for them, within TP_DEADLINE_S (then they are ended and the phase
+    fails); returns each rank's output."""
+    import torch
+    import torch.multiprocessing as mp
+
+    context = mp.start_processes(tp_rank_main, args=(TP_RANKS, directory), nprocs=TP_RANKS,
+                                 join=False, start_method="spawn")
+    deadline = time.perf_counter() + TP_DEADLINE_S
+    try:
+        while not context.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"phase 26: the {TP_RANKS} ranks did not end within "
+                                   f"{TP_DEADLINE_S} s")
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+            for r in range(TP_RANKS)]
+
+
+def tp_references(hub, train) -> dict:
+    """Phase 26's one-process references: the unsharded f32 and bf16
+    forwards, the unsharded step (state and loss), pool_first's f32 forward,
+    and the unsharded times (e)."""
+    import copy
+
+    import torch
+
+    model = tp_model(hub)
+    x, labels = tp_batch(TP_BATCH)
+    ref = {}
+    ref["logits"], ref["counts"] = tp_forwards(model, x, False)
+    bf16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    xb = x.bfloat16()
+    with torch.no_grad():
+        ref["forward_ms"] = cuda_time_ms(lambda: bf16(xb), TP_TIMED_ITERS)
+    del bf16, xb
+    state, step = tp_step(train, model)
+    batch = {"video": x, "label": labels}
+    state, metrics = step(state, batch)
+    ref["loss"] = metrics["loss"].item()
+    ref["state"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ref["step_ms"] = cuda_time_ms(lambda: step(state, batch), TP_TIMED_ITERS, warmup=1)
+    del state, step, model, batch
+    model = tp_model(hub, pool_first=True)
+    x, _ = tp_batch(TP_POOL_FIRST_BATCH)
+    with torch.no_grad():
+        ref["pool_first_f32"] = model.eval()(x).float()
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_path_checks(ranks: list, ref: dict, card: str) -> dict:
+    """Phase 26 (a, b, e) from the ranks' outputs against the references."""
+    import torch
+
+    first = ranks[0]
+    for other in ranks[1:]:
+        for name, t in first["logits"].items():
+            assert torch.equal(other["logits"][name], t), f"phase 26: ranks' {name} logits differ"
+        for n, t in first["region"].items():
+            assert torch.equal(other["region"][n], t), f"phase 26 (b): {n} differs across ranks"
+    assert first["region"], "phase 26 (b): no region parameter"
+    f32_ref = ref["logits"]["float32"].cuda()
+    check_logits(f"phase 26 (a) mvit_base_16x4 tp={TP_RANKS}",
+                 {k: first["logits"][k].cuda() for k in ("float32", "bfloat16")}, f32_ref)
+    check_logits(f"phase 26 (a) mvit_base_16x4(fused_kvpool=True) tp={TP_RANKS}",
+                 {k: first["logits"][f"fused {k}"].cuda() for k in ("float32", "bfloat16")},
+                 f32_ref)
+    check_logits(f"phase 26 (a) mvit_base_16x4(pool_first=True) tp={TP_RANKS}, the training "
+                 f"forward", {"bfloat16": first["logits"]["pool_first bfloat16"].cuda()},
+                 ref["pool_first_f32"])
+    counts = first["counts"]
+    check_path_counts("phase 26 (a) tp forward f32", counts["float32"],
+                      f32_routes(MVIT_PER_FORWARD), 1)
+    check_path_counts("phase 26 (a) tp forward bf16", counts["bfloat16"], MVIT_PER_FORWARD, 1)
+    check_path_counts("phase 26 (a) tp fused forward f32", counts["fused float32"],
+                      f32_routes(FUSED_PER_FORWARD), 1)
+    check_path_counts("phase 26 (a) tp fused forward bf16", counts["fused bfloat16"],
+                      FUSED_PER_FORWARD, 1)
+    check_path_counts("phase 26 (b) tp step bf16", counts["step"], MVIT_PER_STEP, 1, "steps")
+    check_path_counts("phase 26 (b) tp pool_first forward and backward bf16",
+                      counts["pool_first"], POOL_FIRST_PER_STEP, 1, "steps")
+    rel = LOGIT_REL_TOL["bfloat16"]
+    assert abs(first["loss"] - ref["loss"]) <= rel * abs(ref["loss"]), (first["loss"], ref["loss"])
+    state_err = tensors_close(f"phase 26 (b) tp={TP_RANKS} state after one step", first["state"],
+                              {k: v.cpu() for k, v in ref["state"].items()})
+    f32_share = bound_share(first["state"], {k: v.cpu() for k, v in ref["state"].items()},
+                            "float32")
+    print(f"phase 26 (a, b) mvit_base_16x4 on a (1, {TP_RANKS}) mesh, {len(first['split'])} "
+          f"Megatron weights split, block 0's attention replicated: one bf16 B{TP_BATCH} step's "
+          f"loss {first['loss']!r} against the unsharded step's {ref['loss']!r}; state max "
+          f"|diff| {state_err!r} (phase 9's bf16 bound; {f32_share!r} of its f32 bound); "
+          f"{len(first['region'])} region parameters equal on every rank")
+    print(f"phase 26 (e) mvit_base_16x4 B{TP_BATCH}: bf16 forward tp={TP_RANKS} (rank 0; the "
+          f"{TP_RANKS} ranks share the card, their all-reduces are gloo's, staged through the "
+          f"host) {first['forward_ms']!r} ms against one process unsharded {ref['forward_ms']!r} "
+          f"ms; the bf16 step {first['step_ms']!r} ms against {ref['step_ms']!r} ms "
+          f"(cuda_time_ms); on {card}")
+    return {"loss": first["loss"], "unsharded_loss": ref["loss"], "state_max_abs_diff": state_err,
+            "state_f32_bound_share": f32_share, "split": len(first["split"]),
+            "region_parameters": len(first["region"]), "counts": counts,
+            "forward_ms": first["forward_ms"], "unsharded_forward_ms": ref["forward_ms"],
+            "step_ms": first["step_ms"], "unsharded_step_ms": ref["step_ms"],
+            "collective": "gloo over CUDA tensors, staged through the host; the ranks share one "
+                          "card"}
+
+
+def _count_routes(name: str, route: str, totals: dict) -> None:
+    """Asserts every launch of wrapper ``name`` since the last reset took
+    ``route``; adds the counts to ``totals``."""
+    counts = read_counts()
+    assert counts[name] > 0 and by_route(counts, name)[route] == counts[name], (name, counts)
+    for key, n in counts.items():
+        if key == name or key.startswith(name + "."):
+            totals[key] = totals.get(key, 0) + n
+
+
+def check_tp_local_kernels(pa, tp, fk) -> dict:
+    """Phase 26 (c): #2/#3 (per-head, pool_first's layout, cls row included),
+    #4/#5 (head-packed, grid and cls queries), #6, #7's dx and dw and #8's
+    pool-LN at the tp = TP_RANKS local shapes of MViT-B 16x4, f32 and bf16 at
+    B2, against their plain versions (phases 5, 8 and 11's bounds), each
+    call on the route its shape gives; then the forward kernels at B32 and
+    the backward ones at B8, bf16, at the local shapes against the same
+    blocks' whole-head shapes, in turns."""
+    import torch
+
+    (attention, pools, fused), (whole_attention, whole_pools, whole_fused) = tp_local_shapes()
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 2)
+    errs, totals = {}, {}
+
+    def note(key, err):
+        errs[key] = worse(errs.get(key, (0.0, 0.0)), err if isinstance(err, tuple) else (err, 0.0))
+
+    for HC, H, Lq, Lk, _ in attention:
+        c = HC // H
+        scale = c**-0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for lq in (Lq, 1):
+                q, k, v, g = (torch.randn(2, L, HC, device="cuda", generator=gen).to(dtype)
+                              for L in (lq, Lk, Lk, lq))
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                reset_counts()
+                out = pa.pooled_attention_packed(*leaves, H, scale)
+                grads = torch.autograd.grad(out, leaves, g)
+                torch.cuda.synchronize()
+                _count_routes("pooled_attention_packed", pa.forward_route(dtype, lq, c), totals)
+                _count_routes("pooled_attention_packed_bwd", pa.backward_route(dtype, lq, c),
+                              totals)
+                ref = pa.pooled_attention_packed_torch(q.float(), k.float(), v.float(), H, scale)
+                torch.testing.assert_close(out.float(), ref, **ATTENTION_TOL[name])
+                note("pooled_attention_packed", (out.float() - ref).abs().max().item())
+                o, lse = pa.pooled_attention_packed_cuda(q, k, v, H, scale, return_lse=True)
+                ref_g = pa.pooled_attention_packed_bwd_torch(
+                    *(t.float() for t in (q, k, v, o)), lse, g.float(), H, scale)
+                note("pooled_attention_packed_bwd", worse(*(
+                    close_rel(a, b, **GRAD_TOL[name]) for a, b in zip(grads, ref_g))))
+            # pool_first's per-head layout, the cls row riding with the grid.
+            qh, gh = (torch.randn(2, H, Lq + 1, c, device="cuda", generator=gen).to(dtype)
+                      for _ in range(2))
+            kh, vh = (torch.randn(2, H, Lk, c, device="cuda", generator=gen).to(dtype)
+                      for _ in range(2))
+            leaves = [t.clone().requires_grad_() for t in (qh, kh, vh)]
+            reset_counts()
+            out = pa.pooled_attention(*leaves, scale)
+            grads = torch.autograd.grad(out, leaves, gh)
+            torch.cuda.synchronize()
+            _count_routes("pooled_attention", pa.forward_route(dtype, Lq + 1, c), totals)
+            _count_routes("pooled_attention_bwd", pa.backward_route(dtype, Lq + 1, c), totals)
+            ref = pa.pooled_attention_torch(*(t.float() for t in (qh, kh, vh)), scale)
+            torch.testing.assert_close(out.float(), ref, **ATTENTION_TOL[name])
+            note("pooled_attention", (out.float() - ref).abs().max().item())
+            o, lse = pa.pooled_attention_cuda(qh, kh, vh, scale, return_lse=True)
+            ref_g = pa.pooled_attention_bwd_torch(*(t.float() for t in (qh, kh, vh, o)), lse,
+                                                  gh.float(), scale)
+            note("pooled_attention_bwd", worse(*(
+                close_rel(a, b, **GRAD_TOL[name]) for a, b in zip(grads, ref_g))))
+    for grid, kernel, stride, _ in pools:
+        out_grid = tuple(tp.pool_out_size(d, k, s) for d, k, s in zip(grid[:3], kernel, stride))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn(2, *grid, device="cuda", generator=gen).to(dtype)
+            g = torch.randn(2, *out_grid, grid[-1], device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(HEAD_DIM, 1, *kernel, device="cuda", generator=gen) * 0.2).to(dtype)
+            reset_counts()
+            out = tp.depthwise_token_pool(x, w, stride)
+            _count_routes("token_pool_conv", "tiled", totals)
+            ref = tp.depthwise_token_pool_torch(x.float(), w.float(), stride)
+            torch.testing.assert_close(out.float(), ref, **KERNEL_TOL[name])
+            note("token_pool", (out.float() - ref).abs().max().item())
+            reset_counts()
+            dx = tp.depthwise_token_pool_dx_cuda(g, w, x.shape, stride)
+            _count_routes("token_pool_dx", "tiled", totals)
+            reset_counts()
+            dw = tp.depthwise_token_pool_dw_cuda(x, g, w, stride)
+            _count_routes("token_pool_dw", "tiled", totals)
+            note("token_pool_dx", close_rel(dx, tp.depthwise_token_pool_dx_torch(
+                g.float(), w.float(), x.shape, stride), **GRAD_TOL[name]))
+            note("token_pool_dw", close_rel(dw, tp.depthwise_token_pool_dw_torch(
+                x.float(), g.float(), w.float(), stride), **GRAD_TOL[name]))
+    for thw, HC, heads, stride, Lq, _ in fused:
+        assert fk.fusable(thw, HC, (3, 3, 3), stride, HC // heads), f"{thw} {HC} not fusable"
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            t = fused_inputs(gen, 2, thw, HC, heads, Lq, dtype)
+            reset_counts()
+            outs = fused_call(fk.fused_kvpool_attention_cuda, t, thw, heads, stride, False)
+            torch.cuda.synchronize()
+            _count_routes("fused_kvpool_attention", "tiled", totals)
+            ref = fused_call(fk.fused_kvpool_attention_torch, {k: v.float() for k, v in t.items()},
+                             thw, heads, stride, False)
+            for got, want in zip(outs[1:3], ref[1:3]):
+                torch.testing.assert_close(got.float(), want, **KERNEL_TOL[name])
+                note("fused_kvpool_ln", (got.float() - want).abs().max().item())
+            if dtype == torch.float32:
+                for got, want in zip(outs[::3], ref[::3]):
+                    torch.testing.assert_close(got, want, **ATTENTION_TOL[name])
+                    note("fused_kvpool_attention", (got - want).abs().max().item())
+    print(f"phase 26 (c) kernels at the tp={TP_RANKS} local shapes of mvit_base_16x4 (blocks "
+          f"1-15 at half their heads; f32 and bf16, B2) against their plain versions: errors "
+          f"(max |err|, over max |ref|) {errs}; launches by route {totals}")
+    timing = tp_local_times(pa, tp, fk, gen, (attention, pools, fused),
+                            (whole_attention, whole_pools, whole_fused))
+    torch.cuda.empty_cache()
+    return {"errs": errs, "launches": totals, "timing": timing,
+            "local_attention": attention, "local_pools": pools, "local_fused": fused}
+
+
+def tp_local_times(pa, tp, fk, gen, local, whole) -> dict:
+    """Phase 26 (e): each kernel's time per forward (B32) or per step (B8),
+    bf16, over blocks 1-15 at the local shapes against the same blocks at
+    whole heads, in turns (``cuda_time_ms``)."""
+    import torch
+
+    sums = {}
+
+    def add(key, calls, fns):
+        ms = time_turns(fns, iters=TP_TIMED_ITERS)
+        for form, t in ms.items():
+            sums.setdefault(key, {"local_ms": 0.0, "whole_ms": 0.0})[f"{form}_ms"] += calls * t
+
+    B, Bs = MVIT_TIMING_BATCH, TRAIN_BATCH
+
+    def attention_inputs(HC, Lq, Lk, batch):
+        return [torch.randn(batch, L, HC, device="cuda", generator=gen).bfloat16()
+                for L in (Lq, Lk, Lk, Lq)]
+
+    for (lhc, lh, lq, lk, n), (hc, h, _, _, _) in zip(local[0], whole[0]):
+        for q_len in (lq, 1):
+            loc, who = attention_inputs(lhc, q_len, lk, B), attention_inputs(hc, q_len, lk, B)
+            add("pooled_attention_packed", n, {
+                "local": lambda: pa.pooled_attention_packed_cuda(*loc[:3], lh, 96**-0.5),
+                "whole": lambda: pa.pooled_attention_packed_cuda(*who[:3], h, 96**-0.5)})
+            del loc, who
+            loc, who = attention_inputs(lhc, q_len, lk, Bs), attention_inputs(hc, q_len, lk, Bs)
+            lo = pa.pooled_attention_packed_cuda(*loc[:3], lh, 96**-0.5, return_lse=True)
+            wo = pa.pooled_attention_packed_cuda(*who[:3], h, 96**-0.5, return_lse=True)
+            add("pooled_attention_packed_bwd", n, {
+                "local": lambda: pa.pooled_attention_packed_bwd_cuda(*loc[:3], *lo, loc[3], lh,
+                                                                     96**-0.5),
+                "whole": lambda: pa.pooled_attention_packed_bwd_cuda(*who[:3], *wo, who[3], h,
+                                                                     96**-0.5)})
+            del loc, who, lo, wo
+    for (lgrid, kernel, stride, n), (grid, _, _, _) in zip(local[1], whole[1]):
+        out_l = tuple(tp.pool_out_size(d, k, s) for d, k, s in zip(grid[:3], kernel, stride))
+        w = (torch.randn(HEAD_DIM, 1, *kernel, device="cuda", generator=gen) * 0.2).bfloat16()
+        xs = {f: torch.randn(B, *gr, device="cuda", generator=gen).bfloat16()
+              for f, gr in (("local", lgrid), ("whole", grid))}
+        add("token_pool", n, {f: functools.partial(tp.depthwise_token_pool_cuda, xs[f], w,
+                                                   stride) for f in xs})
+        xs = {f: (torch.randn(Bs, *gr, device="cuda", generator=gen).bfloat16(),
+                  torch.randn(Bs, *out_l, gr[-1], device="cuda", generator=gen).bfloat16())
+              for f, gr in (("local", lgrid), ("whole", grid))}
+        add("token_pool_dx", n, {f: functools.partial(tp.depthwise_token_pool_dx_cuda, xg[1], w,
+                                                      xg[0].shape, stride)
+                                 for f, xg in xs.items()})
+        add("token_pool_dw", n, {f: functools.partial(tp.depthwise_token_pool_dw_cuda, xg[0],
+                                                      xg[1], w, stride) for f, xg in xs.items()})
+        del xs
+    for (thw, lhc, lh, stride, lq, n), (_, hc, h, _, _, _) in zip(local[2], whole[2]):
+        ts = {f: fused_inputs(gen, B, thw, c, hh, lq, torch.bfloat16)
+              for f, c, hh in (("local", lhc, lh), ("whole", hc, h))}
+        pooled = tuple(fk.pool_out(d, 3, st, 1) for d, st in zip(thw, stride))
+        add("fused_kvpool_ln", n, {
+            f: functools.partial(fk._pool_ln_cuda, t["k_grid"], t["v_grid"], t["wk"], t["wv"],
+                                 t["lnk"], t["lnv"], t["cls_k"], t["cls_v"], thw,
+                                 hh, (3, 3, 3), stride, FUSED_EPS, pooled, None)
+            for (f, t), hh in zip(ts.items(), (lh, h))})
+        del ts
+    print(f"phase 26 (e) kernels over blocks 1-15, bf16, ms per B{B} forward (#4, #6, #8's "
+          f"pool-LN) or per B{Bs} step (#5, #7) at the tp={TP_RANKS} local shapes against whole "
+          f"heads: {sums}")
+    return sums
+
+
+def fsdp_one_rank_check(train, card: str) -> dict:
+    """Phase 26 (d): ``run_sharded_step`` on a one-rank NCCL group (a (1, 1)
+    mesh: FSDP over ``data`` on the card, each shard the whole parameter),
+    on the dry run's BatchNorm MViT-tiny (MixUp) and SlowFast-tiny in f32
+    at FSDP_BATCH, against the unsharded step from the same weights: the
+    placements, each shard's and its momentum's numel, the loss within the
+    f32 logit bound and the state within DP_X3D_STATE_SHARE of phase 9's f32
+    bound (the synced BatchNorm's statistics, phase 25 (b)'s)."""
+    import copy
+
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from pytorchvideo_tpu_torch import parallel
+    from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
+    from pytorchvideo_tpu_torch.models.slowfast import create_slowfast
+    from pytorchvideo_tpu_torch.train.sharded import SHARDED_STEP_OPTIMIZER
+    from pytorchvideo_tpu_torch.transforms.mix import MixUp
+
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 3)
+    labels = torch.arange(FSDP_BATCH, device="cuda") % 10
+    cases = {
+        "mvit_bn": (lambda: create_multiscale_vision_transformers(**FSDP_MVIT_BN),
+                    torch.randn(FSDP_BATCH, 3, 4, 32, 32, device="cuda", generator=gen),
+                    MixUp(alpha=1.0, label_smoothing=0.1, num_classes=10)),
+        "slowfast": (lambda: create_slowfast(**FSDP_SLOWFAST),
+                     [torch.randn(FSDP_BATCH, 3, t, 32, 32, device="cuda", generator=gen)
+                      for t in (4, 16)], None),
+    }
+    report = {}
+    with one_rank_nccl_group():
+        mesh = parallel.make_mesh((-1, 1), ("data", "model"))
+        for name, (build, video, mix) in cases.items():
+            torch.manual_seed(TP_SEED)
+            model = build()
+            plain = copy.deepcopy(model)
+            result = train.run_sharded_step(model, video, labels, mix, mesh=mesh)
+            state = train.create_train_state(plain, train.construct_optimizer(
+                plain, train.OptimizerConfig(**SHARDED_STEP_OPTIMIZER)))
+            step = train.make_train_step(batch_transform=mix, clip_grad_norm=1.0)
+            torch.manual_seed(TP_SEED)
+            state, metrics = step(state, {"video": video, "label": labels},
+                                  torch.Generator().manual_seed(0))
+            loss = metrics["loss"].item()
+            assert abs(result.loss - loss) <= LOGIT_REL_TOL["float32"] * abs(loss), (
+                name, result.loss, loss)
+            shards = result.plan.fsdp
+            assert shards, f"phase 26 (d) {name}: no FSDP shard"
+            for n, p in model.named_parameters():
+                momentum = result.state.optimizer.state[p]["momentum_buffer"]
+                assert p.numel() == momentum.numel() == result.plan.full_shapes.get(
+                    n, p.shape).numel(), n
+                if n in shards:
+                    assert isinstance(result.plan.placements[n][0], Shard), n
+            err = tensors_close(f"phase 26 (d) {name} state", result.plan.full_state_dict(model),
+                                dict(plain.state_dict()), "float32", DP_X3D_STATE_SHARE)
+            report[name] = {"loss": result.loss, "unsharded_loss": loss,
+                            "fsdp_shards": len(shards), "state_max_abs_diff": err,
+                            "parameters": sum(1 for _ in model.parameters())}
+            print(f"phase 26 (d) run_sharded_step {name} f32 B{FSDP_BATCH} on a one-rank NCCL "
+                  f"(1, 1) mesh: {len(shards)} parameters FSDP-sharded over data (each shard "
+                  f"and its momentum the whole numel / 1), loss {result.loss!r} against the "
+                  f"unsharded step's {loss!r}, state max |diff| {err!r}")
+            del model, plain, result, state, step
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return report
+
+
+def tensor_parallel_slice(train, hub, pa, tp, fk, card: str) -> dict:
+    """Phase 26: (a, b) MViT-B 16x4 tensor-parallel over TP_RANKS processes
+    sharing the card against one process unsharded; (c) the kernels at the
+    local shapes; (d) FSDP and ``run_sharded_step`` on a one-rank NCCL
+    group; (e) the times, printed by each part. Each part's seconds
+    printed."""
+    import shutil
+
+    t_part = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 26 {part}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    ref = tp_references(hub, train)
+    lap("references")
+    directory = os.path.join(REPO, "build", f"phase26_{os.getpid()}")
+    os.makedirs(directory, exist_ok=True)
+    try:
+        ranks = run_tp_ranks(directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    lap(f"(a, b) {TP_RANKS} ranks")
+    report = {"path": tp_path_checks(ranks, ref, card)}
+    del ranks, ref
+    report["kernels"] = check_tp_local_kernels(pa, tp, fk)
+    lap("(c, e)")
+    report["fsdp"] = fsdp_one_rank_check(train, card)
+    lap("(d)")
+    return report
+
+
+def tensor_parallel_entries(entries: list, tensor: dict) -> None:
+    """Each MViT kernel's ``tensor_parallel`` entry on the kernels line: its
+    launches on the tp = TP_RANKS path (rank 0's (a) bf16 and fused bf16
+    forwards, (b) step and pool_first forward and backward), by route, its
+    errors and launches at the local shapes (c), its times there (e)."""
+    path = tensor["path"]["counts"]
+    readings = [path[k] for k in ("bfloat16", "fused bfloat16", "step", "pool_first")]
+    kernels = tensor["kernels"]
+    err_key = {"attention_nopad": "pooled_attention"}
+    for entry in entries:
+        names = TP_WRAPPERS.get(entry["name"])
+        if names is None:
+            continue
+        bases = {n.split(".")[0] for n in names}
+        key = err_key.get(entry["name"], entry["name"])
+        routes = {}
+        for reading in readings:
+            for base in bases:
+                for route, n in by_route(reading, base).items():
+                    routes[route] = routes.get(route, 0) + n
+        entry["tensor_parallel"] = {
+            "launches": sum(r[n] for r in readings for n in names),
+            "launches_by_route": routes,
+            "path": f"phase 26 (a, b): mvit_base_16x4 on a (1, {TP_RANKS}) (data, model) mesh, "
+                    f"rank 0: the bf16 and fused bf16 B{TP_BATCH} forwards, one bf16 B{TP_BATCH} "
+                    f"step, pool_first's bf16 B{TP_POOL_FIRST_BATCH} forward and backward",
+            "local_shapes_max_abs_err": kernels["errs"].get(key, (None,))[0],
+            "local_shapes_max_rel_err": kernels["errs"].get(key, (None, None))[1],
+            "local_shapes_launches": {k: n for k, n in kernels["launches"].items()
+                                      if k.split(".")[0] in bases},
+            **({"timing": "bf16, blocks 1-15, ms per B32 forward (#4, #6, #8's pool-LN) or B8 "
+                          "step (#5, #7) at the local shapes (local_ms) and at whole heads "
+                          "(whole_ms)", **kernels["timing"][key]}
+               if key in kernels["timing"] else {})}
+        assert entry["tensor_parallel"]["launches"] > 0, f"{entry['name']}: no launch under tp"
+
+
 def main() -> None:
     import torch
 
@@ -6382,9 +7049,15 @@ def main() -> None:
         print(f"phase 25 (the data-parallel layer): {time.perf_counter() - t_phase:.1f} s")
         print("data parallel report: " + json.dumps(parallel, default=str))
         return
+    if sys.argv[1:] == ["--phase", "26"]:  # a development run: phase 26 alone
+        t_phase = time.perf_counter()
+        tensor = tensor_parallel_slice(train, hub, pa, tp, fk, card)
+        print(f"phase 26 (tensor parallelism and FSDP): {time.perf_counter() - t_phase:.1f} s")
+        print("tensor parallel report: " + json.dumps(tensor, default=str))
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, --phase 23, "
-                 f"--phase 24 or --phase 25")
+                 f"--phase 24, --phase 25 or --phase 26")
 
     kernel_report = check_kernel(dw)
 
@@ -6477,6 +7150,10 @@ def main() -> None:
     parallel = data_parallel_slice(train, hub, pa, card)
     print(f"phase 25 (the data-parallel layer): {time.perf_counter() - t_phase:.1f} s")
     print("data parallel report: " + json.dumps(parallel, default=str))
+    t_phase = time.perf_counter()
+    tensor = tensor_parallel_slice(train, hub, pa, tp, fk, card)
+    print(f"phase 26 (tensor parallelism and FSDP): {time.perf_counter() - t_phase:.1f} s")
+    print("tensor parallel report: " + json.dumps(tensor, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -6843,6 +7520,9 @@ def main() -> None:
                 **({"timing": f"bf16, the {SP_RANKS} shards' calls summed (ms) against one "
                               f"call over all rows (one_call_ms)", **sequence["timing"]}
                    if entry["name"] == "pooled_attention_packed" else {})}
+    # Phase 26: each MViT kernel on the tensor-parallel path and at its
+    # local shapes.
+    tensor_parallel_entries(entries, tensor)
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

@@ -39,9 +39,28 @@ head-packed, :255-260 per-head), and no norm after the pool; the block's
 ``norm1`` and ``norm2`` normalise the cls token and the grid in two calls, as
 the JAX package does. The fused kv-pool is never taken with BN.
 
+A pool conv with ``depthwise_conv=False`` holds a (c, c, kt, kh, kw) weight
+per head-channel group, shared across heads, as the JAX package declares
+it (attention.py:166-168): the head-packed grid is convolved with the weight
+tiled over its heads and one group per head (:188-197), the per-head grids
+of ``pool_first`` with one group (:260-270). No TPU kernel computes it, so
+``F.conv3d`` (cuDNN on the card) serves it on both devices, and the fused
+kv-pool never takes it.
+
+Tensor parallelism (parallel/tensor.py ``shard_model_``): an attention
+whose q, k and v (or fused qkv) are column-parallel and whose ``proj`` is
+row-parallel over a model group, and an ``Mlp`` whose ``fc1`` and ``fc2``
+are, runs this rank's part: each head count and width comes from the local
+weights, so every kernel runs at the local head count (the JAX package's
+``ops/spmd.py`` derives its statics from local shapes too). The layer's
+input enters the region through ``enter_region`` (the identity, its
+gradient summed over the group), the column-parallel biases are taken at
+this rank's rows, and the row-parallel products are summed over the group
+by one all-reduce for the (cls, grid) pair before the bias. Modules outside
+a model group run as before.
+
 Modules keep upstream's ``state_dict`` keys (``attn.q``, ``attn.pool_q``,
-``attn.norm_q``, ``mlp.fc1``, ...). Not ported: the non-depthwise pool conv
-and ``PVT_FUSED_QKV``.
+``attn.norm_q``, ``mlp.fc1``, ...). Not ported: ``PVT_FUSED_QKV``.
 """
 
 from __future__ import annotations
@@ -55,7 +74,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorchvideo_tpu_torch.layers.common import triple
-from pytorchvideo_tpu_torch.layers.norms import LayerNorm
+from pytorchvideo_tpu_torch.layers.norms import LayerNorm, _SharedGroup
 from pytorchvideo_tpu_torch.layers.stochastic import drop_path_pair
 from pytorchvideo_tpu_torch.ops.fused_kvpool_attention import fused_kvpool_attention, fusable
 from pytorchvideo_tpu_torch.ops.pooled_attention import pooled_attention, pooled_attention_packed
@@ -64,6 +83,7 @@ from pytorchvideo_tpu_torch.ops.token_pool import (
     depthwise_token_pool,
     max_token_pool,
 )
+from pytorchvideo_tpu_torch.parallel.collectives import enter_region, reduce_from_region
 
 Size3 = Tuple[int, int, int]
 Pair = Tuple[Optional[torch.Tensor], torch.Tensor]
@@ -80,8 +100,52 @@ def _pair_map(fn: Callable, x: Pair) -> Pair:
     return (None if cls_x is None else fn(cls_x), fn(grid_x))
 
 
-class Mlp(nn.Module):
-    """fc1 -> act -> dropout -> fc2 -> dropout."""
+class _ModelParallel:
+    """The model group of a tensor-parallel layer (None: the whole layer on
+    this rank; held through ``copy.deepcopy``, so a copy runs over the same
+    group), this rank's index in it and its size; set by
+    parallel/tensor.py ``shard_model_``."""
+
+    _model_group = None
+    model_index = 0
+    model_size = 1
+
+    @property
+    def model_group(self):
+        return None if self._model_group is None else self._model_group.group
+
+    @model_group.setter
+    def model_group(self, group) -> None:
+        self._model_group = _SharedGroup(group)
+
+    def _enter(self, x: Pair) -> Pair:
+        return x if self.model_group is None else enter_region(x, self.model_group)
+
+    def _column(self, linear: nn.Linear, x: torch.Tensor, parts: int = 1) -> torch.Tensor:
+        """A column-parallel ``linear`` of ``x``: the local weight's rows and
+        this rank's rows of the (replicated) bias, taken in each of its
+        ``parts`` (3 for a fused qkv)."""
+        if self.model_group is None:
+            return linear(x)
+        bias = linear.bias
+        if bias is not None:
+            bias = bias.view(parts, self.model_size, -1)[:, self.model_index].reshape(-1)
+        return F.linear(x, linear.weight, bias)
+
+    def _row(self, linear: nn.Linear, x: Pair) -> Pair:
+        """A row-parallel ``linear`` of the pair: the local products summed
+        over the group in one all-reduce, then the bias."""
+        if self.model_group is None:
+            return _pair_map(linear, x)
+        parts = reduce_from_region(_pair_map(lambda t: F.linear(t, linear.weight), x),
+                                   self.model_group)
+        return parts if linear.bias is None else _pair_map(lambda t: t + linear.bias, parts)
+
+
+class Mlp(_ModelParallel, nn.Module):
+    """fc1 -> act -> dropout -> fc2 -> dropout, of a tensor or of a (cls,
+    grid) pair; ``fc1`` column-parallel and ``fc2`` row-parallel over a
+    model group where parallel/tensor.py placed them so."""
 
     def __init__(
         self,
@@ -98,20 +162,35 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_features, out_features, bias=bias_on)
         self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0.0 else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.act(self.fc1(x))
-        if self.dropout is not None:
-            x = self.dropout(x)
-        x = self.fc2(x)
-        if self.dropout is not None:
-            x = self.dropout(x)
-        return x
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dropout is None else self.dropout(x)
+
+    def forward(self, x):
+        pair = isinstance(x, tuple)
+        x = self._enter(x if pair else (None, x))
+        x = _pair_map(lambda t: self._drop(self.act(self._column(self.fc1, t))), x)
+        x = _pair_map(self._drop, self._row(self.fc2, x))
+        return x if pair else x[1]
+
+
+def dense_token_pool(grid: torch.Tensor, weight: torch.Tensor, stride) -> torch.Tensor:
+    """The non-depthwise pool conv of a channels-last (N, T, H, W, G*c) grid:
+    each of its G head groups of c channels convolved with the same (c, c,
+    kt, kh, kw) ``weight`` (``F.conv3d`` with the weight tiled G times and G
+    groups; padding k // 2), channels-last out."""
+    c = weight.shape[0]
+    groups = grid.shape[-1] // c
+    w = weight.to(grid.dtype).repeat(groups, 1, 1, 1, 1)
+    out = F.conv3d(grid.permute(0, 4, 1, 2, 3), w, stride=stride,
+                   padding=[k // 2 for k in weight.shape[2:]], groups=groups)
+    return out.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class TokenPool(nn.Module):
-    """Pools tokens through their (T, H, W) geometry: depthwise conv (the
-    ``weight`` (c, 1, kt, kh, kw), upstream's pool ``Conv3d``), max or avg,
-    padding k // 2. ``forward(x, thw, norm)`` returns (pooled, thw');
+    """Pools tokens through their (T, H, W) geometry: a conv (the ``weight``
+    (c, 1, kt, kh, kw) of a depthwise conv, upstream's pool ``Conv3d``, or
+    with ``depthwise=False`` (c, c, kt, kh, kw), shared across heads), max or
+    avg, padding k // 2. ``forward(x, thw, norm)`` returns (pooled, thw');
     ``norm`` (a LayerNorm over the head width c) follows the pool, or with
     ``norm_before`` (a BatchNorm, or what folded it) precedes it, followed
     by GELU, on the grid only.
@@ -131,6 +210,7 @@ class TokenPool(nn.Module):
         channels: Optional[int] = None,
         has_cls_embed: bool = True,
         norm_before: bool = False,
+        depthwise: bool = True,
     ):
         super().__init__()
         if mode not in ("conv", "max", "avg"):
@@ -140,14 +220,18 @@ class TokenPool(nn.Module):
         self.stride = triple(stride)
         self.has_cls_embed = has_cls_embed
         self.norm_before = norm_before
+        self.depthwise = depthwise
         if mode == "conv":
-            self.weight = nn.Parameter(torch.empty(channels, 1, *self.kernel))
+            self.weight = nn.Parameter(
+                torch.empty(channels, 1 if depthwise else channels, *self.kernel))
             # nn.Conv3d's default initialisation.
             nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
 
     def _pool(self, grid: torch.Tensor) -> torch.Tensor:
         grid = grid.contiguous()
         if self.mode == "conv":
+            if not self.depthwise:
+                return dense_token_pool(grid, self.weight, self.stride)
             return depthwise_token_pool(grid, self.weight, self.stride)
         if self.mode == "max":
             return max_token_pool(grid, self.kernel, self.stride)
@@ -215,7 +299,7 @@ def _maybe_kernel(kernel, stride) -> Optional[Size3]:
     return triple(kernel)
 
 
-class MultiScaleAttention(nn.Module):
+class MultiScaleAttention(_ModelParallel, nn.Module):
     """Pooled multi-head attention of ``dim`` -> ``dim_out`` channels.
 
     The default path keeps q, k and v head-packed (B, L, H*c) from the
@@ -224,7 +308,14 @@ class MultiScaleAttention(nn.Module):
     (B, H, L, c). ``fused_kvpool`` takes the default path's kv pools, norms
     and attention through the fused op wherever ``fusable`` allows (see the
     module docstring). ``forward((cls, grid), thw)`` returns ((cls, grid),
-    thw')."""
+    thw').
+
+    Over a model group (parallel/tensor.py) the rank runs its
+    ``num_heads / size`` heads: H = the local q (or qkv) weight's rows /
+    ``head_dim``. A fused ``qkv``'s local weight holds this rank's q rows,
+    then its k rows, then its v rows (rank r's heads r*H..(r+1)*H-1 of each:
+    the rows of the full weight viewed as (3, size, H*c) at [:, r]), so that
+    its three chunks are the local q, k and v."""
 
     def __init__(
         self,
@@ -250,8 +341,6 @@ class MultiScaleAttention(nn.Module):
         super().__init__()
         if pool_mode not in ("conv", "avg", "max"):
             raise ValueError(f"pool_mode must be conv, avg or max, got {pool_mode!r}")
-        if not depthwise_conv:
-            raise NotImplementedError("only the depthwise pool conv is ported")
         if fused_kvpool and pool_first:
             raise ValueError("the fused kv-pool runs on the head-packed path, not with pool_first")
         self.num_heads = num_heads
@@ -284,7 +373,8 @@ class MultiScaleAttention(nn.Module):
                 if pool_mode == "conv":
                     norm = norm_layer(pool_c)
                 pool = TokenPool(pool_mode, kernel, stride, pool_c, has_cls_embed,
-                                 norm_before=isinstance(norm, nn.modules.batchnorm._BatchNorm))
+                                 norm_before=isinstance(norm, nn.modules.batchnorm._BatchNorm),
+                                 depthwise=depthwise_conv)
             setattr(self, f"pool_{name}", pool)
             setattr(self, f"norm_{name}", norm)
 
@@ -294,22 +384,31 @@ class MultiScaleAttention(nn.Module):
             return x, thw
         return pool(x, thw, getattr(self, f"norm_{name}"))
 
-    def _out(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x)
-        return x if self.dropout is None else self.dropout(x)
+    def _out(self, x: Pair) -> Pair:
+        x = self._row(self.proj, x)
+        return x if self.dropout is None else _pair_map(self.dropout, x)
+
+    def _local_heads(self) -> int:
+        """The heads this rank runs (all of them outside a model group): the
+        local q (or qkv) weight's rows over the head width."""
+        if self.separate_qkv:
+            return self.q.weight.shape[0] // self.head_dim
+        return self.qkv.weight.shape[0] // (3 * self.head_dim)
 
     def forward(self, x: Pair, thw: Size3) -> Tuple[Pair, Size3]:
+        x = self._enter(x)
         if self.pool_first:
             return self._forward_pool_first(x, thw)
         if self.separate_qkv:
-            q, k, v = (_pair_map(proj, x) for proj in (self.q, self.k, self.v))
+            q, k, v = (_pair_map(lambda t, p=proj: self._column(p, t), x)
+                       for proj in (self.q, self.k, self.v))
         else:
-            qkv = _pair_map(self.qkv, x)
+            qkv = _pair_map(lambda t: self._column(self.qkv, t, 3), x)
             q, k, v = (_pair_map(lambda t, i=i: t.chunk(3, dim=-1)[i].contiguous(), qkv)
                        for i in range(3))
         (cls_q, grid_q), q_thw = self._pool("q", q, thw)
         if self._fuses(thw):
-            return _pair_map(self._out, self._fused_attention((cls_q, grid_q), k, v, thw)), q_thw
+            return self._out(self._fused_attention((cls_q, grid_q), k, v, thw)), q_thw
         (cls_k, grid_k), _ = self._pool("k", k, thw)
         (cls_v, grid_v), _ = self._pool("v", v, thw)
         # Every query attends to the cls key too: it goes in front, at the
@@ -317,21 +416,24 @@ class MultiScaleAttention(nn.Module):
         k_full = grid_k if cls_k is None else torch.cat([cls_k, grid_k], dim=1)
         v_full = grid_v if cls_v is None else torch.cat([cls_v, grid_v], dim=1)
 
+        heads = self._local_heads()
+
         def attend(queries):
             return pooled_attention_packed(
-                queries, k_full, v_full, self.num_heads, self.scale, self.residual_pool
+                queries, k_full, v_full, heads, self.scale, self.residual_pool
             )
 
-        return _pair_map(lambda t: self._out(attend(t)), (cls_q, grid_q)), q_thw
+        return self._out(_pair_map(attend, (cls_q, grid_q))), q_thw
 
     def _fuses(self, thw: Size3) -> bool:
-        """The fused path's gate (JAX attention.py:592-621): the flag, a conv
-        kv pool with a LayerNorm after it, and a geometry ``fusable`` takes."""
+        """The fused path's gate (JAX attention.py:592-621): the flag, a
+        depthwise conv kv pool with a LayerNorm after it, and a geometry
+        ``fusable`` takes at the local width."""
         pool = self.pool_k
         return (self.fused_kvpool and pool is not None and pool.mode == "conv"
-                and isinstance(self.norm_k, nn.LayerNorm)
-                and fusable(tuple(thw), self.proj.in_features, pool.kernel, pool.stride,
-                            self.head_dim))
+                and pool.depthwise and isinstance(self.norm_k, nn.LayerNorm)
+                and fusable(tuple(thw), self._local_heads() * self.head_dim, pool.kernel,
+                            pool.stride, self.head_dim))
 
     def _fused_attention(self, q: Pair, k: Pair, v: Pair, thw: Size3) -> Pair:
         """The kv pools, their LayerNorms and the attention of both queries in
@@ -355,7 +457,7 @@ class MultiScaleAttention(nn.Module):
         outs = fused_kvpool_attention(
             grid_q, grid_k, grid_v, taps(self.pool_k), taps(self.pool_v), ln(self.norm_k),
             ln(self.norm_v), norm_cls(cls_k, self.norm_k), norm_cls(cls_v, self.norm_v),
-            tuple(thw), self.num_heads, self.scale, self.residual_pool, self.pool_k.kernel,
+            tuple(thw), self._local_heads(), self.scale, self.residual_pool, self.pool_k.kernel,
             self.pool_k.stride, self.norm_k.eps, cls_q=cls_q,
         )
         return (None if cls_q is None else outs[3], outs[0])
@@ -368,9 +470,10 @@ class MultiScaleAttention(nn.Module):
         heads = x.reshape(B, L, N, C // N).transpose(1, 2)
 
         def project(t, proj):
+            # Every head's pooled tokens to this rank's heads.
             merged = t.transpose(1, 2).reshape(B, t.shape[2], -1)
-            out = proj(merged)
-            return out.reshape(B, t.shape[2], N, -1).transpose(1, 2).contiguous()
+            out = self._column(proj, merged)
+            return out.reshape(B, t.shape[2], -1, self.head_dim).transpose(1, 2).contiguous()
 
         q, q_thw = self._pool("q", heads, thw)
         k, _ = self._pool("k", heads, thw)
@@ -379,7 +482,7 @@ class MultiScaleAttention(nn.Module):
             project(q, self.q), project(k, self.k), project(v, self.v), self.scale,
             self.residual_pool,
         )
-        out = self._out(out.transpose(1, 2).reshape(B, out.shape[2], -1))
+        _, out = self._out((None, out.transpose(1, 2).reshape(B, out.shape[2], -1)))
         if cls_x is None:
             return (None, out), q_thw
         return (out[:, :1], out[:, 1:]), q_thw
@@ -470,7 +573,7 @@ class MultiScaleBlock(nn.Module):
             x, _ = self.pool_skip(x, thw)
         x = _add(x, self._drop_path(x_block))
         x_norm = _pair_map(self.norm2, x)
-        x_mlp = _pair_map(self.mlp, x_norm)
+        x_mlp = self.mlp(x_norm)
         if not self.dim_mul_in_att and self.proj is not None:
             x = _pair_map(self.proj, x_norm)
         return _add(x, self._drop_path(x_mlp)), thw_new

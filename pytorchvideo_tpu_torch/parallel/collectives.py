@@ -7,14 +7,25 @@ cat_all_gather in layers/distributed.py:25-39).
 ``torch.autograd.Function`` whose backward is the transpose of its
 forward. ``group`` is a ``torch.distributed`` process group (None: the
 default one), the JAX package's ``axis_name``.
+
+The tensor-parallel region of an attention or MLP layer (parallel/tensor.py)
+has two more: :func:`enter_region` (Megatron's ``f``: the identity forward,
+an all-reduce of the gradients backward) and :func:`reduce_from_region`
+(``g``: an all-reduce forward, the identity backward). The gradient of a
+replicated activation after the region is the same on every rank of the
+group, so the transpose of the exit's sum is the identity there, where
+GSPMD's partitioner inserts the same pair. Each takes several tensors and
+runs one all-reduce for all of them, in float32 (one rounding of a bf16
+sum, and a type every backend carries).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 
 class _AllGather(torch.autograd.Function):
@@ -83,3 +94,53 @@ def contrast_targets(z1: torch.Tensor, z2: torch.Tensor,
     if group is None:
         return z2, targets
     return cat_all_gather(z2, group), targets + dist.get_rank(group) * n
+
+
+def _all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> list:
+    """The sums over ``group`` of ``tensors`` (of one dtype), from one
+    all-reduce of them flattened together in float32."""
+    flat = _flatten_dense_tensors([t.contiguous() for t in tensors]).float()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return [t.to(tensors[0].dtype)
+            for t in _unflatten_dense_tensors(flat, [t.float() for t in tensors])]
+
+
+class _EnterRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_all_reduce_sum(grads, ctx.group))
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        return tuple(_all_reduce_sum(xs, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
+def _none_safe(fn, group, xs):
+    present = [x for x in xs if x is not None]
+    outs = iter(fn(group, *present)) if present else iter(())
+    return tuple(None if x is None else next(outs) for x in xs)
+
+
+def enter_region(xs: Sequence[Optional[torch.Tensor]], group) -> tuple:
+    """``xs`` as they are (None stays None); backward, the sum over
+    ``group`` of their gradients, in one all-reduce: what reaches a
+    replicated input from the ranks' parts of the region."""
+    return _none_safe(_EnterRegion.apply, group, xs)
+
+
+def reduce_from_region(xs: Sequence[Optional[torch.Tensor]], group) -> tuple:
+    """The sums over ``group`` of ``xs`` (the ranks' partial outputs of a
+    row-parallel layer), in one all-reduce; backward, the gradients as they
+    are."""
+    return _none_safe(_ReduceFromRegion.apply, group, xs)

@@ -16,6 +16,10 @@ Two kv layouts, as in the JAX package:
 - ``kv_sharded=True``: k and v are token-sharded like the queries (the
   all-L-sharded training layout); each rank all-gathers the (pooled,
   small) kv rows with grad before its attention.
+
+It composes with data parallelism as the JAX function's ``batch_axis``
+does: over a ``(data, model)`` mesh a rank holds its batch rows of the data
+axis and its token rows of the model axis.
 """
 
 from __future__ import annotations
@@ -62,10 +66,20 @@ def sequence_parallel_attention(
     *,
     group: Optional[dist.ProcessGroup] = None,
     kv_sharded: bool = False,
+    mesh=None,
+    axis: str = "model",
+    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Packed pooled attention with the token axis split over the ranks of
     ``group`` (None: the default group). Returns this rank's rows of the
     output, (B, Lq / world, H*c), rank r holding rows r * Lq / world on.
+
+    ``mesh`` (a ``DeviceMesh``, the JAX function's arguments): the token
+    axis split over the mesh axis ``axis`` (in place of ``group``) and,
+    with ``batch_axis``, the batch over that one too: this rank then takes
+    its contiguous share of the batch rows (the batch must divide by the
+    axis's size, else ValueError) and returns (B / batch ranks, Lq /
+    world, H*c).
 
     q, k, v: the (B, L, H*c) tensors the JAX function takes (global
     arrays there, the same tensors on every rank here). This rank attends
@@ -76,6 +90,15 @@ def sequence_parallel_attention(
     body gathers its token-sharded blocks, so each rank's gradient of k and
     v lands on its own rows, summed over the ranks' losses. The attention
     is :func:`sequence_parallel_body`."""
+    if mesh is not None:
+        group = mesh.get_group(axis)
+        if batch_axis is not None:
+            parts, index = mesh.size(mesh.mesh_dim_names.index(batch_axis)), \
+                mesh.get_local_rank(batch_axis)
+            if q.shape[0] % parts:
+                raise ValueError(f"batch B={q.shape[0]} must divide into the {parts} ranks of "
+                                 f"the '{batch_axis}' mesh axis")
+            q, k, v = (t.chunk(parts)[index] for t in (q, k, v))
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     q_shard = sequence_shard(q, world, rank)
     if kv_sharded:

@@ -5,7 +5,8 @@ with the LR on the device, LR schedules, precise BN, metrics, the trainer
 losses, configs and presets, and the classification train app with its
 test and predict passes and the SSL backbone graft, and the datamodule
 that feeds it from videos; self-supervised pretraining (BYOL, SimCLR,
-MoCo v2) with LARS, the SSL transforms and ``SSLTrainApp``. It trains the
+MoCo v2) with LARS, the SSL transforms and ``SSLTrainApp``; the sharded
+step of tensor parallelism and FSDP (``run_sharded_step``). It trains the
 BatchNorm models (X3D, Slow, SlowFast and the other ResNet builders; the
 recipes ``classification_x3d_xs``, ``classification_slow_8x8_r50`` and
 ``classification_slowfast_8x8_r50``) and MViT (``classification_mvit_16x4``);
@@ -52,6 +53,7 @@ from pytorchvideo_tpu_torch.train.optimizer import (  # noqa: F401
 )
 from pytorchvideo_tpu_torch.train.precise_batchnorm import PreciseBn, update_bn_stats  # noqa: F401
 from pytorchvideo_tpu_torch.train.presets import PRESETS, get_preset  # noqa: F401
+from pytorchvideo_tpu_torch.train.sharded import ShardedStep, run_sharded_step  # noqa: F401
 from pytorchvideo_tpu_torch.train.ssl import (  # noqa: F401
     KnnMemory,
     MoCoV2,

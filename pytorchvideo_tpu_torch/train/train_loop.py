@@ -51,6 +51,18 @@ clip, whose norm is then the global batch's. It runs on the step's own
 stream, so a CUDA graph of the update holds it, as the jitted step holds
 its ``psum``. BatchNorm statistics are the group's where the model's norms
 carry the group (layers/batch_norm.py ``set_sync_group``).
+
+A model on placements (``sharding``, the :class:`ShardPlan` of
+parallel/tensor.py ``shard_model_``: tensor-parallel attention and MLP over
+a model group, FSDP shards over the data axis) steps as the JAX step jitted
+over its ``(data, model)`` mesh: the forward runs on the plan's compute
+parameters (each FSDP shard gathered with grad, so its gradient arrives
+reduce-scattered), the region's replicated parameters have their gradients
+summed over the model group, every gradient and the metrics are averaged
+over the data axis, and the clip takes the global norm, each split
+parameter's squares summed over the ranks that hold its shards and each
+replicated one counted once. The optimizer updates the local shards, so
+its state is shard-sized.
 """
 
 from __future__ import annotations
@@ -199,15 +211,19 @@ def cast_parameters(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Ten
 def forward_backward(model: nn.Module, video: Video, labels: torch.Tensor,
                      loss_fn: Callable = soft_target_cross_entropy,
                      compute_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0,
-                     remat_policy: Optional[str] = None):
+                     remat_policy: Optional[str] = None, sharding=None):
     """One forward and backward of ``loss_fn(f32 logits, labels)``; the
     gradients (times ``grad_scale``) accumulate into the parameters' ``.grad``.
-    ``remat_policy`` checkpoints the forward (see the module docstring).
+    ``remat_policy`` checkpoints the forward (see the module docstring);
+    ``sharding`` (a ``ShardPlan``) runs it on the plan's compute parameters.
     Returns the detached loss and logits."""
     policy = checkpoint_policy(remat_policy)
     params = None
-    if compute_dtype is not None:
+    if sharding is not None:
+        params = sharding.compute_parameters(model, compute_dtype)
+    elif compute_dtype is not None:
         params = cast_parameters(model, compute_dtype)
+    if compute_dtype is not None:
         video = map_video(lambda v: v.to(compute_dtype), video)
 
     def forward(params, video):
@@ -232,10 +248,13 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Scales ``grads`` in place by min(1, max_norm / (norm + 1e-6)) (JAX
-    train_loop.py:172-175); returns the norm before clipping."""
-    norm = global_norm(grads)
+    train_loop.py:172-175), ``norm`` their :func:`global_norm` unless given
+    (a sharded model's, whose shards are not all here); returns it."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(list(grads), scale)
     return norm
@@ -253,7 +272,7 @@ class TrainStep:
     def __init__(self, loss_fn: Callable, batch_transform: Optional[Callable],
                  clip_grad_norm: Optional[float], input_key: str, label_key: str,
                  compute_dtype: Optional[torch.dtype], remat_policy: Optional[str],
-                 grad_accum_steps: int, process_group=None):
+                 grad_accum_steps: int, process_group=None, sharding=None):
         checkpoint_policy(remat_policy)  # refuses an unknown name here
         if grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
@@ -263,6 +282,7 @@ class TrainStep:
         self.compute_dtype, self.remat_policy = compute_dtype, remat_policy
         self.grad_accum_steps = grad_accum_steps
         self.process_group = process_group
+        self.sharding = sharding
 
     def signature(self, batch: Dict[str, Any]) -> tuple:
         """What one CUDA graph of this step is captured for: the clip's (or
@@ -305,7 +325,7 @@ class TrainStep:
         loss_sum = accuracy_sum = 0.0
         for v, y in zip(split_video(video, chunks), labels.chunk(chunks)):
             loss, logits = forward_backward(model, v, y, self.loss_fn, self.compute_dtype,
-                                            1.0 / chunks, self.remat_policy)
+                                            1.0 / chunks, self.remat_policy, self.sharding)
             loss_sum = loss_sum + loss
             if hard_labels:
                 accuracy_sum = accuracy_sum + (logits.argmax(-1) == y).float().mean()
@@ -315,13 +335,19 @@ class TrainStep:
         metrics = {"loss": loss_sum / chunks}
         if hard_labels:
             metrics["accuracy"] = accuracy_sum / chunks
-        if self.process_group is not None:
+        if self.sharding is not None:
+            scalars = torch.stack(list(metrics.values())).to(params[0].grad.dtype)
+            self.sharding.reduce_gradients_(model, scalars)
+            metrics = dict(zip(metrics, scalars.unbind()))
+        elif self.process_group is not None:
             grads = [p.grad for p in params]
             scalars = torch.stack(list(metrics.values())).to(grads[0].dtype)
             average_over_group_([*grads, scalars], self.process_group)
             metrics = dict(zip(metrics, scalars.unbind()))
         if self.clip_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
+            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm,
+                                 None if self.sharding is None else
+                                 self.sharding.global_norm(model))
         state.optimizer.step()
         return metrics
 
@@ -344,6 +370,7 @@ def make_train_step(
     remat_policy: Optional[str] = None,
     grad_accum_steps: int = 1,
     process_group=None,
+    sharding=None,
 ) -> TrainStep:
     """Build the eager step ``step(state, batch, generator=None) -> (state,
     metrics)`` (a :class:`TrainStep`).
@@ -360,11 +387,13 @@ def make_train_step(
     ``process_group``: a ``torch.distributed`` group over which the
     gradients and metrics are averaged (see the module docstring); each
     rank passes its rows of the global batch, every rank the same number.
+    ``sharding``: the model's ``ShardPlan`` (parallel/tensor.py), in place
+    of ``process_group``; each rank passes its rows over the data axis.
     Metrics: "loss" (the microbatches' mean) and, on hard labels, top-1
     "accuracy", both as 0-d tensors on the device (reading them waits for the
     step)."""
     return TrainStep(loss_fn, batch_transform, clip_grad_norm, input_key, label_key,
-                     compute_dtype, remat_policy, grad_accum_steps, process_group)
+                     compute_dtype, remat_policy, grad_accum_steps, process_group, sharding)
 
 
 def make_eval_step(input_key: str = "video"):

@@ -26,9 +26,10 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "accelerate.int8", "models.hub.efficient_x3d", "utils", "utils.flops",
                "utils.profiling", "models.audio_visual_slowfast", "models.masked_multistream",
                "parallel", "parallel.distributed", "parallel.collectives", "parallel.mesh",
-               "parallel.sequence", "layers.batch_norm")
+               "parallel.sequence", "layers.batch_norm", "parallel.sharding", "parallel.tensor",
+               "train.sharded")
 # Names the JAX package's packages export, which the port's export under the
-# same names (its sharding.py's tensor parallelism and FSDP wait).
+# same names.
 JAX_EXPORTS = {
     "layers": ("NaiveSyncBatchNorm1d", "NaiveSyncBatchNorm2d", "NaiveSyncBatchNorm3d",
                "BatchNorm3d", "Identity", "scaled_dot_product_attention"),
@@ -36,10 +37,13 @@ JAX_EXPORTS = {
             "max_token_pool", "avg_token_pool"),
     "train": ("create_train_state", "get_epoch_lr"),
     "parallel": ("make_mesh", "batch_sharding", "replicated", "shard_batch",
-                 "all_gather_with_grad", "cat_all_gather", "sequence_parallel_attention"),
+                 "all_gather_with_grad", "cat_all_gather", "sequence_parallel_attention",
+                 "infer_param_shardings", "optimizer_state_shardings"),
     "parallel.distributed": ("get_world_size", "get_local_size", "get_rank",
                              "init_distributed_training", "local_sync_groups"),
 }
+# Rule tables both export: one rule of the port's for each of the JAX package's.
+JAX_TABLES = {"parallel": ("MEGATRON_ATTENTION_RULES",)}
 
 
 def test_every_port_module_imports_without_jax_or_a_decoder():
@@ -71,3 +75,8 @@ def test_the_jax_package_exports_are_the_port_s_too():
         for name in names:
             assert hasattr(jax_module, name), f"pytorchvideo_tpu.{module}.{name}"
             assert callable(getattr(port, name, None)), f"pytorchvideo_tpu_torch.{module}.{name}"
+    for module, names in JAX_TABLES.items():
+        jax_module = importlib.import_module(f"pytorchvideo_tpu.{module}")
+        port = importlib.import_module(f"pytorchvideo_tpu_torch.{module}")
+        for name in names:
+            assert len(getattr(port, name)) == len(getattr(jax_module, name)), name

@@ -1,4 +1,5 @@
-"""The ranks of the data-parallel tests (tests/test_torch_parallel*.py): each
+"""The ranks of the parallel tests (tests/test_torch_parallel*.py,
+tests/test_torch_tensor_parallel.py): each
 function here runs in one of the gloo processes that
 ``torch.multiprocessing.spawn`` starts, imports the port only (no jax), runs
 its checks on inputs the test wrote with ``torch.save`` and writes what it
@@ -311,4 +312,111 @@ def app_run(inputs):
     return out
 
 
-TASKS = {"primitives": primitives, "training": training}
+# --- tensor parallelism, FSDP and sequence parallelism on a (2, 2) mesh ------
+
+def _mvit(config, state_dict):
+    from pytorchvideo_tpu_torch.models import create_multiscale_vision_transformers
+
+    model = create_multiscale_vision_transformers(**config, device="cpu")
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+def _shards(model, plan):
+    """{name: (local numel, full numel, momentum numel or None)} of every
+    split parameter."""
+    return {n: (p.numel(), plan.full_shapes[n].numel(), None)
+            for n, p in model.named_parameters() if n in plan.full_shapes}
+
+
+def _momenta(model, optimizer, shards):
+    for n, p in model.named_parameters():
+        if n in shards:
+            buf = optimizer.state.get(p, {}).get("momentum_buffer")
+            shards[n] = (*shards[n][:2], None if buf is None else buf.numel())
+    return shards
+
+
+def _mesh_step(model, case, mesh):
+    """One step of ``case`` (rules, FSDP, optimizer, clip) over ``mesh`` on
+    this rank's rows: (loss, the full state, the shards' numels)."""
+    from pytorchvideo_tpu_torch.parallel import infer_param_shardings, shard_batch, shard_model_
+    from pytorchvideo_tpu_torch.train import (
+        OptimizerConfig,
+        construct_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    placements = infer_param_shardings(model, mesh, case["rules"], case["fsdp_axis"], 256)
+    plan = shard_model_(model, placements, mesh)
+    state = create_train_state(model, construct_optimizer(model, OptimizerConfig(**case["optim"])))
+    step = make_train_step(clip_grad_norm=case["clip"], sharding=plan)
+    batch = shard_batch({"video": case["video"], "label": case["label"]}, mesh)
+    state, metrics = step(state, batch)
+    return (metrics["loss"].item(), plan.full_state_dict(model),
+            _momenta(model, state.optimizer, _shards(model, plan)))
+
+
+def tensor_parallel(rank, world, inputs):
+    from pytorchvideo_tpu_torch.models.slowfast import create_slowfast
+    from pytorchvideo_tpu_torch.models.x3d import create_x3d
+    from pytorchvideo_tpu_torch.parallel import (
+        MEGATRON_ATTENTION_RULES,
+        infer_param_shardings,
+        make_mesh,
+        sequence_parallel_attention,
+        shard_batch,
+        shard_model_,
+    )
+    from pytorchvideo_tpu_torch.train import run_sharded_step
+    from pytorchvideo_tpu_torch.transforms.mix import MixUp
+
+    _patch_mix(inputs)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {"coords": (mesh.get_local_rank("data"), mesh.get_local_rank("model"))}
+    forwards = {}
+    for name, case in inputs["forward_cases"].items():
+        model = _mvit(case["config"], case["state_dict"]).eval()
+        placements = infer_param_shardings(model, mesh, MEGATRON_ATTENTION_RULES)
+        plan = shard_model_(model, placements, mesh)
+        with torch.no_grad():
+            forwards[name] = (plan.forward(model, shard_batch(inputs["forward_x"], mesh)),
+                              len(plan.tensor_parallel), sorted(plan.region))
+    out["forward"] = forwards
+
+    steps = {}
+    for name, case in inputs["step_cases"].items():
+        build = _mvit if "spatial_size" in case["config"] else (
+            lambda config, sd: _loaded(create_x3d(**config, device="cpu"), sd))
+        model = build(case["config"], case["state_dict"]).train()
+        steps[name] = _mesh_step(model, case, mesh)
+    out["steps"] = steps
+
+    sharded = {}
+    for name, case in inputs["sharded_cases"].items():
+        if name == "slowfast":
+            model = _loaded(create_slowfast(**case["config"], device="cpu"), case["state_dict"])
+            video = list(case["video"])
+        else:
+            model = _mvit(case["config"], case["state_dict"])
+            video = case["video"]
+        mix = MixUp(**case["mix"]) if case["mix"] else None
+        result = run_sharded_step(model.train(), video, case["label"], mix, mesh=mesh)
+        sharded[name] = (result.loss, result.plan.full_state_dict(model),
+                         _momenta(model, result.state.optimizer, _shards(model, result.plan)),
+                         {n: [str(p) for p in pl] for n, pl in result.plan.placements.items()})
+    out["sharded"] = sharded
+
+    q, k, v, heads, scale = inputs["sp_dp"]
+    out["sp_dp"] = sequence_parallel_attention(q, k, v, heads, scale, mesh=mesh,
+                                               batch_axis="data", kv_sharded=True)
+    return out
+
+
+def _loaded(model, state_dict):
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+TASKS = {"primitives": primitives, "training": training, "tensor_parallel": tensor_parallel}
