@@ -453,10 +453,27 @@ exits nonzero, printing no result, when a check fails or no card is present.
     tp forward and step (rank 0, the ranks sharing the card, gloo's
     host-staged all-reduces) against one process unsharded; #4-#8 at the
     local shapes against the same blocks at whole heads.
+27. The Ego4d audio front end (``data/ego4d`` ``signal_transform``: an STFT
+    of 1024 samples every 512 under a symmetric Hann window, the HTK mel
+    filterbank to 256 mels, MFCCs) at its real window, 10 s at 48 kHz (936
+    frames x 513 bins); no TPU kernel lies on this path, and every part's
+    kernel counters must read 0. (a) Each of the three types on 32 seeded
+    waveforms in float32 on the card against the port's CPU float64 result,
+    within 1e-5 of max |value|. (b) The mel spectrograms as
+    ``create_audio_visual_slowfast()``'s audio pathway (transposed,
+    subsampled to 128 frames and 80 mels, as the JAX package composes the
+    two), beside phase 24's visual pathways: the bf16 deploy form at B8 and
+    B32, its B8 logits against the plain f32 model (phase 4's bound), and
+    the front end's and the forward's ms at each batch. (c)
+    ``Ego4dMomentsDataset._transform_mm`` over a sample whose video and audio
+    lie on the card (annotations and an IMU CSV written under ``build/``):
+    the spectrogram and the IMU window come out on the card, the window and
+    the one-hot labels equal the host's, the spectrogram within 1e-5 of max
+    |value| of the host's.
 
-Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase 23``
-(or ``--phase 24`` to ``--phase 26``) runs the build and that phase alone
-(no kernels line, no ok line), a development run.
+Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase N``
+(N from 23 to 27) runs the build and that phase alone (no kernels line, no
+ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
 with its launches on its path (the attention forwards also by route; the
@@ -7000,6 +7017,251 @@ def tensor_parallel_entries(entries: list, tensor: dict) -> None:
         assert entry["tensor_parallel"]["launches"] > 0, f"{entry['name']}: no launch under tp"
 
 
+# Phase 27: the Ego4d audio front end (``data/ego4d`` ``signal_transform``:
+# an STFT, the HTK mel filterbank, MFCCs) on the card at its real window,
+# 10 s at 48 kHz (936 frames x 513 bins -> 256 mels), feeding audio-visual
+# SlowFast-R50's audio pathway. No TPU kernel lies on this path.
+FRONT_END_CLIPS = 32
+FRONT_END_RATE = 48000
+FRONT_END_SAMPLES = 10 * FRONT_END_RATE
+FRONT_END_TYPES = ("spectrogram", "melspectrogram", "mfcc")
+FRONT_END_SHARE = 1e-5  # float32 on the card against float64 on the CPU, of max |value|
+FRONT_END_BATCHES = (8, 32)
+FRONT_END_CHECK_BATCH = 8
+FRONT_END_ITERS = 5
+EGO4D_WINDOW_SEC = 10
+EGO4D_IMU_RATE = 200
+
+
+def front_end_waves(generator):
+    """FRONT_END_CLIPS seeded 10 s, 48 kHz waveforms in float64 on the host:
+    noise (std 0.1) over a tone of a seeded frequency in [100, 8000] Hz."""
+    import torch
+
+    t = torch.arange(FRONT_END_SAMPLES, dtype=torch.float64) / FRONT_END_RATE
+    hz = 100 + 7900 * torch.rand(FRONT_END_CLIPS, 1, generator=generator, dtype=torch.float64)
+    noise = torch.randn(FRONT_END_CLIPS, FRONT_END_SAMPLES, generator=generator,
+                        dtype=torch.float64)
+    return 0.5 * torch.sin(2 * math.pi * hz * t) + 0.1 * noise
+
+
+def front_end_check(waves, card: str) -> dict:
+    """Phase 27 (a): each of ``signal_transform``'s three types on every
+    waveform in float32 on the card against the port's CPU float64 result
+    on the same waveform, within FRONT_END_SHARE of max |value|; no kernel
+    launched."""
+    import torch
+
+    from pytorchvideo_tpu_torch.data.ego4d import signal_transform
+
+    frames = 1 + (FRONT_END_SAMPLES - 1024) // 512
+    worst = {}
+    reset_counts()
+    for kind in FRONT_END_TYPES:
+        transform = signal_transform(kind, FRONT_END_RATE)
+        shares = []
+        for w in waves:
+            ref = transform(w)
+            got = transform(w.to("cuda", torch.float32))
+            assert got.is_cuda and got.dtype == torch.float32, f"{kind}: {got.device} {got.dtype}"
+            assert got.shape == ref.shape == (513 if kind == "spectrogram" else 256, frames), (
+                f"{kind}: {tuple(got.shape)}")
+            assert bool(got.isfinite().all()), f"{kind}: non-finite values on the card"
+            scale = ref.abs().max().item()
+            shares.append((got.double().cpu() - ref).abs().max().item() / scale)
+        worst[kind] = max(shares)
+        print(f"phase 27 (a) signal_transform({kind!r}, {FRONT_END_RATE}) on {len(waves)} "
+              f"waveforms of {FRONT_END_SAMPLES} samples: card float32 against CPU float64, "
+              f"worst max |err| / max |value| {worst[kind]!r} (bound {FRONT_END_SHARE}) on {card}")
+        assert worst[kind] <= FRONT_END_SHARE, f"{kind}: {worst[kind]} of max |value|"
+    check_path_counts("phase 27 (a) front end", read_counts(), {}, 2 * len(waves),
+                      "transforms of each type")
+    return {"worst_share": worst}
+
+
+def front_end_audio(transform, waves):
+    """Audio-visual SlowFast's audio pathway from waveforms, as the JAX
+    package composes the two (tests/test_audio_e2e.py:268-271): each mel
+    spectrogram transposed to (frames, mels), subsampled to 128 frames, then
+    to 80 mels; (B, 1, 128, 1, 80) on the waveforms' device."""
+    import torch
+
+    from pytorchvideo_tpu_torch.transforms.functional import uniform_temporal_subsample
+
+    t_audio, f_audio = AV_CLIPS[2][1], AV_CLIPS[2][3]
+    out = []
+    for w in waves:
+        spec = uniform_temporal_subsample(transform(w).T, t_audio, temporal_axis=0)
+        out.append(uniform_temporal_subsample(spec, f_audio, temporal_axis=1))
+    return torch.stack(out)[:, None, :, None, :]
+
+
+def front_end_av_check(convert_to_deployable_form, waves, card: str) -> dict:
+    """Phase 27 (b): the card's mel spectrograms as AV SlowFast-R50's audio
+    pathway (BN statistics measured on two such clips with phase 24's
+    visual pathways), the bf16 deploy form at FRONT_END_BATCHES, its logits
+    at FRONT_END_CHECK_BATCH against the plain f32 eval model
+    (``check_logits``); the front end's and the forward's device ms at each
+    batch (``cuda_time_ms``); no kernel launched."""
+    import torch
+
+    from pytorchvideo_tpu_torch.data.ego4d import signal_transform
+    from pytorchvideo_tpu_torch.models import create_audio_visual_slowfast
+
+    transform = signal_transform("melspectrogram", FRONT_END_RATE)
+    card_waves = waves.to("cuda", torch.float32)
+    visual = {B: next(SyntheticAVClips(B, 270 + B).train_dataloader(1))["video"][:2]
+              for B in FRONT_END_BATCHES}
+    inputs = {B: [*visual[B], front_end_audio(transform, card_waves[:B])]
+              for B in FRONT_END_BATCHES}
+    audio = inputs[FRONT_END_CHECK_BATCH][2]
+    assert tuple(audio.shape) == (FRONT_END_CHECK_BATCH, *AV_CLIPS[2]) and audio.is_cuda
+    cpu_audio = front_end_audio(transform, waves[:FRONT_END_CHECK_BATCH])
+    audio_share = ((audio.double().cpu() - cpu_audio).abs().max()
+                   / cpu_audio.abs().max()).item()
+    assert audio_share <= FRONT_END_SHARE, f"the audio pathway off the CPU's by {audio_share}"
+
+    gen = torch.Generator().manual_seed(272)
+    model = create_audio_visual_slowfast()
+    assert all(p.is_cuda for p in model.parameters()), "the AV model was built off the card"
+    randomize_(model, gen, [p[:2] for p in inputs[FRONT_END_CHECK_BATCH]])
+    deploy = convert_to_deployable_form(model, dtype=torch.bfloat16)
+    report = {"audio_share": audio_share, "batches": {}}
+    with torch.no_grad():
+        reset_counts()
+        x = inputs[FRONT_END_CHECK_BATCH]
+        ref = model(x).float()
+        got = {"bfloat16": deploy(cast(x, torch.bfloat16)).float()}
+        check_logits("phase 27 (b) av_slowfast_r50 on the front end's audio", got, ref)
+        report["max_abs_err"] = (got["bfloat16"] - ref).abs().max().item()
+        report["max_abs_logit"] = ref.abs().max().item()
+        for B in FRONT_END_BATCHES:
+            xb = cast(inputs[B], torch.bfloat16)
+            front_ms = cuda_time_ms(lambda: front_end_audio(transform, card_waves[:B]),
+                                    FRONT_END_ITERS)
+            forward_ms = cuda_time_ms(lambda: deploy(xb), FRONT_END_ITERS)
+            logits = deploy(xb)
+            assert logits.shape == (B, 400) and bool(logits.isfinite().all())
+            report["batches"][B] = {"front_end_ms": front_ms, "forward_ms": forward_ms}
+            print(f"phase 27 (b) B{B}: the front end (melspectrogram of {B} x 10 s at "
+                  f"{FRONT_END_RATE} Hz, then 128 x 80) {front_ms!r} ms; av_slowfast_r50 bf16 "
+                  f"deploy forward (slow 8x224x224, fast 32x224x224, audio 128x80) "
+                  f"{forward_ms!r} ms; cuda_time_ms over {FRONT_END_ITERS} calls; on {card}")
+        forwards = 2 + len(FRONT_END_BATCHES) * (FRONT_END_ITERS + 3)
+        check_path_counts("phase 27 (b) front end and AV", read_counts(), {}, forwards)
+    print(f"phase 27 (b): the card's audio pathway against the CPU's float64 at "
+          f"B{FRONT_END_CHECK_BATCH}: {audio_share!r} of max |value| (bound {FRONT_END_SHARE}); "
+          f"bf16 logits {report['max_abs_err']!r} off the f32 model's (max |logit| "
+          f"{report['max_abs_logit']!r}) on {card}")
+    del model, deploy
+    torch.cuda.empty_cache()
+    return report
+
+
+def write_ego4d_files(directory: str, generator) -> dict:
+    """Phase 27 (c)'s annotations: one train video ``u0`` of 20 s with a
+    label span, its metadata, and its IMU CSV (EGO4D_IMU_RATE Hz, seeded
+    readings)."""
+    import torch
+
+    os.makedirs(os.path.join(directory, "imu"))
+    label = {"label": "cooking", "start_time": 4.0, "end_time": 9.0, "video_start_time": 4.0,
+             "video_end_time": 9.0}
+    moments = {"videos": [{"video_uid": "u0", "split": "train", "clips": [{
+        "clip_uid": "u0_c0", "video_start_sec": 0.0, "video_end_sec": 20.0,
+        "annotations": [{"labels": [label]}]}]}]}
+    meta = {"videos": [{"video_uid": "u0", "duration_sec": 20.0, "manifold_path": "u0.mp4"}]}
+    paths = {"annotation_path": os.path.join(directory, "moments.json"),
+             "metadata_path": os.path.join(directory, "meta.json"),
+             "imu_path": os.path.join(directory, "imu")}
+    for key, content in (("annotation_path", moments), ("metadata_path", meta)):
+        with open(paths[key], "w") as f:
+            json.dump(content, f)
+    n = 20 * EGO4D_IMU_RATE
+    readings = torch.randn(n, 6, generator=generator, dtype=torch.float64) + 9.8
+    with open(os.path.join(directory, "imu", "u0.csv"), "w") as f:
+        f.write("canonical_timestamp_ms,accl_x,accl_y,accl_z,gyro_x,gyro_y,gyro_z\n")
+        for i, row in enumerate(readings.tolist()):
+            f.write(f"{1000.0 * i / EGO4D_IMU_RATE!r}," + ",".join(map(repr, row)) + "\n")
+    return paths
+
+
+def ego4d_transform_check(waves, card: str) -> dict:
+    """Phase 27 (c): ``Ego4dMomentsDataset._transform_mm`` over a sample
+    whose video and audio lie on the card and over the same sample on the
+    host: the spectrogram and the IMU window come out on the card, the
+    one-hot labels (a list, as in the JAX package) and the IMU window equal
+    the host's, the spectrogram within FRONT_END_SHARE of it."""
+    import shutil
+
+    import torch
+
+    from pytorchvideo_tpu_torch.data import Ego4dMomentsDataset
+
+    gen = torch.Generator().manual_seed(273)
+    directory = os.path.join(REPO, "build", f"phase27_{os.getpid()}")
+    try:
+        paths = write_ego4d_files(directory, gen)
+        dataset = Ego4dMomentsDataset(split="train", decode_audio=True, imu=True,
+                                      window_sec=EGO4D_WINDOW_SEC,
+                                      label_id_map={"cooking": 0, "washing": 1}, **paths)
+        assert dataset.cnt_samples == 1, dataset.cnt_samples
+        _, info = dataset._labeled_videos[0]
+        info = dict(info)
+        clip = dataset._clip_sampler(None, info["duration"], info)
+        video = torch.randint(0, 256, (8, 224, 224, 3), generator=gen, dtype=torch.uint8)
+        audio = waves[0].float()
+        host = dict(info, video=video, audio=audio, clip_index=0, aug_index=0)
+        on_card = dict(info, video=video.cuda(), audio=audio.cuda(), clip_index=0, aug_index=0)
+        reset_counts()
+        got = dataset._transform_mm(on_card)
+        want = dataset._transform_mm(host)
+        check_path_counts("phase 27 (c) _transform_mm", read_counts(), {}, 2, "samples")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert list(got) == list(want), (list(got), list(want))
+    assert got["spectrogram"].is_cuda and got["audio"]["signal"].is_cuda
+    assert all(got["imu"][k].is_cuda for k in ("signal", "timestamp"))
+    for k in ("signal", "timestamp"):
+        assert torch.equal(got["imu"][k].cpu(), want["imu"][k]), f"imu {k} differs"
+    assert got["imu"]["sampling_rate"] == want["imu"]["sampling_rate"]
+    assert got["labels_onehot"] == want["labels_onehot"] == [1, 0]
+    share = ((got["spectrogram"].cpu() - want["spectrogram"]).abs().max()
+             / want["spectrogram"].abs().max()).item()
+    assert share <= FRONT_END_SHARE, f"_transform_mm's spectrogram off the host's by {share}"
+    window = tuple(got["imu"]["signal"].shape)
+    print(f"phase 27 (c) Ego4dMomentsDataset._transform_mm, clip [{clip.clip_start_sec}, "
+          f"{clip.clip_end_sec}] s: spectrogram {tuple(got['spectrogram'].shape)} and IMU window "
+          f"{window} at {got['imu']['sampling_rate']} Hz on the card; IMU window and one-hot "
+          f"labels {got['labels_onehot']} equal the host's; spectrogram {share!r} of max |value| "
+          f"off the host's float32 (bound {FRONT_END_SHARE}) on {card}")
+    return {"spectrogram_share": share, "imu_window": window,
+            "sampling_rate": got["imu"]["sampling_rate"]}
+
+
+def front_end_slice(convert_to_deployable_form, card: str) -> dict:
+    """Phase 27: the Ego4d audio front end on the card (a), feeding
+    audio-visual SlowFast-R50 (b), and the moments dataset's transform on
+    a sample on the card (c); no kernel launched in any of them."""
+    import torch
+
+    report, t_part = {}, [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase 27 {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    waves = front_end_waves(torch.Generator().manual_seed(270))
+    report["signal_transform"] = front_end_check(waves, card)
+    part("(a)")
+    report["av_slowfast_r50"] = front_end_av_check(convert_to_deployable_form, waves, card)
+    part("(b)")
+    report["transform_mm"] = ego4d_transform_check(waves, card)
+    part("(c)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -7055,9 +7317,15 @@ def main() -> None:
         print(f"phase 26 (tensor parallelism and FSDP): {time.perf_counter() - t_phase:.1f} s")
         print("tensor parallel report: " + json.dumps(tensor, default=str))
         return
+    if sys.argv[1:] == ["--phase", "27"]:  # a development run: phase 27 alone
+        t_phase = time.perf_counter()
+        front_end = front_end_slice(convert_to_deployable_form, card)
+        print(f"phase 27 (the Ego4d audio front end): {time.perf_counter() - t_phase:.1f} s")
+        print("front end report: " + json.dumps(front_end, default=str))
+        return
     if sys.argv[1:]:
-        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none, --phase 23, "
-                 f"--phase 24, --phase 25 or --phase 26")
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none or --phase N, "
+                 f"N in 23-27")
 
     kernel_report = check_kernel(dw)
 
@@ -7154,6 +7422,10 @@ def main() -> None:
     tensor = tensor_parallel_slice(train, hub, pa, tp, fk, card)
     print(f"phase 26 (tensor parallelism and FSDP): {time.perf_counter() - t_phase:.1f} s")
     print("tensor parallel report: " + json.dumps(tensor, default=str))
+    t_phase = time.perf_counter()
+    front_end = front_end_slice(convert_to_deployable_form, card)
+    print(f"phase 27 (the Ego4d audio front end): {time.perf_counter() - t_phase:.1f} s")
+    print("front end report: " + json.dumps(front_end, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

@@ -1,16 +1,21 @@
 """Data helpers (counterpart of pytorchvideo_tpu/data/utils.py; upstream
 pytorchvideo/data/utils.py: thwc_to_cthw :26, secs_to_pts / pts_to_secs
 :34-58, export_video_array :71, MultiProcessSampler :169,
-optional_threaded_foreach :208). The CSV and dataclass helpers wait for
-the manifest datasets."""
+optional_threaded_foreach :208, DataclassFieldCaster :241, the CSV
+helpers :315-388, get_logger :390). The CSV rows the manifest datasets read
+are cast to their dataclasses' field types on construction."""
 
 from __future__ import annotations
 
+import csv
 import itertools
 import logging
 import math
+import sys
+import typing
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Tuple
+from dataclasses import Field, field as dataclass_field, fields as dataclass_fields
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +111,90 @@ def optional_threaded_foreach(target: Callable, args_iterable: Iterable[Tuple],
     else:
         for args in args_iterable:
             target(*args)
+
+
+class DataclassFieldCaster:
+    """Dataclass mixin: each field given a value of another type is cast to
+    its annotated type (a CSV cell "12" to ``int``), and a field made by
+    :func:`complex_initialized_dataclass_field` is set to its initializer's
+    result (upstream data/utils.py:241-312). A value the type cannot take
+    is kept as it was."""
+
+    COMPLEX_INITIALIZER = "DataclassFieldCaster__complex_initializer"
+
+    def __post_init__(self) -> None:
+        hints = typing.get_type_hints(type(self))
+        for f in dataclass_fields(self):
+            value = getattr(self, f.name)
+            ftype = hints.get(f.name, f.type)
+            initializer = f.metadata.get(self.COMPLEX_INITIALIZER)
+            if initializer is not None:
+                setattr(self, f.name, initializer(value))
+            elif isinstance(ftype, type) and not isinstance(value, ftype):
+                try:
+                    setattr(self, f.name, ftype(value))
+                except (TypeError, ValueError):
+                    pass
+
+
+def complex_initialized_dataclass_field(initializer: Callable, **kwargs) -> Field:
+    """A dataclass field whose value is ``initializer(raw value)``, as
+    :class:`DataclassFieldCaster` sets it."""
+    metadata = dict(kwargs.pop("metadata", {}))
+    metadata[DataclassFieldCaster.COMPLEX_INITIALIZER] = initializer
+    return dataclass_field(metadata=metadata, **kwargs)
+
+
+def load_dataclass_dict_from_csv(input_csv_file_path: str, dataclass_class: type,
+                                 dict_key_field: str, list_per_key: bool = False
+                                 ) -> Dict[Any, Any]:
+    """A headered CSV's rows as ``dataclass_class`` objects, keyed by their
+    ``dict_key_field``: one object a key, or with ``list_per_key`` the list
+    of them in file order (upstream data/utils.py:315-360). The header must
+    have one column per field; a key seen twice without ``list_per_key``
+    raises."""
+    out: Dict[Any, Any] = {}
+    with open(input_csv_file_path) as f:
+        reader = csv.reader(f, delimiter=",")
+        columns = next(reader)
+        if len(columns) != len(dataclass_fields(dataclass_class)):
+            raise ValueError(f"{input_csv_file_path}: {len(columns)} columns, "
+                             f"{dataclass_class.__name__} has "
+                             f"{len(dataclass_fields(dataclass_class))} fields")
+        for line in reader:
+            datum = dataclass_class(*line)
+            key = getattr(datum, dict_key_field)
+            if list_per_key:
+                out.setdefault(key, []).append(datum)
+            elif key in out:
+                raise ValueError(f"{input_csv_file_path}: duplicate key {key}")
+            else:
+                out[key] = datum
+    return out
+
+
+def save_dataclass_objs_to_headered_csv(dataclass_objs: List, file_name: str) -> None:
+    """Objects of one dataclass as a CSV with their field names as the
+    header (upstream data/utils.py:363-388); the loader reads it back."""
+    if not dataclass_objs:
+        raise ValueError("no objects to save")
+    field_names = [f.name for f in dataclass_fields(type(dataclass_objs[0]))]
+    with open(file_name, "w") as f:
+        writer = csv.writer(f, delimiter=",")
+        writer.writerow(field_names)
+        for obj in dataclass_objs:
+            writer.writerow([getattr(obj, name) for name in field_names])
+
+
+def get_logger(name: str) -> logging.Logger:
+    """An INFO-level logger writing to stdout, its handler added once
+    (upstream data/utils.py:390-400)."""
+    named = logging.getLogger(name)
+    named.setLevel(logging.INFO)
+    if not named.hasHandlers():
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter(
+            "[%(asctime)s] %(levelname)s %(message)s \t[%(filename)s.%(funcName)s:%(lineno)d]",
+            datefmt="%y%m%d %H:%M:%S"))
+        named.addHandler(handler)
+    return named

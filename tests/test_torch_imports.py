@@ -3,7 +3,8 @@ the card's: without jax, the JAX package, any video decoder or image
 library (OpenCV, PyAV, decord, PIL), torchvision or networkx. The data
 feed, the transforms, detection, the engine, self-supervised pretraining,
 the efficient blocks, the transmuter, int8 serving, the utils, audio-visual
-SlowFast and the masked multistream are among the modules imported."""
+SlowFast, the masked multistream and the dataset families are among the
+modules imported."""
 
 import subprocess
 import sys
@@ -27,7 +28,12 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "utils.profiling", "models.audio_visual_slowfast", "models.masked_multistream",
                "parallel", "parallel.distributed", "parallel.collectives", "parallel.mesh",
                "parallel.sequence", "layers.batch_norm", "parallel.sharding", "parallel.tensor",
-               "train.sharded")
+               "train.sharded", "data.dataset_manifest_utils", "data.kinetics", "data.ucf101",
+               "data.hmdb51", "data.charades", "data.ssv2", "data.json_dataset",
+               "data.epic_kitchen", "data.epic_kitchen.utils",
+               "data.epic_kitchen.epic_kitchen_dataset", "data.epic_kitchen_recognition",
+               "data.epic_kitchen_forecasting", "data.domsev", "data.ego4d", "data.ego4d.utils",
+               "data.ego4d.ego4d_dataset")
 # Names the JAX package's packages export, which the port's export under the
 # same names.
 JAX_EXPORTS = {
@@ -39,6 +45,13 @@ JAX_EXPORTS = {
     "parallel": ("make_mesh", "batch_sharding", "replicated", "shard_batch",
                  "all_gather_with_grad", "cat_all_gather", "sequence_parallel_attention",
                  "infer_param_shardings", "optimizer_state_shardings"),
+    "data": ("Kinetics", "Ucf101", "Hmdb51", "Hmdb51LabeledVideoPaths", "Charades", "SSv2",
+             "UntrimmedClipSampler", "clip_recognition_dataset", "video_only_dataset",
+             "ActionData", "EpicKitchenDataset", "EpicKitchenRecognition",
+             "EpicKitchenForecasting", "DomsevFrameDataset", "DomsevVideoDataset", "LabelData",
+             "Ego4dImuData", "Ego4dMomentsDataset"),
+    "data.ego4d": ("signal_transform", "MomentsClipSampler", "check_window_len",
+                   "get_label_id_map", "Ego4dImuDataBase"),
     "parallel.distributed": ("get_world_size", "get_local_size", "get_rank",
                              "init_distributed_training", "local_sync_groups"),
 }

@@ -119,3 +119,31 @@ def build_mvit_pair(jax_builder, torch_builder, seed=0, batch=2, **kwargs):
 def small_mvit_pair(seed=0, batch=2, **variant):
     return build_mvit_pair(jax_create_mvit, create_multiscale_vision_transformers, seed, batch,
                            **{**SMALL_MVIT, **variant})
+
+
+def assert_same_sample(ours, theirs, where="sample"):
+    """A port sample (tensors) equal to a JAX package sample (numpy) exactly:
+    dict keys in the same order, a tensor's values and shape those of the
+    array (a uint8 clip against the JAX package's float32 [0, 255] one),
+    lists element by element, dataclass rows field by field, anything else
+    by ``==``."""
+    import dataclasses
+
+    if isinstance(ours, dict):
+        assert isinstance(theirs, dict) and list(ours) == list(theirs), (where, list(ours),
+                                                                         list(theirs))
+        for key in ours:
+            assert_same_sample(ours[key], theirs[key], f"{where}[{key!r}]")
+    elif isinstance(ours, torch.Tensor):
+        assert isinstance(theirs, np.ndarray), (where, type(theirs))
+        assert tuple(ours.shape) == theirs.shape, (where, tuple(ours.shape), theirs.shape)
+        np.testing.assert_array_equal(ours.cpu().numpy(), theirs, err_msg=where)
+    elif isinstance(ours, (list, tuple)):
+        assert len(ours) == len(theirs), (where, len(ours), len(theirs))
+        for i, (a, b) in enumerate(zip(ours, theirs)):
+            assert_same_sample(a, b, f"{where}[{i}]")
+    elif dataclasses.is_dataclass(ours):
+        assert type(ours).__name__ == type(theirs).__name__, where
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs), where
+    else:
+        assert ours == theirs, (where, ours, theirs)
