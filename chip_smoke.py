@@ -470,9 +470,31 @@ exits nonzero, printing no result, when a check fails or no card is present.
     the spectrogram and the IMU window come out on the card, the window and
     the one-hot labels equal the host's, the spectrogram within 1e-5 of max
     |value| of the host's.
+28. The native decoder (``data/native_build.py`` builds ``native/decode.cc``
+    and ``native/pipeline.cc`` with g++ and FFmpeg at first use) and
+    MixVideo's ``x_audio``. (a) Where ``g++`` and the four FFmpeg packages
+    of ``pkg-config`` are present: a seeded file written by ``mux_av`` (300
+    frames of 240x320 at 30 fps, FFV1; 10 s of 48 kHz mono audio,
+    pcm_s16le), decoded through ``EncodedVideo.from_path(decoder="native",
+    decode_audio=True)`` and ``from_bytes`` (frames bit for bit, audio
+    within 2e-4); eight 2 s clips through one handle and through
+    ``NativeDecodePipeline`` (4 threads) at the file's size (bit for bit)
+    and rescaled to 182x242 in native code, each timed; the clips through
+    X3D-S's val chain on the card into ``x3d_s`` deploy bf16 at B8 (logits on
+    the decoded clips equal to those on the written frames; 22 #1 launches
+    a forward); the visual pathways and the decoded audio, through phase
+    27's front end, into AV SlowFast-R50 deploy bf16 at B8 against the f32
+    model on the written waveform (phase 4's bound). Where any is missing,
+    one line names it and (a) does not run. (b) An AV SlowFast-R50 batch at
+    B8 (fast 32x224x224, 128 x 80 audio, f32) mixed on the card by
+    ``MixVideo(x_audio=...)`` with a CUDA generator, CutMix and MixUp, each
+    against the CPU's mix at the card's draws (CutMix exactly, MixUp within
+    1e-6 relative); one bf16 training step of the SlowFast-R50 preset on the
+    CutMix batch, its loss finite. No kernel launches in (a)'s AV part or in
+    (b).
 
 Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase N``
-(N from 23 to 27) runs the build and that phase alone (no kernels line, no
+(N from 23 to 28) runs the build and that phase alone (no kernels line, no
 ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
@@ -7262,6 +7284,425 @@ def front_end_slice(convert_to_deployable_form, card: str) -> dict:
     return report
 
 
+# Phase 28: the native decoder (``data/native_build.py``,
+# ``encoded_video_native.py``, ``native_pipeline.py``) on a seeded A/V file,
+# feeding X3D-S (#1 on its 22 stride-1 ``conv_b``) and audio-visual
+# SlowFast-R50 (a); MixVideo with ``x_audio`` on the card (b).
+DECODE_FRAMES = 300
+DECODE_HW = (240, 320)
+DECODE_FPS = 30
+DECODE_RATE = 48000  # 10 s of mono audio at 48 kHz
+DECODE_CLIPS = 8
+DECODE_CLIP_FRAMES = 60  # 2 s a clip
+DECODE_THREADS = 4
+DECODE_SCALE = (182, 242)  # the pipeline's rescale in native code
+DECODE_AUDIO_TOL = 2e-4  # pcm_s16le against the float32 waveform (tests/test_audio_e2e.py:39)
+DECODE_RESCALE_TOL = 8.0  # swscale's bilinear against torch's: mean |diff| on [0, 255]
+# (tests/test_native_decoder.py:105)
+DECODE_ITERS = 5
+X3D_VAL = (13, 182, 160)  # X3D-S's val chain: frames, short side, centre crop
+MIX_REL_TOL = 1e-6  # MixUp in f32 on the card against the CPU's
+
+
+def av_file(directory: str, generator) -> tuple:
+    """A seeded A/V file written by ``mux_av`` (FFV1 and pcm_s16le):
+    DECODE_FRAMES frames of DECODE_HW RGB at DECODE_FPS, a moving gradient
+    with seeded noise, and 10 s of a seeded tone with noise at DECODE_RATE.
+    Returns (path, frames (T, H, W, 3) uint8, waveform float32, seconds to
+    write)."""
+    import torch
+
+    from pytorchvideo_tpu_torch.data.encoded_video_native import mux_av
+
+    (h, w), n = DECODE_HW, DECODE_FRAMES
+    y, x = torch.arange(h, dtype=torch.int32)[:, None], torch.arange(w, dtype=torch.int32)[None]
+    t = torch.arange(n, dtype=torch.int32)[:, None, None]
+    ramp = (x + 2 * y + 4 * t)[..., None] * torch.tensor([1, 2, 3], dtype=torch.int32)
+    noise = torch.randint(0, 16, (n, h, w, 3), generator=generator, dtype=torch.int32)
+    frames = ((ramp + noise) % 256).to(torch.uint8)
+    seconds = n / DECODE_FPS
+    times = torch.arange(int(seconds * DECODE_RATE), dtype=torch.float64) / DECODE_RATE
+    hz = 200 + 1800 * torch.rand((), generator=generator, dtype=torch.float64)
+    wave = (0.5 * torch.sin(2 * math.pi * hz * times)
+            + 0.05 * torch.randn(times.shape, generator=generator, dtype=torch.float64))
+    wave = wave.clamp(-1.0, 1.0).float()
+    path = os.path.join(directory, "av.avi")
+    t0 = time.perf_counter()
+    mux_av(path, frames, DECODE_FPS, wave, DECODE_RATE)
+    return path, frames, wave, time.perf_counter() - t0
+
+
+def check_decoded_clip(label: str, clip: dict, frames, wave) -> float:
+    """The whole file's clip: the frames equal to the written ones bit for
+    bit, the audio the whole window within DECODE_AUDIO_TOL of the written
+    waveform. Returns the audio's max |err|."""
+    import torch
+
+    video, audio = clip["video"], clip["audio"]
+    assert video is not None and video.dtype == torch.uint8 and video.device.type == "cpu"
+    assert torch.equal(video, frames), f"{label}: the decoded frames differ from the written"
+    assert audio is not None and audio.dtype == torch.float32 and audio.device.type == "cpu"
+    n = min(audio.numel(), wave.numel())
+    assert n >= wave.numel() - 1024, f"{label}: {audio.numel()} of {wave.numel()} samples"
+    err = (audio[:n] - wave[:n]).abs().max().item()
+    assert err <= DECODE_AUDIO_TOL, f"{label}: audio off by {err}"
+    return err
+
+
+def decode_checks(path: str, frames, wave, card: str) -> dict:
+    """Phase 28 (a) 1-4, on the host: the whole file through
+    ``EncodedVideo.from_path`` and ``from_bytes`` (frames bit for bit, audio
+    within DECODE_AUDIO_TOL); DECODE_CLIPS clips of 2 s through one handle
+    and through ``NativeDecodePipeline`` at the file's size (each equal to
+    its frames) and rescaled to DECODE_SCALE in native code (near torch's
+    bilinear resize of its frames), each timed. Returns (report, the clips
+    at the file's size, the rescaled clips, the decoded audio)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from pytorchvideo_tpu_torch.data.encoded_video import EncodedVideo
+    from pytorchvideo_tpu_torch.data.native_pipeline import iter_decoded_clips
+
+    report = {}
+    video = EncodedVideo.from_path(path, decoder="native", decode_audio=True)
+    assert type(video).__name__ == "EncodedVideoNative" and video.has_audio
+    assert video.duration == DECODE_FRAMES / DECODE_FPS and video.audio_rate == DECODE_RATE
+    report["audio_err"] = check_decoded_clip("from_path", video.get_clip(0, video.duration),
+                                             frames, wave)
+    video.close()
+    with open(path, "rb") as f:
+        blob = f.read()
+    video = EncodedVideo.from_bytes(blob, decoder="native", decode_audio=True)
+    clip = video.get_clip(0, video.duration)
+    video.close()
+    report["audio_err_from_bytes"] = check_decoded_clip("from_bytes", clip, frames, wave)
+    report["file_bytes"] = len(blob)
+
+    spans = [(i * DECODE_FPS, i * DECODE_FPS + DECODE_CLIP_FRAMES) for i in range(DECODE_CLIPS)]
+    video = EncodedVideo.from_path(path, decoder="native")
+    t0 = time.perf_counter()
+    one = [video.get_clip(s / DECODE_FPS, e / DECODE_FPS)["video"] for s, e in spans]
+    report["one_handle_ms_per_clip"] = (time.perf_counter() - t0) * 1e3 / DECODE_CLIPS
+    video.close()
+    for (s, e), got in zip(spans, one):
+        assert torch.equal(got, frames[s:e]), f"one handle: frames {s}-{e} differ"
+
+    def pipeline(out_hw):
+        t0 = time.perf_counter()
+        got = dict(iter_decoded_clips([(path, s, e) for s, e in spans], DECODE_THREADS,
+                                      DECODE_CLIPS, *out_hw))
+        return [got[i] for i in range(DECODE_CLIPS)], time.perf_counter() - t0
+
+    native, native_s = pipeline((0, 0))
+    for (s, e), got in zip(spans, native):
+        assert torch.equal(got, frames[s:e]), f"pipeline: frames {s}-{e} differ"
+    scaled, scaled_s = pipeline(DECODE_SCALE)
+    diffs = []
+    for (s, e), got in zip(spans, scaled):
+        assert tuple(got.shape) == (e - s, *DECODE_SCALE, 3), tuple(got.shape)
+        ref = TF.interpolate(frames[s:e].permute(0, 3, 1, 2).float(), size=DECODE_SCALE,
+                             mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+        diffs.append((got.float() - ref).abs().mean().item())
+    report.update(pipeline_clips_per_s=DECODE_CLIPS / native_s,
+                  pipeline_scaled_clips_per_s=DECODE_CLIPS / scaled_s,
+                  scaled_mean_abs_diff=max(diffs))
+    assert report["scaled_mean_abs_diff"] <= DECODE_RESCALE_TOL, report["scaled_mean_abs_diff"]
+    print(f"phase 28 (a) decode: {DECODE_FRAMES} frames of {DECODE_HW[0]}x{DECODE_HW[1]} at "
+          f"{DECODE_FPS} fps and {wave.numel()} samples at {DECODE_RATE} Hz ({len(blob)} bytes, "
+          f"FFV1 + pcm_s16le): from_path and from_bytes frames equal bit for bit, audio max "
+          f"|err| {report['audio_err']!r} and {report['audio_err_from_bytes']!r} (bound "
+          f"{DECODE_AUDIO_TOL}); {DECODE_CLIPS} clips of {DECODE_CLIP_FRAMES} frames: one "
+          f"handle {report['one_handle_ms_per_clip']!r} ms a clip; the pipeline "
+          f"({DECODE_THREADS} threads) {report['pipeline_clips_per_s']!r} clips/s at "
+          f"{DECODE_HW[0]}x{DECODE_HW[1]} (equal bit for bit) and "
+          f"{report['pipeline_scaled_clips_per_s']!r} clips/s rescaled to "
+          f"{DECODE_SCALE[0]}x{DECODE_SCALE[1]} (mean |diff| against torch's bilinear "
+          f"{report['scaled_mean_abs_diff']!r}, bound {DECODE_RESCALE_TOL}); host clock; "
+          f"host of {card}")
+    return report, native, scaled, clip["audio"]
+
+
+def x3d_val_batch(clips, device):
+    """X3D-S's val chain on ``device`` over a list of (T, H, W, 3) uint8
+    clips: X3D_VAL[0] frames, /255, normalised, short side X3D_VAL[1],
+    centre crop X3D_VAL[2]; a bf16 NCTHW batch."""
+    import torch
+
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms import transforms as T
+
+    frames, side, crop = X3D_VAL
+    chain = T.Compose([T.UniformTemporalSubsample(frames), T.Div255(),
+                       T.Normalize(FEED_MEAN, FEED_STD), T.ShortSideScale(side),
+                       T.CenterCropVideo(crop), F.thwc_to_cthw])
+    return chain(torch.stack(clips).to(device)).to(torch.bfloat16)
+
+
+def av_visual_batch(clips, device):
+    """AV SlowFast-R50's visual pathways from (T, H, W, 3) uint8 clips on
+    ``device``: fast AV_CLIPS[1] (frames uniformly, /255, normalised, short
+    side and centre crop 224), slow its AV_CLIPS[0][1] frames uniformly."""
+    import torch
+
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms import transforms as T
+
+    _, t_fast, size, _ = AV_CLIPS[1]
+    chain = T.Compose([T.UniformTemporalSubsample(t_fast), T.Div255(),
+                       T.Normalize(FEED_MEAN, FEED_STD), T.ShortSideScale(size),
+                       T.CenterCropVideo(size), F.thwc_to_cthw])
+    fast = chain(torch.stack(clips).to(device))
+    return [F.uniform_temporal_subsample(fast, AV_CLIPS[0][1], temporal_axis=-3), fast]
+
+
+def decoded_x3d_check(hub, convert_to_deployable_form, native, scaled, frames, card: str,
+                      device: str = "cuda") -> dict:
+    """Phase 28 (a) 5-6: the decoded clips through X3D-S's val chain on the
+    card into ``x3d_s`` deploy bf16 at B DECODE_CLIPS: the clips decoded at
+    the file's size give logits equal to those of the written frames
+    themselves (the same input); the rescaled clips' logits finite, their
+    distance from those reported; #1 launched 22 times a forward; the
+    forward's ms (``cuda_time_ms``)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(281)
+    model = hub.x3d_s(model_num_class=400, device=device)
+    calib = torch.randn(2, 3, X3D_VAL[0], X3D_VAL[2], X3D_VAL[2], generator=gen).to(device)
+    randomize_(model, gen, calib)
+    deploy = convert_to_deployable_form(model, dtype=torch.bfloat16)
+    spans = [(i * DECODE_FPS, i * DECODE_FPS + DECODE_CLIP_FRAMES) for i in range(DECODE_CLIPS)]
+    written = x3d_val_batch([frames[s:e] for s, e in spans], device)
+    decoded = x3d_val_batch(native, device)
+    rescaled = x3d_val_batch(scaled, device)
+    assert torch.equal(decoded, written), "the val chain's input differs from the written frames'"
+    with torch.no_grad():
+        reset_counts()
+        want = deploy(written).float()
+        got = deploy(decoded).float()
+        got_scaled = deploy(rescaled).float()
+        check_path_counts("phase 28 (a) x3d_s on decoded clips", read_counts(), X3D_PER_FORWARD,
+                          3)
+        forward_ms = cuda_time_ms(lambda: deploy(rescaled), DECODE_ITERS)
+    assert got.shape == (DECODE_CLIPS, 400) and bool(want.isfinite().all())
+    assert torch.equal(got, want), "logits on the decoded clips differ from the written frames'"
+    assert bool(got_scaled.isfinite().all()), "non-finite logits on the rescaled clips"
+    scale = want.abs().max().item()
+    scaled_err = (got_scaled - want).abs().max().item()
+    agree = int((got_scaled.argmax(1) == want.argmax(1)).sum())
+    print(f"phase 28 (a) x3d_s deploy bf16 B{DECODE_CLIPS} (val chain {X3D_VAL}) on the clips "
+          f"decoded at {DECODE_HW[0]}x{DECODE_HW[1]}: logits equal to the written frames' bit "
+          f"for bit; on the clips rescaled in native code: max |logit - the written frames'| "
+          f"{scaled_err!r} at max |logit| {scale!r}, top-1 equal on {agree}/{DECODE_CLIPS}; 22 "
+          f"#1 launches a forward; the forward {forward_ms!r} ms (cuda_time_ms over "
+          f"{DECODE_ITERS}); on {card}")
+    del model, deploy
+    return {"forward_ms": forward_ms, "rescaled_max_abs_diff": scaled_err,
+            "max_abs_logit": scale, "rescaled_top1_agree": agree}
+
+
+def decoded_av_check(convert_to_deployable_form, native, audio, wave, card: str,
+                     device: str = "cuda") -> dict:
+    """Phase 28 (a) 7: the decoded clips' visual pathways and the decoded
+    10 s of audio through ``signal_transform`` (phase 27's front end) into
+    AV SlowFast-R50 deploy bf16 at B DECODE_CLIPS (each row the file's one
+    waveform), held as phase 27 (b) holds its forward: against the plain f32
+    model on the same path from the written waveform (``check_logits``); the
+    bf16 forward on the written waveform beside it; no kernel launched."""
+    import torch
+
+    from pytorchvideo_tpu_torch.data.ego4d import signal_transform
+    from pytorchvideo_tpu_torch.models import create_audio_visual_slowfast
+
+    transform = signal_transform("melspectrogram", DECODE_RATE)
+    visual = av_visual_batch(native, device)
+    decoded = front_end_audio(transform, audio.to(device).expand(DECODE_CLIPS, -1))
+    written = front_end_audio(transform, wave.to(device).expand(DECODE_CLIPS, -1))
+    assert tuple(decoded.shape) == (DECODE_CLIPS, *AV_CLIPS[2])
+    audio_share = ((decoded - written).abs().max() / written.abs().max()).item()
+    gen = torch.Generator().manual_seed(282)
+    model = create_audio_visual_slowfast(device=device)
+    randomize_(model, gen, [p[:2] for p in [*visual, written]])
+    deploy = convert_to_deployable_form(model, dtype=torch.bfloat16)
+    with torch.no_grad():
+        reset_counts()
+        ref = model([*visual, written]).float()
+        got = deploy(cast([*visual, decoded], torch.bfloat16)).float()
+        beside = deploy(cast([*visual, written], torch.bfloat16)).float()
+        check_path_counts("phase 28 (a) av_slowfast_r50 on decoded audio", read_counts(), {}, 3)
+    check_logits("phase 28 (a) av_slowfast_r50 on the decoded audio (the f32 model on the "
+                 "written waveform's)", {"bfloat16": got}, ref)
+    err = (got - ref).abs().max().item()
+    written_err = (beside - ref).abs().max().item()
+    print(f"phase 28 (a) av_slowfast_r50 deploy bf16 B{DECODE_CLIPS}: visual pathways from the "
+          f"decoded clips, the audio pathway from the decoded {audio.numel()} samples "
+          f"({audio_share!r} of max |value| off the written waveform's): logits {err!r} off "
+          f"the f32 model's on the written waveform (max |logit| {ref.abs().max().item()!r}); "
+          f"the bf16 forward on the written waveform {written_err!r} off; on {card}")
+    del model, deploy
+    return {"audio_share": audio_share, "max_abs_err": err, "written_max_abs_err": written_err,
+            "max_abs_logit": ref.abs().max().item()}
+
+
+def decoder_feed_check(hub, convert_to_deployable_form, card: str, device: str = "cuda") -> dict:
+    """Phase 28 (a): where ``g++`` and FFmpeg's development packages are
+    present, the decoder built from ``native/``, a seeded A/V file written
+    and decoded (``decode_checks``) into X3D-S and AV SlowFast-R50; where
+    any is missing, one line that names it, and nothing else."""
+    import shutil
+
+    import torch
+
+    from pytorchvideo_tpu_torch.data import native_build
+
+    missing = native_build.missing_tools()
+    if missing:
+        print(f"phase 28 (a): the native decoder cannot be built on this machine: missing "
+              f"{', '.join(missing)} (it needs g++ and FFmpeg's development libraries through "
+              f"pkg-config); (a) not run")
+        return {"built": False, "missing": missing}
+    t0 = time.perf_counter()
+    library = native_build.build_library()
+    build_s = time.perf_counter() - t0
+    directory = os.path.join(REPO, "build", f"phase28_{os.getpid()}")
+    os.makedirs(directory)
+    try:
+        path, frames, wave, write_s = av_file(directory, torch.Generator().manual_seed(280))
+        report, native, scaled, audio = decode_checks(path, frames, wave, card)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    report.update(built=True, build_s=build_s, write_s=write_s,
+                  library=os.path.relpath(library, REPO))
+    report["x3d_s"] = decoded_x3d_check(hub, convert_to_deployable_form, native, scaled, frames,
+                                        card, device)
+    report["av_slowfast_r50"] = decoded_av_check(convert_to_deployable_form, native, audio, wave,
+                                                 card, device)
+    print(f"phase 28 (a): the decoder built in {build_s:.1f} s, the file written in "
+          f"{write_s:.1f} s")
+    return report
+
+
+class _RecordedDraws:
+    """The random scalars ``transforms.mix`` reads from a generator
+    (``_sample_beta``, ``_sample_center`` and MixVideo's coin ``_uniform``,
+    the outermost call only), recorded in one run and replayed in another,
+    so that a mix on the CPU takes the card's lambda, boxes and coin."""
+
+    NAMES = ("_uniform", "_sample_beta", "_sample_center")
+
+    def __init__(self):
+        self.draws = {name: [] for name in self.NAMES}
+
+    @contextlib.contextmanager
+    def recording(self):
+        from unittest import mock
+
+        from pytorchvideo_tpu_torch.transforms import mix
+
+        originals, depth = {n: getattr(mix, n) for n in self.NAMES}, [0]
+
+        def recorder(name):
+            def draw(*args, **kwargs):
+                depth[0] += 1
+                try:
+                    value = originals[name](*args, **kwargs)
+                finally:
+                    depth[0] -= 1
+                if depth[0] == 0:
+                    self.draws[name].append(value)
+                return value
+            return draw
+
+        with mock.patch.multiple(mix, **{n: recorder(n) for n in self.NAMES}):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self):
+        from unittest import mock
+
+        from pytorchvideo_tpu_torch.transforms import mix
+
+        queues = {n: list(v) for n, v in self.draws.items()}
+        with mock.patch.multiple(mix, **{n: (lambda *a, n=n, **k: queues[n].pop(0))
+                                         for n in self.NAMES}):
+            yield
+        assert not any(queues.values()), f"draws left over: {queues}"
+
+
+def mix_video_check(train, card: str) -> dict:
+    """Phase 28 (b): a seeded AV SlowFast-R50 batch at AV_TRAIN_BATCH (fast
+    32x224x224 and a 128 x 80 spectrogram in f32; soft labels of 400
+    classes) mixed on the card by ``MixVideo(x_audio=...)`` with a CUDA
+    generator, at cutmix_prob 1 (CutMix) and 0 (MixUp); the slow pathway
+    the mixed fast one's 8 frames. Each against the CPU's mix of the same
+    batch at the card's lambda, boxes and coin: CutMix exactly, MixUp within
+    MIX_REL_TOL relative. Then one bf16 training step of the SlowFast-R50
+    preset (``bn_app``, as phase 24) on the CutMix batch: its loss finite,
+    no kernel launched."""
+    import torch
+
+    from pytorchvideo_tpu_torch.models import create_audio_visual_slowfast, init_net_weights
+    from pytorchvideo_tpu_torch.transforms import functional as F
+    from pytorchvideo_tpu_torch.transforms.mix import MixVideo
+
+    gen = torch.Generator(device="cuda").manual_seed(283)
+    B = AV_TRAIN_BATCH
+    fast = torch.randn(B, *AV_CLIPS[1], device="cuda", generator=gen)
+    audio = torch.randn(B, *AV_CLIPS[2], device="cuda", generator=gen)
+    labels = torch.randint(0, 400, (B,), device="cuda", generator=gen)
+    report, mixed = {}, {}
+    for name, prob in (("cutmix", 1.0), ("mixup", 0.0)):
+        mixer = MixVideo(cutmix_prob=prob, label_smoothing=0.1, num_classes=400)
+        draws = _RecordedDraws()
+        with draws.recording():
+            out = mixer(fast, labels, gen, x_audio=audio)
+        with draws.replaying():
+            ref = mixer(fast.cpu(), labels.cpu(), None, x_audio=audio.cpu())
+        assert all(t.is_cuda for t in out) and len(out) == len(ref) == 3
+        errs = [((o.cpu() - r).abs().max() / r.abs().max()).item() for o, r in zip(out, ref)]
+        if name == "cutmix":
+            assert all(torch.equal(o.cpu(), r) for o, r in zip(out, ref)), f"cutmix: {errs}"
+        else:
+            assert max(errs) <= MIX_REL_TOL, f"mixup: {errs} of max |value|"
+        assert not torch.equal(out[0], fast), f"{name} left the clips as they were"
+        report[name] = {"max_rel_err": errs, "lambda": draws.draws["_sample_beta"],
+                        "centres": draws.draws["_sample_center"]}
+        mixed[name] = out
+        print(f"phase 28 (b) MixVideo(cutmix_prob={prob}, x_audio=...) on the card, B{B} "
+              f"(fast {AV_CLIPS[1]}, audio {AV_CLIPS[2]}) f32, CUDA generator: lambda "
+              f"{draws.draws['_sample_beta']}, box centres {draws.draws['_sample_center']} "
+              f"(video, audio); video, audio and labels against the CPU's mix at those draws: "
+              f"max |err| / max |value| {errs} ({'exact' if name == 'cutmix' else MIX_REL_TOL}); "
+              f"on {card}")
+    video, mixed_audio, soft = mixed["cutmix"]
+    batch = {"video": [F.uniform_temporal_subsample(video, AV_CLIPS[0][1], temporal_axis=-3),
+                       video, mixed_audio], "label": soft}
+    model = create_audio_visual_slowfast()
+    init_net_weights(model, generator=torch.Generator(device="cuda").manual_seed(284))
+    app = bn_app(train, "classification_slowfast_8x8_r50", ResidentFeed(batch), model=model,
+                 seed=284, **{"trainer.compute_dtype": "bfloat16"})
+    metrics, _ = counted_update(app, batch, {}, "phase 28 (b) av_slowfast_r50 step on the mix")
+    loss = metrics["loss"].item()
+    assert math.isfinite(loss), f"phase 28 (b): loss {loss}"
+    report["loss"] = loss
+    print(f"phase 28 (b) av_slowfast_r50 train bf16 B{B} (classification_slowfast_8x8_r50) on "
+          f"the CutMix batch, soft labels: loss {loss!r} (finite); on {card}")
+    del app, model
+    torch.cuda.empty_cache()
+    return report
+
+
+def decoder_slice(hub, convert_to_deployable_form, train, card: str) -> dict:
+    """Phase 28: the native decoder into X3D-S and AV SlowFast-R50 (a),
+    MixVideo with ``x_audio`` on the card (b)."""
+    t0 = time.perf_counter()
+    report = {"decoder": decoder_feed_check(hub, convert_to_deployable_form, card)}
+    print(f"phase 28 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    report["mix_video"] = mix_video_check(train, card)
+    print(f"phase 28 (b): {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -7323,9 +7764,16 @@ def main() -> None:
         print(f"phase 27 (the Ego4d audio front end): {time.perf_counter() - t_phase:.1f} s")
         print("front end report: " + json.dumps(front_end, default=str))
         return
+    if sys.argv[1:] == ["--phase", "28"]:  # a development run: phase 28 alone
+        t_phase = time.perf_counter()
+        decoder = decoder_slice(hub, convert_to_deployable_form, train, card)
+        print(f"phase 28 (the native decoder and MixVideo's audio): "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        print("decoder report: " + json.dumps(decoder, default=str))
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none or --phase N, "
-                 f"N in 23-27")
+                 f"N in 23-28")
 
     kernel_report = check_kernel(dw)
 
@@ -7426,6 +7874,11 @@ def main() -> None:
     front_end = front_end_slice(convert_to_deployable_form, card)
     print(f"phase 27 (the Ego4d audio front end): {time.perf_counter() - t_phase:.1f} s")
     print("front end report: " + json.dumps(front_end, default=str))
+    t_phase = time.perf_counter()
+    decoder = decoder_slice(hub, convert_to_deployable_form, train, card)
+    print(f"phase 28 (the native decoder and MixVideo's audio): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print("decoder report: " + json.dumps(decoder, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]

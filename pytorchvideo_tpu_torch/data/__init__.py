@@ -1,10 +1,11 @@
 """The data feed of the port (counterpart of pytorchvideo_tpu/data): clip
-samplers, video samplers, the labeled video dataset over OpenCV decoding
-and frame directories, the dataset families (Kinetics, UCF101, HMDB51,
-Charades, SSv2, the JSON datasets, AVA, EPIC-Kitchens, DoMSEV, Ego4d with
-its audio front end), the packed ClipStore, and the batch loader with its
-prefetch to the card. The native decoder's binding waits (ROADMAP queue 1,
-item 5)."""
+samplers, video samplers, the labeled video dataset over OpenCV or native
+decoding and frame directories, the dataset families (Kinetics, UCF101,
+HMDB51, Charades, SSv2, the JSON datasets, AVA, EPIC-Kitchens, DoMSEV,
+Ego4d with its audio front end), the packed ClipStore, and the batch loader
+with its prefetch to the card. As in the JAX package, the native decoder
+(``encoded_video_native``, ``native_pipeline``) is imported from its
+modules, not exported here."""
 
 from pytorchvideo_tpu_torch.data.ava import (  # noqa: F401
     Ava,

@@ -1,11 +1,11 @@
 """Encoded-video decoding (counterpart of
 pytorchvideo_tpu/data/encoded_video.py; upstream
-pytorchvideo/data/encoded_video.py:17-76). The one backend ported is
-OpenCV's ``VideoCapture`` (FFmpeg underneath), imported inside its
-functions only: the machine with the card has no video decoder, and the
-port's modules import without one. The JAX package's first-party decoder
-(``decoder="native"``) and the PyAV slot wait for the native binding
-(ROADMAP queue 1, item 5)."""
+pytorchvideo/data/encoded_video.py:17-76). Two backends: OpenCV's
+``VideoCapture`` (FFmpeg underneath, video only), imported inside its
+functions only, and the native decoder (``decoder="native"``,
+data/encoded_video_native.py: FFmpeg through the C library under
+``native/``, built at first use, video and audio). The machine with the
+card may have neither, and the port's modules import without them."""
 
 from __future__ import annotations
 
@@ -33,13 +33,16 @@ class DecoderType:
 
 def select_video_class(decoder: str):
     """The backend class of ``decoder`` (upstream encoded_video.py:17-39):
-    OpenCV for "opencv", and for "torchvision" and "decord" as in the JAX
-    package; "native" and "pyav" raise."""
-    if decoder in (DecoderType.NATIVE, DecoderType.PYAV):
-        raise NotImplementedError(
-            f"decoder={decoder!r} is not ported: the native decoder's ctypes binding "
-            "(encoded_video_native.py, native_pipeline.py) waits for ROADMAP queue 1, "
-            "item 5; use decoder='opencv'")
+    the native decoder for "native" (which raises at first use where it
+    cannot be built: no OpenCV fallback); OpenCV for "opencv", and for
+    "torchvision" and "decord" as in the JAX package; "pyav" raises."""
+    if decoder == DecoderType.NATIVE:
+        from pytorchvideo_tpu_torch.data.encoded_video_native import EncodedVideoNative
+
+        return EncodedVideoNative
+    if decoder == DecoderType.PYAV:
+        raise NotImplementedError("decoder='pyav' is not ported (PyAV is not installed); use "
+                                  "decoder='native' or 'opencv'")
     if decoder in (DecoderType.OPENCV, DecoderType.TORCHVISION, DecoderType.DECORD):
         return EncodedVideoOpenCV
     raise NotImplementedError(f"Unknown decoder type {decoder}")
@@ -48,7 +51,7 @@ def select_video_class(decoder: str):
 class EncodedVideo(Video):
     """Factory entry (upstream encoded_video.py:48-76): a local path goes to
     the backend; a remote one is read through its scheme's opener
-    (data/io.py) into a temporary file, which the video keeps while open."""
+    (data/io.py) and decoded from memory (:meth:`from_bytes`)."""
 
     @classmethod
     def from_path(cls, file_path: str, decode_video: bool = True, decode_audio: bool = False,
@@ -64,9 +67,13 @@ class EncodedVideo(Video):
     @classmethod
     def from_bytes(cls, data: bytes, decode_video: bool = True, decode_audio: bool = False,
                    decoder: str = "opencv", **other_args) -> "Video":
-        """Decode an in-memory container through a temporary file
-        (``cv2.VideoCapture`` reads no memory buffer)."""
+        """Decode an in-memory container: from the buffer itself where the
+        backend overrides ``from_bytes`` (the native one), else through a
+        temporary file (``cv2.VideoCapture`` reads no memory buffer)."""
         video_cls = select_video_class(decoder)
+        if video_cls.from_bytes.__func__ is not EncodedVideo.from_bytes.__func__:
+            return video_cls.from_bytes(data, decode_video=decode_video,
+                                        decode_audio=decode_audio, **other_args)
         tmp = _TempFileFromBytes(data)
         video = video_cls(tmp.path, decode_video=decode_video, decode_audio=decode_audio,
                           **other_args)
@@ -105,7 +112,8 @@ class EncodedVideoOpenCV(EncodedVideo):
         if not decode_video:
             raise NotImplementedError("decode_video=False unsupported")
         if decode_audio:
-            logger.warning("OpenCV backend cannot decode audio; returning audio=None")
+            logger.warning("OpenCV backend cannot decode audio (decoder='native' does); "
+                           "returning audio=None")
         self._video_name = video_name or os.path.basename(file_path)
         self._path = str(file_path)
         self._cap = cv2.VideoCapture(self._path)

@@ -53,17 +53,24 @@ def pts_to_secs(pts: int, time_base: float, start_pts: int) -> float:
 
 
 def export_video_array(video, output_path: str, rate: float, layout: str = "THWC",
-                       fourcc: str = "FFV1") -> None:
-    """Write a uint8 clip (tensor or array) to ``output_path`` with OpenCV
-    (FFV1 in AVI is lossless, so a decode gives the frames back exactly).
-    Needs ``cv2``, imported here only."""
-    import cv2
-
+                       fourcc: str = "FFV1", audio=None, audio_rate: int = 0) -> None:
+    """Write a uint8 clip (tensor or array) to ``output_path``: with OpenCV
+    (FFV1 in AVI is lossless, so a decode gives the frames back exactly;
+    ``cv2`` is imported here only), or, with ``audio`` (mono float32 in
+    [-1, 1] at ``audio_rate``), through the native muxer as FFV1 and
+    pcm_s16le (data/encoded_video_native.py ``mux_av``)."""
     if layout not in ("THWC", "CTHW"):
         raise ValueError(f"layout must be 'THWC' or 'CTHW', got {layout!r}")
     video = torch.as_tensor(video)
     if layout == "CTHW":
         video = cthw_to_thwc(video)
+    if audio is not None:
+        from pytorchvideo_tpu_torch.data.encoded_video_native import mux_av
+
+        mux_av(output_path, video, rate, audio, audio_rate)
+        return
+    import cv2
+
     frames = video.to(torch.uint8).cpu().numpy()
     t, h, w, c = frames.shape
     writer = cv2.VideoWriter(str(output_path), cv2.VideoWriter_fourcc(*fourcc), rate, (w, h))

@@ -1,7 +1,8 @@
 """Width/depth rounding utilities.
 
 Counterpart of pytorchvideo_tpu/layers/utils.py (reference semantics:
-pytorchvideo/layers/utils.py:19-49, `round_width`, `round_repeats`).
+pytorchvideo/layers/utils.py:7-49, `set_attributes`, `round_width`,
+`round_repeats`).
 """
 
 import math
@@ -32,3 +33,12 @@ def round_repeats(repeats, multiplier):
     if not multiplier:
         return repeats
     return int(math.ceil(multiplier * repeats))
+
+
+def set_attributes(self, params=None) -> None:
+    """Set the attributes of ``self`` from a ``locals()`` dict, its "self"
+    left out (upstream layers/utils.py:7-16)."""
+    if params:
+        for k, v in params.items():
+            if k != "self":
+                setattr(self, k, v)

@@ -5,6 +5,9 @@ init. The factory takes ``create_csn``'s keywords, ``device`` included
 
 from pytorchvideo_tpu_torch.models.csn import create_csn
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {"csn_r101": "kinetics/CSN_32x2_R101.pyth"}
+
 
 def csn_r101(**kwargs):
     """CSN R101 32x2 (32-frame 224x224 clips). As in the JAX package there

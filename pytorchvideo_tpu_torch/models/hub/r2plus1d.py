@@ -5,6 +5,9 @@ init. The factory takes ``create_r2plus1d``'s keywords, ``device`` included
 
 from pytorchvideo_tpu_torch.models.r2plus1d import create_r2plus1d
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {"r2plus1d_r50": "kinetics/R2PLUS1D_16x4_R50.pyth"}
+
 
 def r2plus1d_r50(**kwargs):
     """R(2+1)D R50 16x4 (16-frame 224x224 clips)."""

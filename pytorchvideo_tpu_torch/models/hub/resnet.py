@@ -9,6 +9,13 @@ from pytorchvideo_tpu_torch.layers.pooling import MaxPool3d
 from pytorchvideo_tpu_torch.models.detection import create_resnet_with_roi_head
 from pytorchvideo_tpu_torch.models.resnet import create_resnet
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {
+    "slow_r50": "kinetics/SLOW_8x8_R50.pyth",
+    "c2d_r50": "kinetics/C2D_8x8_R50.pyth",
+    "i3d_r50": "kinetics/I3D_8x8_R50.pyth",
+}
+
 
 def slow_r50(**kwargs):
     """Slow R50 8x8."""

@@ -10,6 +10,13 @@ parameters; the port's build is the plain one, as is the JAX
 from pytorchvideo_tpu_torch.models.detection import create_slowfast_with_roi_head
 from pytorchvideo_tpu_torch.models.slowfast import create_slowfast
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {
+    "slowfast_r50": "kinetics/SLOWFAST_8x8_R50.pyth",
+    "slowfast_r101": "kinetics/SLOWFAST_8x8_R101.pyth",
+    "slowfast_16x8_r101_50_50": "kinetics/SLOWFAST_16x8_R101_50_50.pyth",
+}
+
 
 def slowfast_r50(**kwargs):
     """SlowFast R50 8x8 (8- and 32-frame 224x224 clips)."""

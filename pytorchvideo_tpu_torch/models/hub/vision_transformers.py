@@ -8,6 +8,13 @@ from pytorchvideo_tpu_torch.models.vision_transformers import (
     create_multiscale_vision_transformers,
 )
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {
+    "mvit_base_16x4": "kinetics/MVIT_B_16x4.pyth",
+    "mvit_base_32x3": "kinetics/MVIT_B_32x3_f294077834.pyth",
+    "mvit_base_16": "imagenet/MVIT_B_16_f292487636.pyth",
+}
+
 mvit_video_base_config = {
     "spatial_size": 224,
     "temporal_size": 16,

@@ -5,6 +5,14 @@ keywords, ``device`` included ("cuda" unless the caller asks for the CPU)."""
 
 from pytorchvideo_tpu_torch.models.x3d import create_x3d
 
+# Upstream's checkpoint file names (names only: nothing is downloaded).
+checkpoint_names = {
+    "x3d_xs": "kinetics/X3D_XS.pyth",
+    "x3d_s": "kinetics/X3D_S.pyth",
+    "x3d_m": "kinetics/X3D_M.pyth",
+    "x3d_l": "kinetics/X3D_L.pyth",
+}
+
 
 def x3d_xs(**kwargs):
     """X3D-XS 4x160."""

@@ -59,6 +59,11 @@ def thwc_to_cthw(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, -4)
 
 
+def thwc_from_numpy_thwc(x: np.ndarray) -> torch.Tensor:
+    """A THWC numpy clip as a tensor sharing its memory."""
+    return torch.from_numpy(x)
+
+
 # ---------------------------------------------------------------------------
 # Temporal ops
 # ---------------------------------------------------------------------------
@@ -192,6 +197,15 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 
 def horizontal_flip(x: torch.Tensor) -> torch.Tensor:
     return x.flip(WIDTH_AXIS)
+
+
+def random_horizontal_flip(x: torch.Tensor, prob: float,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``x`` mirrored along its width with probability ``prob``, drawn on the
+    host from ``generator``."""
+    if float(torch.rand((), generator=generator)) < prob:
+        return horizontal_flip(x)
+    return x
 
 
 # ---------------------------------------------------------------------------

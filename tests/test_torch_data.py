@@ -181,9 +181,14 @@ def test_decoded_clips_are_jax_s_frames_as_uint8(videos):
         np.testing.assert_array_equal(ours.get_clip(0, float("inf"))["video"].numpy(), data)
         ours.close()
         theirs.close()
-    for decoder in ("native", "pyav"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EncodedVideo.from_path(path, decoder=decoder)
+    # PyAV is not ported; "native" is the native decoder's class (its clips
+    # are held against the JAX package's in test_torch_native_decoder.py).
+    with pytest.raises(NotImplementedError, match="pyav"):
+        EncodedVideo.from_path(path, decoder="pyav")
+    from pytorchvideo_tpu_torch.data.encoded_video import select_video_class
+    from pytorchvideo_tpu_torch.data.encoded_video_native import EncodedVideoNative
+
+    assert select_video_class("native") is EncodedVideoNative
 
 
 def _take(dataset, n):

@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ("jax", "pytorchvideo_tpu", "cv2", "av", "decord", "PIL", "torchvision", "networkx")
@@ -33,7 +35,8 @@ NEW_MODULES = ("data.clip_sampling", "data.clip_store", "data.encoded_video",
                "data.epic_kitchen", "data.epic_kitchen.utils",
                "data.epic_kitchen.epic_kitchen_dataset", "data.epic_kitchen_recognition",
                "data.epic_kitchen_forecasting", "data.domsev", "data.ego4d", "data.ego4d.utils",
-               "data.ego4d.ego4d_dataset")
+               "data.ego4d.ego4d_dataset", "data.encoded_video_native", "data.native_pipeline",
+               "data.native_build")
 # Names the JAX package's packages export, which the port's export under the
 # same names.
 JAX_EXPORTS = {
@@ -71,6 +74,8 @@ def test_every_port_module_imports_without_jax_or_a_decoder():
         f"missing = [n for n in {NEW_MODULES!r} if 'pytorchvideo_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         f"assert not [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]\n"
+        "# Importing the native decoder builds and loads nothing.\n"
+        "assert sys.modules['pytorchvideo_tpu_torch.data.encoded_video_native']._LIB is None\n"
         "print('ok', len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -93,3 +98,36 @@ def test_the_jax_package_exports_are_the_port_s_too():
         port = importlib.import_module(f"pytorchvideo_tpu_torch.{module}")
         for name in names:
             assert len(getattr(port, name)) == len(getattr(jax_module, name)), name
+
+
+HUB_MODULES = ("x3d", "csn", "r2plus1d", "resnet", "slowfast", "vision_transformers")
+
+
+@pytest.mark.parametrize("module", HUB_MODULES)
+def test_hub_checkpoint_names_are_jax_s(module):
+    import importlib
+
+    ours = importlib.import_module(f"pytorchvideo_tpu_torch.models.hub.{module}")
+    theirs = importlib.import_module(f"pytorchvideo_tpu.models.hub.{module}")
+    assert ours.checkpoint_names == theirs.checkpoint_names
+    # Each name is a factory of the module.
+    assert all(callable(getattr(ours, name)) for name in ours.checkpoint_names)
+
+
+def test_set_attributes_as_jax_s():
+    from pytorchvideo_tpu.layers.utils import set_attributes as jax_set_attributes
+    from pytorchvideo_tpu_torch.layers.utils import set_attributes
+
+    class Holder:
+        pass
+
+    def params(self, a, b=2, *, c=None):
+        return dict(locals())
+
+    ours, theirs = Holder(), Holder()
+    set_attributes(ours, params(ours, 1, c="x"))
+    jax_set_attributes(theirs, params(theirs, 1, c="x"))
+    assert vars(ours) == vars(theirs) == {"a": 1, "b": 2, "c": "x"}
+    set_attributes(ours, None)
+    set_attributes(ours, {})
+    assert vars(ours) == {"a": 1, "b": 2, "c": "x"}

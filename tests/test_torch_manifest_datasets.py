@@ -484,7 +484,8 @@ def test_signal_transform_matches_jax_s(kind):
 
 class _WithAudio:
     """A decoded video whose clips also carry the seeded waveform's samples
-    over the clip's span: the audio the OpenCV backend does not decode."""
+    over the clip's span, so the sample's audio is known exactly (a real A/V
+    file goes through the native decoder in test_torch_native_decoder.py)."""
 
     def __init__(self, video, waveform, to_tensor):
         self._video, self._waveform, self._to_tensor = video, waveform, to_tensor

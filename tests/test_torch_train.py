@@ -8,6 +8,7 @@ a model's loss and gradients (tests/test_models_parity.py:24); rtol 1e-5
 where the same numbers go through one optimizer update."""
 
 import inspect
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -269,27 +270,79 @@ def test_soft_target_cross_entropy_matches_jax(ignore_index, normalize):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("op", ["mixup", "cutmix"])
+# Each case: the function or class called, MixVideo's cutmix_prob, and the
+# audio's (C, T, H, W) a sample (None: no audio). (1, 16, 1, 10) is
+# audio-visual SlowFast's (1, T, 1, F) spectrogram, made small; (1, 2, 12, 10)
+# gives CutMix a box that is not empty on the audio.
+MIX_CASES = {
+    "mixup": ("mixup", None, None),
+    "cutmix": ("cutmix", None, None),
+    "mixup-audio": ("mixup", None, (1, 16, 1, 10)),
+    "cutmix-audio": ("cutmix", None, (1, 16, 1, 10)),
+    "cutmix-audio-box": ("cutmix", None, (1, 2, 12, 10)),
+    "MixUp-audio": ("MixUp", None, (1, 16, 1, 10)),
+    "CutMix-audio-box": ("CutMix", None, (1, 2, 12, 10)),
+    "MixVideo-mixup-audio": ("MixVideo", 0.0, (1, 16, 1, 10)),
+    "MixVideo-cutmix-audio-box": ("MixVideo", 1.0, (1, 2, 12, 10)),
+}
+
+
+@pytest.mark.parametrize("op", list(MIX_CASES))
 def test_mix_matches_jax_with_lambda_and_box_fixed(op, monkeypatch):
     # The samplers are fixed in both packages (the two frameworks draw
     # different bits from one seed); the mixing and the labels must agree.
-    lam, centre = 0.3, (5, 2)
+    # The box centres: the video's, then the audio's.
+    name, cutmix_prob, audio_shape = MIX_CASES[op]
+    lam, centres = 0.3, {(8, 6): (5, 2), (1, 10): (0, 4), (12, 10): (7, 4)}
     monkeypatch.setattr(mix, "_sample_beta", lambda alpha, generator: lam)
-    monkeypatch.setattr(mix, "_sample_center", lambda h, w, generator: centre)
+    monkeypatch.setattr(mix, "_sample_center", lambda h, w, generator: centres[(h, w)])
     monkeypatch.setattr(jax_mix, "_sample_beta", lambda key, alpha: jnp.float32(lam))
-    draws = iter(centre)
+    draws = [*centres[(8, 6)], *(centres[audio_shape[-2:]] if audio_shape else ())]
+    # MixVideo's lax.cond traces both branches: the draws repeat.
+    draws = itertools.cycle(draws)
     monkeypatch.setattr(jax_mix.jax.random, "randint", lambda *a, **k: jnp.int32(next(draws)))
-    x = np.random.default_rng(0).normal(size=(4, 3, 2, 8, 6)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 3, 2, 8, 6)).astype(np.float32)
+    audio = rng.normal(size=(4, *audio_shape)).astype(np.float32) if audio_shape else None
     labels = np.array([0, 3, 1, 2])
     kw = dict(alpha=0.8, label_smoothing=0.1, num_classes=5)
-    video, soft = getattr(mix, op)(torch.from_numpy(x), torch.from_numpy(labels), **kw)
-    ref_video, ref_soft = getattr(jax_mix, op)(jax.random.PRNGKey(0), _nhwc(x), jnp.asarray(labels),
-                                               **kw)
-    np.testing.assert_allclose(np.moveaxis(video.numpy(), 1, -1), np.asarray(ref_video), rtol=1e-6)
-    np.testing.assert_allclose(soft.numpy(), np.asarray(ref_soft), rtol=1e-6, atol=1e-7)
-    if op == "cutmix":
+    ours_args = (torch.from_numpy(x), torch.from_numpy(labels))
+    jax_args = (jax.random.PRNGKey(0), _nhwc(x), jnp.asarray(labels))
+    ours_audio = torch.from_numpy(audio) if audio is not None else None
+    jax_audio = _nhwc(audio) if audio is not None else None
+    if name in ("mixup", "cutmix"):
+        out = getattr(mix, name)(*ours_args, **kw, x_audio=ours_audio)
+        ref = getattr(jax_mix, name)(*jax_args, **kw, x_audio=jax_audio)
+    elif name == "MixVideo":
+        kw = dict(cutmix_prob=cutmix_prob, mixup_alpha=0.8, cutmix_alpha=0.8,
+                  label_smoothing=0.1, num_classes=5)
+        out = mix.MixVideo(**kw)(*ours_args, x_audio=ours_audio)
+        ref = jax_mix.MixVideo(**kw)(*jax_args, x_audio=jax_audio)
+    else:
+        out = getattr(mix, name)(**kw)(*ours_args, x_audio=ours_audio)
+        ref = getattr(jax_mix, name)(**kw)(*jax_args, x_audio=jax_audio)
+    assert len(out) == len(ref) == (3 if audio_shape else 2)
+    video, soft = out[0], out[-1]
+    # MixVideo's lax.cond compiles the JAX mix, which rounds lam * x + (1 -
+    # lam) * flip(x) in its own order: 2e-8 apart near zero.
+    tol = dict(rtol=1e-6, atol=1e-7 if name == "MixVideo" else 0.0)
+    np.testing.assert_allclose(np.moveaxis(video.numpy(), 1, -1), np.asarray(ref[0]), **tol)
+    np.testing.assert_allclose(soft.numpy(), np.asarray(ref[-1]), rtol=1e-6, atol=1e-7)
+    cuts = name in ("cutmix", "CutMix") or cutmix_prob == 1.0
+    if cuts:
         # The box (rows 2-7, columns 0-4 of the 8x6 frame) and its lambda.
         assert not np.allclose(video.numpy(), x) and (video.numpy()[..., :2, :] == x[..., :2, :]).all()
+    if audio_shape:
+        mixed_audio = out[1].numpy()
+        np.testing.assert_allclose(np.moveaxis(mixed_audio, 1, -1), np.asarray(ref[1]), **tol)
+        if cuts and audio_shape[-2] == 1:
+            # A one-row spectrogram's box is empty, as in the JAX package.
+            np.testing.assert_array_equal(mixed_audio, audio)
+        elif cuts:
+            # Its own box: rows 2-11, columns 0-7 of the 12x10 grid.
+            assert (mixed_audio[..., :2, :] == audio[..., :2, :]).all()
+            assert (mixed_audio[..., 8:] == audio[..., 8:]).all()
+            assert not np.allclose(mixed_audio[..., 2:, :8], audio[..., 2:, :8])
 
 
 def test_beta_sampler_moments():

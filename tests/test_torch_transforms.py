@@ -117,6 +117,32 @@ def test_crops_and_flip_equal_jax_s(h, w):
     np.testing.assert_array_equal(_np(F.horizontal_flip(tx)), JF.horizontal_flip(x))
 
 
+@pytest.mark.parametrize("prob", [0.0, 1.0])
+def test_random_horizontal_flip_at_prob_0_and_1_as_jax_s(prob):
+    x = _clip()
+    ours = F.random_horizontal_flip(torch.from_numpy(x), prob, torch.Generator().manual_seed(0))
+    theirs = JF.random_horizontal_flip(jnp.asarray(x), prob, jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(_np(ours), np.asarray(theirs))
+    np.testing.assert_array_equal(_np(ours), x[:, :, ::-1] if prob else x)
+
+
+def test_random_horizontal_flip_draws_from_the_generator():
+    x = torch.from_numpy(_clip(t=1, h=2, w=3))
+    flips = [not torch.equal(F.random_horizontal_flip(x, 0.5, gen), x)
+             for gen in [torch.Generator().manual_seed(0)] for _ in range(400)]
+    assert 150 < sum(flips) < 250
+    gens = (torch.Generator().manual_seed(5), torch.Generator().manual_seed(5))
+    assert all(torch.equal(F.random_horizontal_flip(x, 0.5, gens[0]),
+                           F.random_horizontal_flip(x, 0.5, gens[1])) for _ in range(20))
+
+
+def test_thwc_from_numpy_thwc_shares_memory_as_jax_s_values():
+    x = _clip(uint8=True)
+    ours = F.thwc_from_numpy_thwc(x)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(JF.thwc_from_numpy_thwc(x)))
+    assert ours.dtype == torch.uint8 and ours.data_ptr() == x.ctypes.data
+
+
 def test_random_crop_stays_inside():
     x = torch.from_numpy(_clip(h=32, w=48))
     g = torch.Generator().manual_seed(0)
