@@ -492,9 +492,33 @@ exits nonzero, printing no result, when a check fails or no card is present.
     1e-6 relative); one bf16 training step of the SlowFast-R50 preset on the
     CutMix batch, its loss finite. No kernel launches in (a)'s AV part or in
     (b).
+29. The examples (``examples_torch/``) at full width, seeded random weights.
+    (a) The model-zoo eval protocol of ``eval_kinetics.evaluate`` (clip
+    sampler, transforms, ``BatchLoader`` with 4 threads, f32 forward,
+    sum ensemble) on ``x3d_s`` at 10x3 views of 13x182x182,
+    ``mvit_base_16x4`` at 5x1 of 16x224x224 and ``slowfast_r50`` at 10x3 of
+    32x256x256 (alpha 4): seeded uint8 videos of 10 s at 30 fps and
+    240x320, 4 a model (2 for SlowFast), handed over in memory through the
+    harness's ``video_path_handler`` (the card's machine has no decoder;
+    chosen before the run). The views must number videos x clips x crops,
+    each video seen once a view; the ensembled logits within 1e-3 x max
+    |logit| of the same run under ``plain_kernels()``, the predictions
+    equal wherever the top-two margin exceeds that bound; MViT's #4 (f32:
+    the CUDA cores) and #6 (tiled) launches, 32 and 38 a forward batch, and
+    none on the other two. views/s and the host's ms a batch (waiting for
+    the loader, in the forward call) are printed. The golden fixture
+    (tests/test_eval_harness.py:38) on the card: the sum ensemble 100%
+    top-1, max 0%. (b) ``accelerator_deployment.main(["--device",
+    "cuda"])``: #1's launches, 22 a deploy forward as in phase 23, over
+    every eager, warm-up and captured forward and the loaded program's; the
+    deploy forms' logits (efficient, eager, compiled, transmuted) within
+    3e-2 x max |logit| of the f32 model's, the exported program's within
+    the same bound of the eager form's. The examples that read video files
+    (hub inference, classification, SSL pretraining, detection) need a
+    decoder and run in the CPU tests only.
 
 Each phase from 15 on prints its seconds. ``python3 chip_smoke.py --phase N``
-(N from 23 to 28) runs the build and that phase alone (no kernels line, no
+(N from 23 to 29) runs the build and that phase alone (no kernels line, no
 ok line), a development run.
 
 The line before the last is a JSON object with one entry per kernel, each
@@ -507,7 +531,8 @@ by route and the first version's; the depthwise kernel's also on
 data-parallel step, ``data_parallel_step``, and #4's and #5's in its
 sequence-parallel shards, ``sequence_parallel``; each MViT kernel's launches
 on phase 26's tensor-parallel path, by route, and its errors, launches and
-times at the local shapes, ``tensor_parallel``); the last line is
+times at the local shapes, ``tensor_parallel``; #1's, #4's and #6's
+launches on phase 29's example paths, ``phase29``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -7703,6 +7728,221 @@ def decoder_slice(hub, convert_to_deployable_form, train, card: str) -> dict:
     return report
 
 
+# Phase 29: the examples of examples_torch/ at full width. Each eval case
+# is (model, videos, batch size) at its EVAL_CONFIGS protocol; the videos are
+# seeded uint8 frames of 10 s at 30 fps, handed to the harness in memory.
+EXAMPLE_VIDEO = (300, 240, 320)
+EXAMPLE_FPS = 30
+EVAL_CASES = (("x3d_s", 4, 16), ("mvit_base_16x4", 4, 8), ("slowfast_r50", 4, 8))
+EVAL_PLAIN_SHARE = 1e-3  # kernel run against plain run, of max |ensembled logit|
+EVAL_SEED = 290
+# Calibration clips of randomize_ per ResNet-family model, at its eval crop.
+EVAL_CALIBRATION = {"x3d_s": (13, 182, 182), "slowfast_r50": [(8, 256, 256), (32, 256, 256)]}
+
+
+def example_module(name: str):
+    """examples_torch/<name>.py of this checkout."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    return importlib.import_module(f"examples_torch.{name}")
+
+
+def eval_model(ek, name: str, gen, device: str):
+    """``name`` as the harness builds it (f32, 400 classes, eval mode) with
+    seeded random weights (randomize_ / randomize_mvit_)."""
+    import torch
+
+    model = ek.build_model(name, 400, device)
+    if name.startswith("mvit_"):
+        randomize_mvit_(model, gen)
+    else:
+        calibration = clips(2, EVAL_CALIBRATION[name], gen)
+        randomize_(model, gen, calibration)
+        del calibration
+        torch.cuda.empty_cache()
+    return model
+
+
+def eval_protocol_case(ek, name: str, model, videos: dict, batch: int, per_forward: dict,
+                       directory: str, card: str) -> dict:
+    """Phase 29 (a) for one model: the harness over ``videos`` (in memory),
+    its views counted by video, its launches per forward batch, its
+    ensembled logits against the same run under ``plain_kernels()``."""
+    import numpy as np
+
+    num_frames, rate, side, crop, n_clips, n_crops, alpha = ek.EVAL_CONFIGS[name]
+    labels = [(video, (7 * i) % 400) for i, video in enumerate(videos)]
+    csv = ek.write_csv(os.path.join(directory, f"{name}.csv"), labels)
+    kwargs = dict(num_frames=num_frames, sampling_rate=rate, side_size=side, crop_size=crop,
+                  clips_per_video=n_clips, spatial_crops=n_crops, alpha=alpha, batch_size=batch,
+                  fps=float(EXAMPLE_FPS),
+                  video_path_handler=ek.ArrayVideoPathHandler(videos, EXAMPLE_FPS))
+    reset_counts()
+    record = {}
+    result = ek.evaluate(model, csv, record=record, **kwargs)
+    counts = read_counts()
+    views = len(videos) * n_clips * n_crops
+    seen = np.bincount(record["video_index"], minlength=len(videos))
+    print(f"phase 29 (a) {name} {n_clips}x{n_crops} views of {num_frames}x{crop}x{crop}"
+          f"{'' if alpha is None else f' (alpha {alpha})'}, {len(videos)} videos, B{batch}: "
+          f"{len(record['video_index'])} views in {record['batches']} batches, per video "
+          f"{seen.tolist()}")
+    assert result["num_videos"] == len(videos) and result["views"] == f"{n_clips}x{n_crops}"
+    assert len(record["video_index"]) == views, f"{name}: {len(record['video_index'])} views"
+    assert (seen == n_clips * n_crops).all(), f"{name}: views per video {seen.tolist()}"
+    check_path_counts(f"phase 29 (a) {name} eval", counts, per_forward, record["batches"],
+                      unit="forward batches")
+    plain = {}
+    with plain_kernels():
+        reset_counts()
+        ek.evaluate(model, csv, record=plain, **kwargs)
+        assert not any(read_counts().values()), f"{name}: the plain run launched a kernel"
+    got, ref = record["ensembled"].float(), plain["ensembled"].float()
+    assert got.shape == (len(videos), 400) and bool(got.isfinite().all()), f"{name}: bad logits"
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    bound = EVAL_PLAIN_SHARE * scale
+    top2 = ref.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > bound
+    agree = got.argmax(1) == ref.argmax(1)
+    wait_ms = sum(record["wait_ms"]) / record["batches"]
+    call_ms = sum(record["call_ms"]) / record["batches"]
+    print(f"phase 29 (a) {name}: {result['views_per_s']!r} views/s ({result['wall_s']!r} s), host "
+          f"{wait_ms!r} ms a batch waiting for the loader and {call_ms!r} ms in the forward "
+          f"call; ensembled logits vs plain kernels max |err| {err!r} (bound {bound!r} = "
+          f"{EVAL_PLAIN_SHARE} x {scale!r}); predictions agree on {int(agree[decided].sum())}/"
+          f"{int(decided.sum())} decided videos; on {card}")
+    assert err <= bound, f"{name}: ensembled logits off the plain run by {err} > {bound}"
+    assert bool(agree[decided].all()), f"{name}: a decided prediction differs from the plain run"
+    return {"views": views, "batches": record["batches"], "views_per_s": result["views_per_s"],
+            "wall_s": result["wall_s"], "host_wait_ms": wait_ms, "host_call_ms": call_ms,
+            "max_abs_err_vs_plain": err, "bound": bound, "counts": counts,
+            "predictions": result["predictions"]}
+
+
+def golden_fixture_check(ek, device: str, directory: str) -> dict:
+    """tests/test_eval_harness.py:38 on ``device``: each video's first clip
+    lies nearer a wrong class's brightness, the sum over both clips picks
+    the true one and the max the wrong one (100% and 0% top-1)."""
+    import numpy as np
+    import torch
+
+    centers_b = np.array([40.0, 100.0, 160.0, 220.0])
+    b1 = np.where(np.arange(4) == 0, centers_b + 55, centers_b - 55)
+    b2 = np.where(np.arange(4) == 0, centers_b - 15, centers_b + 15)
+    videos = {f"golden{k}": torch.cat([torch.full((4, 64, 64, 3), int(b1[k])),
+                                       torch.full((4, 64, 64, 3), int(b2[k]))]).to(torch.uint8)
+              for k in range(4)}
+
+    class BrightnessModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.centers = torch.nn.Parameter(torch.tensor(
+                (centers_b / 255.0 - 0.45) / 0.225, dtype=torch.float32, device=device))
+
+        def forward(self, x):
+            m = x.mean(dim=tuple(range(1, x.dim())))
+            return -torch.square(m[:, None] - self.centers[None, :])
+
+    csv = ek.write_csv(os.path.join(directory, "golden.csv"), [(v, k) for k, v in
+                                                               enumerate(videos)])
+    results = {method: ek.evaluate(
+        BrightnessModel(), csv, num_frames=4, sampling_rate=1, side_size=64, crop_size=64,
+        clips_per_video=2, spatial_crops=1, alpha=None, batch_size=4, fps=4.0,
+        ensemble_method=method, video_path_handler=ek.ArrayVideoPathHandler(videos, 4))
+        for method in ("sum", "max")}
+    top1 = {method: r["top1"] for method, r in results.items()}
+    print(f"phase 29 (a) golden fixture on {device}: top-1 {top1} (sum must be 100, max 0)")
+    assert results["sum"]["views"] == "2x1" and results["sum"]["num_videos"] == 4
+    assert top1 == {"sum": 100.0, "max": 0.0}, top1
+    return top1
+
+
+def deployment_example_check(card: str) -> dict:
+    """Phase 29 (b): ``accelerator_deployment.main(["--device", "cuda"])``,
+    its #1 launches over every forward that ran a deploy form eagerly (22
+    each, phase 23's count) and in one more forward of its deploy form; the
+    deploy forms' logits against the f32 models', the loaded program's
+    against the eager form's."""
+    import torch
+
+    ad = example_module("accelerator_deployment")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ad.main(["--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_path_counts("phase 29 (b) accelerator_deployment.main", counts, X3D_PER_FORWARD,
+                      out["deploy_forwards"],
+                      unit="deploy forwards (eager, warm-up, capture and the loaded program)")
+    with torch.no_grad():
+        reset_counts()
+        out["deploy"](out["input"].bfloat16())
+        check_path_counts("phase 29 (b) its deploy form, one forward", read_counts(),
+                          X3D_PER_FORWARD, 1)
+    bound = LOGIT_REL_TOL["bfloat16"]
+    errs = {}
+    for ref_key, keys in (("reference", ("deployable", "compiled", "transmuted")),
+                          ("efficient_reference", ("efficient",)),
+                          ("deployable", ("exported",))):
+        ref = out[ref_key]
+        scale = ref.abs().max().item()
+        assert math.isfinite(scale) and scale > 0, f"phase 29 (b): {ref_key} logits"
+        for key in keys:
+            got = out[key]
+            assert got.shape == ref.shape == (1, 400) and bool(got.isfinite().all()), key
+            errs[key] = (got - ref).abs().max().item() / scale
+            assert errs[key] <= bound, f"phase 29 (b) {key}: {errs[key]} of max |logit| > {bound}"
+    print(f"phase 29 (b) accelerator_deployment.main: {seconds:.1f} s, {out['deploy_forwards']} "
+          f"deploy forwards, #1 launches {counts['depthwise3x3x3_bn_swish']}; logits off their "
+          f"reference, of max |logit| (bound {bound}): {errs}; program {out['exported_bytes']} "
+          f"bytes; on {card}")
+    return {"launches": counts["depthwise3x3x3_bn_swish"],
+            "launches_by_route": by_route(counts, "depthwise3x3x3_bn_swish"),
+            "deploy_forwards": out["deploy_forwards"], "rel_errs": errs, "seconds": seconds}
+
+
+def examples_slice(card: str, device: str = "cuda") -> dict:
+    """Phase 29: the examples (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    ek = example_module("eval_kinetics")
+    gen = torch.Generator().manual_seed(EVAL_SEED)
+    t0 = time.perf_counter()
+    most = max(n for _, n, _ in EVAL_CASES)
+    videos = {f"video{i}": torch.randint(0, 256, (*EXAMPLE_VIDEO, 3), generator=gen,
+                                         dtype=torch.uint8) for i in range(most)}
+    print(f"phase 29 (a): {most} seeded videos of {EXAMPLE_VIDEO} uint8 at {EXAMPLE_FPS} fps "
+          f"made in {time.perf_counter() - t0:.1f} s, handed to eval_kinetics.evaluate in memory "
+          f"through video_path_handler=ArrayVideoPathHandler: the card's machine has no decoder "
+          f"(a choice made before the run)")
+    per_forward = {"mvit_base_16x4": f32_routes(MVIT_PER_FORWARD)}
+    report = {"eval": {}}
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase29_", dir=build) as tmp:
+        for name, count, batch in EVAL_CASES:
+            t0 = time.perf_counter()
+            model = eval_model(ek, name, gen, device)
+            subset = {key: videos[key] for key in list(videos)[:count]}
+            report["eval"][name] = eval_protocol_case(ek, name, model, subset, batch,
+                                                      per_forward.get(name, {}), tmp, card)
+            del model
+            torch.cuda.empty_cache()
+            print(f"phase 29 (a) {name}: {time.perf_counter() - t0:.1f} s")
+        report["golden_fixture"] = golden_fixture_check(ek, device, tmp)
+    del videos
+    t0 = time.perf_counter()
+    report["deployment"] = deployment_example_check(card)
+    print(f"phase 29 (b): {time.perf_counter() - t0:.1f} s")
+    print("phase 29: hub_inference, video_classification, ssl_pretraining and video_detection "
+          "read video files, and the card's machine has no decoder: they run in the CPU tests "
+          "only (tests/test_torch_examples.py)")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -7771,9 +8011,15 @@ def main() -> None:
               f"{time.perf_counter() - t_phase:.1f} s")
         print("decoder report: " + json.dumps(decoder, default=str))
         return
+    if sys.argv[1:] == ["--phase", "29"]:  # a development run: phase 29 alone
+        t_phase = time.perf_counter()
+        examples = examples_slice(card)
+        print(f"phase 29 (the examples): {time.perf_counter() - t_phase:.1f} s")
+        print("examples report: " + json.dumps(examples, default=str))
+        return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none or --phase N, "
-                 f"N in 23-28")
+                 f"N in 23-29")
 
     kernel_report = check_kernel(dw)
 
@@ -7879,6 +8125,10 @@ def main() -> None:
     print(f"phase 28 (the native decoder and MixVideo's audio): "
           f"{time.perf_counter() - t_phase:.1f} s")
     print("decoder report: " + json.dumps(decoder, default=str))
+    t_phase = time.perf_counter()
+    examples = examples_slice(card)
+    print(f"phase 29 (the examples): {time.perf_counter() - t_phase:.1f} s")
+    print("examples report: " + json.dumps(examples, default=str))
 
     x3d_rows = kernel_report["per_shape"]
     pool_rows = pool_report["rows"]["conv"] + pool_report["rows"]["max"]
@@ -8248,6 +8498,32 @@ def main() -> None:
     # Phase 26: each MViT kernel on the tensor-parallel path and at its
     # local shapes.
     tensor_parallel_entries(entries, tensor)
+    # Phase 29: #1 on the deployment walkthrough, #4 and #6 on the eval
+    # harness's MViT-B.
+    eval_counts = examples["eval"]["mvit_base_16x4"]["counts"]
+    eval_path = ("phase 29 (a): eval_kinetics.evaluate on mvit_base_16x4 f32 16x224x224, 5x1 views "
+                 "of 4 videos in batches of 8, and nothing else")
+    for entry in entries:
+        if entry["name"] == "depthwise3x3x3_bn_swish":
+            entry["phase29"] = {
+                "launches": examples["deployment"]["launches"],
+                "launches_by_route": examples["deployment"]["launches_by_route"],
+                "path": "phase 29 (b): accelerator_deployment.main([\"--device\", \"cuda\"]), "
+                        "X3D-XS 4x160x160 B1: the efficient and hub deploy forms eager, "
+                        "captured and transmuted, and the exported program"}
+        elif entry["name"] == "pooled_attention_packed":
+            entry["phase29"] = {"launches": eval_counts["pooled_attention_packed"],
+                                "launches_by_route": by_route(eval_counts,
+                                                              "pooled_attention_packed"),
+                                "path": eval_path}
+        elif entry["name"] == "token_pool":
+            entry["phase29"] = {
+                "launches": eval_counts["token_pool_conv"] + eval_counts["token_pool_max"],
+                "launches_by_mode": {m: eval_counts[f"token_pool_{m}"]
+                                     for m in ("conv", "max", "avg")},
+                "launches_by_route": pool_routes(eval_counts,
+                                                 ("token_pool_conv", "token_pool_max")),
+                "path": eval_path}
     for entry in entries:
         assert entry["launches"] > 0, f"{entry['name']} never launched on its path"
     print(f"total {time.perf_counter() - t_start:.1f} s from the build on")

@@ -131,3 +131,39 @@ def test_set_attributes_as_jax_s():
     set_attributes(ours, None)
     set_attributes(ours, {})
     assert vars(ours) == {"a": 1, "b": 2, "c": "x"}
+
+
+EXAMPLES = ("eval_kinetics", "hub_inference", "visualization", "video_detection",
+            "video_classification", "ssl_pretraining", "accelerator_deployment")
+
+
+def test_examples_import_neither_jax_nor_the_jax_package():
+    """Every script of examples_torch/ imports on a machine like the card's,
+    and no import statement in it, at top level or inside a function, names
+    jax, the JAX package or the JAX scripts' examples/."""
+    import ast
+
+    assert sorted(p.stem for p in (REPO / "examples_torch").glob("*.py")) == sorted(EXAMPLES)
+    for name in EXAMPLES:
+        tree = ast.parse((REPO / "examples_torch" / f"{name}.py").read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [alias.name.split(".")[0] for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "pytorchvideo_tpu", "examples", "flax"} & set(roots), (name, roots)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {BLOCKED + ('examples', 'flax')!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    importlib.import_module('examples_torch.' + name)\n"
+        f"assert not [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
