@@ -971,24 +971,9 @@ def route_sums(rows) -> dict:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its count is read under."""
-    from pytorchvideo_tpu_torch.ops import depthwise_conv as dw
-    from pytorchvideo_tpu_torch.ops import fused_kvpool_attention as fk
-    pa = importlib.import_module("pytorchvideo_tpu_torch.ops.pooled_attention")
-    from pytorchvideo_tpu_torch.ops import token_pool as tp
+    from pytorchvideo_tpu_torch import ops
 
-    return {
-        "depthwise3x3x3_bn_swish": dw.depthwise3x3x3_bn_swish_cuda,
-        "fused_kvpool_attention": fk.fused_kvpool_attention_cuda,
-        "pooled_attention_packed": pa.pooled_attention_packed_cuda,
-        "pooled_attention": pa.pooled_attention_cuda,
-        "token_pool_conv": tp.depthwise_token_pool_cuda,
-        "token_pool_max": tp.max_token_pool_cuda,
-        "token_pool_avg": tp.avg_token_pool_cuda,
-        "pooled_attention_packed_bwd": pa.pooled_attention_packed_bwd_cuda,
-        "pooled_attention_bwd": pa.pooled_attention_bwd_cuda,
-        "token_pool_dx": tp.depthwise_token_pool_dx_cuda,
-        "token_pool_dw": tp.depthwise_token_pool_dw_cuda,
-    }
+    return ops.kernel_wrappers()
 
 
 def reset_counts() -> None:

@@ -48,6 +48,7 @@ which registers the ops.
 from __future__ import annotations
 
 import io
+import time
 from typing import List, Optional, Union
 
 import torch
@@ -57,7 +58,9 @@ from torch.nn.modules.batchnorm import _BatchNorm
 from pytorchvideo_tpu_torch.accelerate.fuse import fold_conv_bn
 from pytorchvideo_tpu_torch.layers.stochastic import Swish
 from pytorchvideo_tpu_torch.models.resnet import BottleneckBlock
+from pytorchvideo_tpu_torch.ops import launch_counts, launches_since
 from pytorchvideo_tpu_torch.ops.depthwise_conv import depthwise3x3x3_bn_swish
+from pytorchvideo_tpu_torch.utils.profiling import annotate, count
 
 
 class DepthwiseConv3x3x3BnAct(nn.Module):
@@ -189,7 +192,17 @@ class CompiledForward:
     a parameter to a new tensor does not. The JAX package's baked weights,
     and its guard against a foreign variables tree, have no counterpart.
     The kernels' launch counters move while the forward is captured (and
-    warmed up), never on a replay, which runs no Python.
+    warmed up), never on a replay, which runs no Python. The program's
+    counters (utils/profiling.py) count the capture in ``serve.captures``
+    and each replay in ``serve.replays``; ``.launches_per_replay`` holds the
+    launches the capture made by kernel (ops ``launch_counts``), so replays
+    times it gives the launches the replays made. ``.capture_s``: the host
+    seconds of the warm-up forwards and the capture (the capture begins by
+    waiting for the card, so the warm-ups' device time is in it).
+
+    Spans: ``pvt.serve.capture`` around the warm-ups and the capture;
+    ``pvt.serve.call`` around a call, with ``pvt.serve.copy_in``,
+    ``pvt.serve.replay`` and ``pvt.serve.clone`` inside.
     """
 
     def __init__(self, module: nn.Module, example_input: Clip, pool=None):
@@ -202,7 +215,8 @@ class CompiledForward:
         # Allocated before the capture, outside the graph's pool.
         self._static_in = [t.detach().clone() for t in inputs]
         arg = self._static_in if self._as_list else self._static_in[0]
-        with torch.cuda.device(device), torch.no_grad():
+        start = time.perf_counter()
+        with annotate("pvt.serve.capture"), torch.cuda.device(device), torch.no_grad():
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -210,25 +224,34 @@ class CompiledForward:
                     module(arg)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
+            launches = launch_counts()
             # Thread-local: a data prefetch's thread (its event waits and
             # pinned allocations) may run beside the capture.
             with torch.cuda.graph(self.graph, pool=self.pool, capture_error_mode="thread_local"):
                 out = module(arg)
+        self.capture_s = time.perf_counter() - start
+        self.launches_per_replay = launches_since(launches)
+        count("serve.captures")
         if not isinstance(out, torch.Tensor):
             raise ValueError(f"the deploy form must return one tensor, got {type(out).__name__}")
         self._static_out = out
 
     def __call__(self, x: Clip) -> torch.Tensor:
-        inputs = _tensors(x)
-        expected = [(t.shape, t.dtype, t.device) for t in self._static_in]
-        got = [(t.shape, t.dtype, t.device) for t in inputs]
-        if isinstance(x, (list, tuple)) != self._as_list or got != expected:
-            raise ValueError(f"this forward was captured for {_describe(expected)}, got "
-                             f"{_describe(got)}")
-        for static, t in zip(self._static_in, inputs):
-            static.copy_(t)
-        self.graph.replay()
-        return self._static_out.clone()
+        with annotate("pvt.serve.call"):
+            inputs = _tensors(x)
+            expected = [(t.shape, t.dtype, t.device) for t in self._static_in]
+            got = [(t.shape, t.dtype, t.device) for t in inputs]
+            if isinstance(x, (list, tuple)) != self._as_list or got != expected:
+                raise ValueError(f"this forward was captured for {_describe(expected)}, got "
+                                 f"{_describe(got)}")
+            with annotate("pvt.serve.copy_in"):
+                for static, t in zip(self._static_in, inputs):
+                    static.copy_(t)
+            with annotate("pvt.serve.replay"):
+                self.graph.replay()
+            count("serve.replays")
+            with annotate("pvt.serve.clone"):
+                return self._static_out.clone()
 
 
 def _describe(specs) -> str:

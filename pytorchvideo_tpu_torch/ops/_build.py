@@ -8,6 +8,10 @@ the checkout; the library's file name carries a hash of the flags and of
 every file under ``csrc/`` (the sources and the headers they include, such
 as ``hopper_tiles.cuh``), so an edited source or header is rebuilt. A missing ``nvcc`` or a failed build raises:
 there is no fallback.
+
+The program's counters (utils/profiling.py) count ``kernels.builds`` (nvcc
+ran) and ``kernels.loads``; the span ``pvt.setup.kernels`` covers the
+build and the load.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from pytorchvideo_tpu_torch.utils.profiling import annotate, count
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -99,6 +105,7 @@ def build_library() -> Path:
         cmd = [nvcc, *LINK_FLAGS, "-o", tmp_so, *objects]
         _check(_run(cmd), cmd)
         os.replace(tmp_so, so_path)
+    count("kernels.builds")
     return so_path
 
 
@@ -108,7 +115,9 @@ def load_library() -> ctypes.CDLL:
 
     Pointers and the stream are ``c_void_p``: without ``argtypes`` ctypes
     would pass them as 32-bit ints and cut them."""
-    lib = ctypes.CDLL(str(build_library()))
+    with annotate("pvt.setup.kernels"):
+        lib = ctypes.CDLL(str(build_library()))
+    count("kernels.loads")
     fn = lib.pvt_depthwise3x3x3_bn_swish
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [
         ctypes.c_int,

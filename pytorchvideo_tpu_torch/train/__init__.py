@@ -74,6 +74,7 @@ from pytorchvideo_tpu_torch.train.ssl_app import (  # noqa: F401
 )
 from pytorchvideo_tpu_torch.train.train_loop import (  # noqa: F401
     REMAT_POLICIES,
+    TRAIN_MARKS,
     TrainState,
     TrainStep,
     create_train_state,

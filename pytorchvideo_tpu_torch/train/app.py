@@ -87,6 +87,7 @@ from pytorchvideo_tpu_torch.train.train_loop import (
     map_video,
 )
 from pytorchvideo_tpu_torch.train.transforms import MixVideoBatchWrapper
+from pytorchvideo_tpu_torch.utils.profiling import annotate, count
 
 logger = logging.getLogger(__name__)
 
@@ -222,7 +223,11 @@ class VideoClassificationTrainApp:
     def train(self):
         """Runs ``trainer.max_epochs`` epochs of ``steps_per_epoch`` steps;
         returns the losses logged (every ``log_every_n_steps`` steps).
-        Repeated calls continue the same state and schedule."""
+        Repeated calls continue the same state and schedule.
+
+        Spans (utils/profiling.py): ``pvt.train.batch`` (the batch to the
+        device), the step's own, and at a logged step ``pvt.train.log`` (the
+        loss read back to the host, counted in ``train.host_reads``)."""
         if self.state is None:
             self.setup()
         trainer = self.cfg.trainer
@@ -232,14 +237,19 @@ class VideoClassificationTrainApp:
         for epoch in range(trainer.max_epochs):
             t0 = time.time()
             for step, batch in enumerate(self.datamodule.train_dataloader(self.steps_per_epoch)):
-                self.state, metrics = self._step(self._device_batch(batch))
+                with annotate("pvt.train.batch", step=self.state.step):
+                    batch = self._device_batch(batch)
+                self.state, metrics = self._step(batch)
                 if step % trainer.log_every_n_steps == 0:
-                    history.append(float(metrics["loss"]))
                     # The LR of the update just made (the schedule's index
                     # is the update count before it).
-                    lr = self.state.lr_schedule(self.state.step - 1)
-                    mlog.log({**metrics, "exact_epoch": epoch + step / self.steps_per_epoch,
-                              "lr": lr}, step=global_step, epoch=epoch)
+                    update = self.state.step - 1
+                    with annotate("pvt.train.log", step=update):
+                        count("train.host_reads")
+                        history.append(float(metrics["loss"]))
+                        lr = self.state.lr_schedule(update)
+                        mlog.log({**metrics, "exact_epoch": epoch + step / self.steps_per_epoch,
+                                  "lr": lr}, step=global_step, epoch=epoch)
                 global_step += 1
             if trainer.precise_bn_batches > 0:
                 update_bn_stats(self.state.model,

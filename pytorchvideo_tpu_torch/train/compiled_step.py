@@ -62,15 +62,34 @@ must run on one stream, one at a time: the dw kernel's counters are one
 buffer per device. The kernels' launch counters move once an update at
 each warm-up update and at the capture, never on a replay, which runs no
 Python.
+
+What the program counts and times (utils/profiling.py). Counters:
+``train.eager_updates`` (the warm-up updates), ``train.captures`` (one a
+batch signature: a second signature shows as a recapture) and
+``train.replays``. ``.launches_per_replay`` holds the launches the capture
+made by kernel, so replays times it gives the launches the replays made;
+``.capture_s`` the host seconds of the warm-up updates and the capture
+(the capture begins by waiting for the card, so the warm-ups' device time
+is in it). Spans: ``pvt.train.step`` around a call, with
+``pvt.train.prepare``, ``pvt.train.copy_in``, ``pvt.train.scalars``, then
+``pvt.train.warmup``, or ``pvt.train.capture`` and ``pvt.train.replay``, or
+``pvt.train.replay`` and ``pvt.train.metrics`` inside. A step with device
+marks (train_loop.py ``TrainStep.marks``: forward, backward, clip,
+optimizer) has them captured in its graph; inside a
+``profiling.recording()`` block each call then waits for the update's last
+mark, after its span, and keeps the four parts.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from pytorchvideo_tpu_torch.ops import launch_counts, launches_since
 from pytorchvideo_tpu_torch.train.train_loop import TrainState, _tensors
+from pytorchvideo_tpu_torch.utils.profiling import annotate, count, read_marks
 
 WARMUP_STEPS = 2
 
@@ -141,6 +160,8 @@ class CompiledTrainStep:
         self.signature = None
         self.calls = 0  # updates made: WARMUP_STEPS eager ones, then replays
         self._side = None
+        self.capture_s = 0.0
+        self.launches_per_replay: Dict[str, int] = {}
 
     def __call__(self, state: TrainState, batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None, **scalars):
@@ -150,51 +171,68 @@ class CompiledTrainStep:
         if self.signature is not None and signature != self.signature:
             raise ValueError(f"this step was captured for the batch signature {self.signature}, "
                              f"got {signature}")
-        inputs = self.step.prepare(batch, generator)
-        if self.signature is None:
-            # The static buffers lie outside the graph's pool.
-            self._static = [[t.detach().clone() for t in _tensors(x)] for x in inputs]
-            self._args = tuple(static if isinstance(x, (list, tuple)) else static[0]
-                               for static, x in zip(self._static, inputs))
-            self._side = torch.cuda.Stream(self.device)
-            self.signature = signature
-        with torch.no_grad():
-            for static, x in zip(self._static, inputs):
-                for buffer, t in zip(static, _tensors(x)):
-                    buffer.copy_(t)
-        self.step.write_scalars(state, **scalars)
-        if self.calls < WARMUP_STEPS:
-            metrics = self._warm_up()
-        else:
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            metrics = {k: v.clone() for k, v in self._metrics.items()}
-        self.calls += 1
-        state.step += 1
+        update = state.step
+        with annotate("pvt.train.step", step=update):
+            with annotate("pvt.train.prepare"):
+                inputs = self.step.prepare(batch, generator)
+            if self.signature is None:
+                # The static buffers lie outside the graph's pool.
+                self._static = [[t.detach().clone() for t in _tensors(x)] for x in inputs]
+                self._args = tuple(static if isinstance(x, (list, tuple)) else static[0]
+                                   for static, x in zip(self._static, inputs))
+                self._side = torch.cuda.Stream(self.device)
+                self.signature = signature
+            with annotate("pvt.train.copy_in"), torch.no_grad():
+                for static, x in zip(self._static, inputs):
+                    for buffer, t in zip(static, _tensors(x)):
+                        buffer.copy_(t)
+            with annotate("pvt.train.scalars"):
+                self.step.write_scalars(state, **scalars)
+            if self.calls < WARMUP_STEPS:
+                metrics = self._warm_up()
+            else:
+                if self.graph is None:
+                    self._capture()
+                with annotate("pvt.train.replay"):
+                    self.graph.replay()
+                count("train.replays")
+                with annotate("pvt.train.metrics"):
+                    metrics = {k: v.clone() for k, v in self._metrics.items()}
+            self.calls += 1
+            state.step += 1
+        read_marks(getattr(self.step, "marks", None), update)
         return state, metrics
 
     def _warm_up(self) -> Dict[str, torch.Tensor]:
         """One eager update on the side stream (PyTorch's recipe for what a
         capture follows: kernels built, cuDNN and cuBLAS set up, the dw
         kernel's counters and the optimizer's state allocated)."""
-        current = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(current)
-        with torch.cuda.stream(self._side):
-            metrics = self.step.update(self.state, *self._args)
-        current.wait_stream(self._side)
+        start = time.perf_counter()
+        with annotate("pvt.train.warmup"):
+            current = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(current)
+            with torch.cuda.stream(self._side):
+                metrics = self.step.update(self.state, *self._args)
+            current.wait_stream(self._side)
+        self.capture_s += time.perf_counter() - start
+        count("train.eager_updates")
         return metrics
 
     def _capture(self) -> None:
+        start = time.perf_counter()
         model = self.state.model
         graph = torch.cuda.CUDAGraph()
         for g in self._generators:
             graph.register_generator_state(g)
+        launches = launch_counts()
         # Thread-local: the datamodule's prefetch thread (its event waits and
         # pinned allocations, on a stream of its own) runs beside the capture.
-        with torch.cuda.device(self.device), torch.cuda.graph(
+        with annotate("pvt.train.capture"), torch.cuda.device(self.device), torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             metrics = self.step.update(self.state, *self._args)
+        self.launches_per_replay = launches_since(launches)
+        self.capture_s += time.perf_counter() - start
+        count("train.captures")
         self._metrics = metrics
         # The gradients the graph writes (allocated in its pool): held here
         # so that the pool never hands their memory to another allocation.

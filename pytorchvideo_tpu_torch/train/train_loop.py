@@ -86,6 +86,7 @@ from torch.utils.checkpoint import (
 from pytorchvideo_tpu_torch.layers.norms import recomputing
 from pytorchvideo_tpu_torch.losses import soft_target_cross_entropy
 from pytorchvideo_tpu_torch.train.optimizer import set_lr
+from pytorchvideo_tpu_torch.utils.profiling import DeviceMarks, annotate, count, read_marks
 
 _aten = torch.ops.aten
 # A flax Dense is a dot_general without batch dims: aten mm / addmm (a
@@ -211,12 +212,14 @@ def cast_parameters(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Ten
 def forward_backward(model: nn.Module, video: Video, labels: torch.Tensor,
                      loss_fn: Callable = soft_target_cross_entropy,
                      compute_dtype: Optional[torch.dtype] = None, grad_scale: float = 1.0,
-                     remat_policy: Optional[str] = None, sharding=None):
+                     remat_policy: Optional[str] = None, sharding=None,
+                     marks: Optional[DeviceMarks] = None):
     """One forward and backward of ``loss_fn(f32 logits, labels)``; the
     gradients (times ``grad_scale``) accumulate into the parameters' ``.grad``.
     ``remat_policy`` checkpoints the forward (see the module docstring);
-    ``sharding`` (a ``ShardPlan``) runs it on the plan's compute parameters.
-    Returns the detached loss and logits."""
+    ``sharding`` (a ``ShardPlan``) runs it on the plan's compute parameters;
+    ``marks`` (:data:`TRAIN_MARKS`) get "forward" after the loss and
+    "backward" after the backward. Returns the detached loss and logits."""
     policy = checkpoint_policy(remat_policy)
     params = None
     if sharding is not None:
@@ -238,7 +241,11 @@ def forward_backward(model: nn.Module, video: Video, labels: torch.Tensor,
                             preserve_rng_state=False,
                             context_fn=functools.partial(_remat_contexts, policy))
     loss = loss_fn(logits.float(), labels)
+    if marks is not None:
+        marks.record("forward")
     (loss * grad_scale).backward()
+    if marks is not None:
+        marks.record("backward")
     return loss.detach(), logits.detach()
 
 
@@ -260,6 +267,13 @@ def clip_by_global_norm_(grads, max_norm: float, norm: Optional[torch.Tensor] = 
     return norm
 
 
+# The device marks of an update on the card (TrainStep.marks), in order: its
+# start, after the loss, after the backward, after the zero gradients and the
+# clip (with a group, the gradients' average too), after the optimizer's step.
+# With several microbatches "forward" and "backward" fall in the last one.
+TRAIN_MARKS = ("start", "forward", "backward", "clip", "optimizer")
+
+
 class TrainStep:
     """``step(state, batch, generator=None) -> (state, metrics)``, built by
     :func:`make_train_step`: :meth:`prepare` (the host's part: checks, the
@@ -267,7 +281,15 @@ class TrainStep:
     written into the optimizer,
     :func:`~pytorchvideo_tpu_torch.train.optimizer.set_lr`), :meth:`update`
     (the device's part), then the update count. train/compiled_step.py
-    captures :meth:`update` by that interface, :meth:`signature` included."""
+    captures :meth:`update` by that interface, :meth:`signature` included.
+
+    ``marks``: the update's device marks (:data:`TRAIN_MARKS`, utils/profiling.py
+    ``DeviceMarks``), recorded on the card only: the four parts forward,
+    backward, clip and optimizer. A captured update holds them as event
+    nodes; inside ``profiling.recording()`` a call keeps their parts once
+    the update is done. The eager :meth:`__call__` opens the spans
+    ``pvt.train.step``, with ``pvt.train.prepare``, ``pvt.train.scalars``
+    and ``pvt.train.update`` inside, and counts ``train.eager_updates``."""
 
     def __init__(self, loss_fn: Callable, batch_transform: Optional[Callable],
                  clip_grad_norm: Optional[float], input_key: str, label_key: str,
@@ -283,6 +305,7 @@ class TrainStep:
         self.grad_accum_steps = grad_accum_steps
         self.process_group = process_group
         self.sharding = sharding
+        self.marks = DeviceMarks(TRAIN_MARKS)
 
     def signature(self, batch: Dict[str, Any]) -> tuple:
         """What one CUDA graph of this step is captured for: the clip's (or
@@ -318,6 +341,9 @@ class TrainStep:
         model = state.model
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
+        marks = self.marks if params and params[0].is_cuda else None
+        if marks is not None:
+            marks.record("start")
         for p in params:
             p.grad = None
         hard_labels = labels.dim() == 1
@@ -325,7 +351,8 @@ class TrainStep:
         loss_sum = accuracy_sum = 0.0
         for v, y in zip(split_video(video, chunks), labels.chunk(chunks)):
             loss, logits = forward_backward(model, v, y, self.loss_fn, self.compute_dtype,
-                                            1.0 / chunks, self.remat_policy, self.sharding)
+                                            1.0 / chunks, self.remat_policy, self.sharding,
+                                            marks)
             loss_sum = loss_sum + loss
             if hard_labels:
                 accuracy_sum = accuracy_sum + (logits.argmax(-1) == y).float().mean()
@@ -348,15 +375,26 @@ class TrainStep:
             clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm,
                                  None if self.sharding is None else
                                  self.sharding.global_norm(model))
+        if marks is not None:
+            marks.record("clip")
         state.optimizer.step()
+        if marks is not None:
+            marks.record("optimizer")
         return metrics
 
     def __call__(self, state: TrainState, batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None):
-        video, labels = self.prepare(batch, generator)
-        self.write_scalars(state)
-        metrics = self.update(state, video, labels)
-        state.step += 1
+        update = state.step
+        with annotate("pvt.train.step", step=update):
+            with annotate("pvt.train.prepare"):
+                video, labels = self.prepare(batch, generator)
+            with annotate("pvt.train.scalars"):
+                self.write_scalars(state)
+            with annotate("pvt.train.update"):
+                metrics = self.update(state, video, labels)
+            state.step += 1
+        count("train.eager_updates")
+        read_marks(self.marks, update)
         return state, metrics
 
 

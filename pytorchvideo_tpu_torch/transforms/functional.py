@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pytorchvideo_tpu_torch.utils.profiling import annotate
+
 # Axis convention for the native THWC layout.
 TEMPORAL_AXIS = -4
 HEIGHT_AXIS = -3
@@ -56,7 +58,8 @@ def cthw_to_thwc(x: torch.Tensor) -> torch.Tensor:
 def thwc_to_cthw(x: torch.Tensor) -> torch.Tensor:
     """(..., T, H, W, C) -> (..., C, T, H, W), a view (a batch of such
     clips stacked from contiguous THWC memory is ``channels_last_3d``)."""
-    return x.movedim(-1, -4)
+    with annotate("pvt.transform.thwc_to_cthw"):
+        return x.movedim(-1, -4)
 
 
 def thwc_from_numpy_thwc(x: np.ndarray) -> torch.Tensor:

@@ -12,7 +12,8 @@ scalars (the Beta-distributed lambda, the CutMix box centres, MixVideo's
 coin) are read to the host from the caller's ``torch.Generator`` (torch's
 default CPU generator when None): a CPU generator keeps the device from
 waiting on them; a CUDA one draws on the card, and each scalar read waits
-for it. The mixing itself runs where the clips are.
+for it. The mixing itself runs where the clips are. Each class's call is
+one span, ``pvt.transform.<class>`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from pytorchvideo_tpu_torch.transforms.functional import convert_to_one_hot
+from pytorchvideo_tpu_torch.utils.profiling import annotate
 
 
 def _device(generator: Optional[torch.Generator]):
@@ -137,8 +139,9 @@ class MixUp:
 
     def __call__(self, x_video, labels, generator: Optional[torch.Generator] = None,
                  x_audio: Optional[torch.Tensor] = None):
-        return mixup(x_video, labels, self.alpha, self.label_smoothing, self.num_classes,
-                     self.one_hot, generator, x_audio)
+        with annotate("pvt.transform.MixUp"):
+            return mixup(x_video, labels, self.alpha, self.label_smoothing, self.num_classes,
+                         self.one_hot, generator, x_audio)
 
 
 class CutMix(MixUp):
@@ -146,8 +149,9 @@ class CutMix(MixUp):
 
     def __call__(self, x_video, labels, generator: Optional[torch.Generator] = None,
                  x_audio: Optional[torch.Tensor] = None):
-        return cutmix(x_video, labels, self.alpha, self.label_smoothing, self.num_classes,
-                      self.one_hot, generator, x_audio)
+        with annotate("pvt.transform.CutMix"):
+            return cutmix(x_video, labels, self.alpha, self.label_smoothing, self.num_classes,
+                          self.one_hot, generator, x_audio)
 
 
 class MixVideo:
@@ -165,6 +169,7 @@ class MixVideo:
 
     def __call__(self, x_video, labels, generator: Optional[torch.Generator] = None,
                  x_audio: Optional[torch.Tensor] = None):
-        if _uniform(generator) < self.cutmix_prob:
-            return self.cutmix(x_video, labels, generator, x_audio)
-        return self.mixup(x_video, labels, generator, x_audio)
+        with annotate("pvt.transform.MixVideo"):
+            if _uniform(generator) < self.cutmix_prob:
+                return self.cutmix(x_video, labels, generator, x_audio)
+            return self.mixup(x_video, labels, generator, x_audio)

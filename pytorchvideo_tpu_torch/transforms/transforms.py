@@ -7,7 +7,9 @@ to a tensor transform to take and give upstream's (C, T, H, W). A random
 transform holds a ``numpy.random.Generator`` seeded from ``seed`` and makes
 the JAX package's draws, in its order, on the host: one seed gives the
 same crop, scale, flip and op choice as the JAX transform. The arithmetic
-runs where the clip is (transforms/functional.py).
+runs where the clip is (transforms/functional.py). ``Div255`` and
+``Normalize``, on the served path, open a span each call,
+``pvt.transform.<class>`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from pytorchvideo_tpu_torch.transforms import functional as F
+from pytorchvideo_tpu_torch.utils.profiling import annotate
 
 
 class Compose:
@@ -187,12 +190,13 @@ class Normalize(_Layout):
         self._constants: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def __call__(self, x):
-        v = self._to_native(x)
-        key = (v.device, v.dtype)
-        if key not in self._constants:
-            self._constants[key] = (F.device_constant(self._mean, v.dtype, v.device),
-                                    F.device_constant(self._std, v.dtype, v.device))
-        return self._from_native(F.normalize(v, *self._constants[key]))
+        with annotate("pvt.transform.Normalize"):
+            v = self._to_native(x)
+            key = (v.device, v.dtype)
+            if key not in self._constants:
+                self._constants[key] = (F.device_constant(self._mean, v.dtype, v.device),
+                                        F.device_constant(self._std, v.dtype, v.device))
+            return self._from_native(F.normalize(v, *self._constants[key]))
 
 
 class ConvertUint8ToFloat:
@@ -301,4 +305,5 @@ class Div255:
     """Float32 x / 255 (upstream transforms.py:414-430)."""
 
     def __call__(self, x):
-        return F.div_255(x.float())
+        with annotate("pvt.transform.Div255"):
+            return F.div_255(x.float())
